@@ -1,0 +1,71 @@
+"""The PyTorch port stands alone: importing every module of
+yolov7_tracker_tpu_torch (and chip_smoke.py) pulls in neither JAX, Flax
+nor the JAX package, and its entry points refuse to run without a device
+on a machine without a GPU instead of falling back to the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code, **env):
+    return subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(code)], cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "", **env})
+
+
+def test_port_imports_no_jax():
+    proc = _run("""
+        import importlib, pkgutil, sys
+        import yolov7_tracker_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                       pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "yolov7_tracker_tpu"))
+        assert len(names) >= 20, names
+        print("BAD", bad)
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+def test_entry_points_need_a_device():
+    proc = _run("""
+        import pytest
+        from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                       TrackingPipeline)
+        from yolov7_tracker_tpu_torch.trackers.slab import TrackerConfig
+        from yolov7_tracker_tpu_torch.cli import track
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TrackingPipeline(PipelineConfig(), TrackerConfig("bytetrack"))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            track.main(["--dataset", "mot17", "--config_dir",
+                        "yolov7_tracker_tpu/configs", "--track_eval",
+                        "false"])
+        print("OK")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert "OK" in proc.stdout
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    # alone in a directory, without the package, it fails too
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
+    proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,350 @@
+"""Private-dummy rectangular auction: the CUDA kernel and its plain version.
+
+Port of ``masked_assignment_pallas_v2`` (yolov7_tracker_tpu/ops/
+pallas_auction.py). Contract: ``(cost, row_mask, col_mask, thresh) ->
+(row_to_col, col_to_row)``, the max-weight free-disposal matching of
+weight ``thresh - cost`` in which each row i owns a private weight-0
+dummy column m+i, solved by an eps-scaled Jacobi auction and gated by
+``cost <= thresh`` on output. See the JAX module's header for why the
+forward auction from zero prices is optimal here.
+
+Two implementations with the same function, bit for bit:
+
+* ``masked_assignment_auction_torch`` -- the plain version. It mirrors
+  ``_auction_phase_kernel_v2`` step by step on the padded (Np, Mp)
+  weight matrix, with host-synced while loops. It runs on any device.
+* ``masked_assignment_auction_cuda`` -- the hand-written kernel in
+  ``csrc/auction.cu``: all phases of B problems in one launch, one
+  thread block per problem.
+
+``masked_assignment_auction`` dispatches on the tensor's device: a CPU
+tensor takes the plain version, a CUDA tensor launches the kernel (or
+raises). Every step of the sweep is a max, a min, a compare or a single
+rounded add, so the two agree exactly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+NEG_F = -1e9
+MAX_ITERS = 4096
+_MAX_PHASES = 8     # csrc/auction.cu MAX_PHASES
+
+# K2 launches since the last reset; chip_smoke.py reads it to show the
+# main path went through the kernel.
+LAUNCHES = 0
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(_PKG, "csrc", "auction.cu")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+_LIB = None
+BUILD_SECONDS = None
+BUILD_LOG = ""      # nvcc's -Xptxas -v report (registers, shared memory)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@functools.lru_cache(maxsize=16)
+def _powers(n_phases: int, phase_factor: float) -> tuple:
+    """phase_factor ** (1 .. n_phases) in float32, as Python floats (the
+    kernel takes them by value)."""
+    return tuple(torch.pow(
+        torch.tensor(phase_factor, dtype=torch.float32),
+        torch.arange(1, n_phases + 1, dtype=torch.float32)).tolist())
+
+
+def eps_schedule(thresh: torch.Tensor, n_phases: int, phase_factor: float):
+    """(B,) float32 thresholds -> (sched (B, n_phases), cap (B,)), in the
+    float32 arithmetic of pallas_auction.py:402-410."""
+    scale = thresh + 1.0
+    powers = torch.tensor(_powers(n_phases, phase_factor),
+                          dtype=torch.float32, device=thresh.device)
+    sched = torch.maximum(
+        scale[:, None] / powers[None, :],
+        torch.tensor(2e-4, dtype=torch.float32, device=thresh.device))
+    return sched, 2.0 * scale
+
+
+def _jitter(n: int, m: int, device):
+    """Deterministic sub-resolution tie-break jitter
+    (pallas_auction.py:391)."""
+    rows = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    cols = torch.arange(m, dtype=torch.float32, device=device)[None, :]
+    unit = torch.tensor(1e-6 / 17.0, dtype=torch.float32, device=device)
+    return torch.remainder(rows * 131.0 + cols * 7.0, 17.0) * unit
+
+
+def _gate(cost, r2c_ext, row_mask, thresh):
+    """Keep a pair only if it is real and cost <= thresh; rebuild c2r."""
+    n, m = cost.shape
+    rows = torch.arange(n, device=cost.device)
+    gate = cost[rows, r2c_ext.clamp(0, m - 1)]
+    r2c = torch.where((r2c_ext >= 0) & (r2c_ext < m) & row_mask
+                      & (gate <= thresh), r2c_ext, -1).to(torch.int32)
+    c2r = torch.full((m + 1,), -1, dtype=torch.int32, device=cost.device)
+    c2r[torch.where(r2c >= 0, r2c, m).long()] = torch.where(
+        r2c >= 0, rows.to(torch.int32), -1)
+    return r2c, c2r[:m]
+
+
+def _solve_one_torch(cost, row_mask, col_mask, thresh, sched, cap,
+                     max_iters):
+    n, m = cost.shape
+    dev = cost.device
+    np_r = _round_up(max(n, 1), 128)
+    mp = _round_up(m + np_r, 128)
+    neg = torch.tensor(NEG_F, dtype=torch.float32, device=dev)
+    valid = row_mask[:, None] & col_mask[None, :]
+    w = torch.where(valid, thresh - cost, neg)
+    w = torch.where(valid, w + _jitter(n, m, dev), neg)
+    w_p = torch.full((np_r, mp), NEG_F, dtype=torch.float32, device=dev)
+    w_p[:n, :m] = w
+    diag = torch.arange(np_r, device=dev)
+    w_p[diag, m + diag] = 0.0
+
+    col_ids = torch.arange(mp, device=dev)
+    row_ids = torch.arange(np_r, device=dev)
+    r2c = torch.full((np_r,), -1, dtype=torch.long, device=dev)
+    c2r = torch.full((mp,), -1, dtype=torch.long, device=dev)
+    prices = torch.zeros(mp, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    sweeps = 0
+    for eps in sched:
+        it, n_open = 0, 1
+        while it < max_iters and n_open > 0:
+            before = (r2c, c2r, prices)
+            # clamp unowned columns to price 0, release eps-CS violators
+            prices = torch.where(c2r < 0, zero, prices)
+            values = w_p - prices
+            v1r = values.max(dim=1).values
+            own = col_ids[None, :] == r2c[:, None]
+            cur = torch.where(own, values, neg).max(dim=1).values
+            keep = (r2c >= 0) & (cur >= v1r - eps)
+            n_released = (r2c >= 0) & ~keep
+            r2c = torch.where(keep, r2c, -1)
+            c2r = torch.where(own & keep[:, None], row_ids[:, None],
+                              -1).max(dim=0).values
+            prices = torch.where(c2r < 0, zero, prices)
+
+            # one Jacobi bid round over the unassigned rows
+            unassigned = r2c < 0
+            values = w_p - prices
+            v1 = values.max(dim=1).values
+            best_j = values.argmax(dim=1)           # first maximal column
+            best_oh = col_ids[None, :] == best_j[:, None]
+            v2 = torch.where(best_oh, neg, values).max(dim=1).values
+            bid = prices[best_j] + torch.minimum(v1 - v2, cap) + eps
+            bid_eff = torch.where(unassigned, bid, neg)
+            col_best = torch.where(best_oh, bid_eff[:, None],
+                                   neg).max(dim=0).values
+            cand = (best_oh & (bid_eff[:, None] >= col_best[None, :])
+                    & unassigned[:, None])
+            winner = torch.where(cand, row_ids[:, None],
+                                 np_r).min(dim=0).values  # lowest row wins
+            contested = winner < np_r
+            won = cand & (row_ids[:, None] == winner[None, :])
+            won_row = won.any(dim=1)
+            new_col = torch.where(won, col_ids[None, :], -1).max(dim=1).values
+
+            prev_owner = torch.where(contested, c2r, -1)
+            evicted = (row_ids[:, None] == prev_owner[None, :]).any(dim=1)
+            r2c = torch.where(evicted, -1, r2c)
+            r2c = torch.where(won_row, new_col, r2c)
+            c2r = torch.where(contested, winner, c2r)
+            prices = torch.where(contested, col_best, prices)
+            n_open = int(((r2c < 0).sum() + n_released.sum()).item())
+            it += 1
+            sweeps += 1
+            if _same_state(before, (r2c, c2r, prices)):
+                # an unchanged state repeats unchanged until max_iters
+                break
+    return _gate(cost, r2c[:n], row_mask, thresh) + (sweeps,)
+
+
+def _same_state(a, b) -> bool:
+    """Bitwise equality of two (r2c, c2r, prices) auction states."""
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and torch.equal(a[2].view(torch.int32), b[2].view(torch.int32)))
+
+
+@functools.lru_cache(maxsize=64)
+def _constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """A float32 tensor of Python numbers, made once per device (no
+    host-to-device copy on every solve)."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def _batched_args(cost, row_mask, col_mask, thresh):
+    """Normalise to cost (N,M) or (B,N,M), masks (B,N)/(B,M), thresh (B,).
+    thresh: a number, a sequence of numbers or a tensor."""
+    batched = row_mask.dim() == 2
+    rm = row_mask if batched else row_mask[None]
+    cm = col_mask if batched else col_mask[None]
+    if isinstance(thresh, torch.Tensor):
+        th = thresh.to(device=cost.device, dtype=torch.float32)
+    else:
+        values = (tuple(float(t) for t in thresh)
+                  if isinstance(thresh, (tuple, list)) else (float(thresh),))
+        th = _constant(values, cost.device)
+    th = th.reshape(-1).expand(rm.shape[0])
+    return batched, rm.bool(), cm.bool(), th
+
+
+def masked_assignment_auction_torch(cost, row_mask, col_mask, thresh,
+                                    max_iters: int = MAX_ITERS,
+                                    n_phases: int = 5,
+                                    phase_factor: float = 4.0, sweeps=None):
+    """Plain PyTorch version of the K2 kernel. Shapes as
+    :func:`masked_assignment_auction`; ``sweeps`` (B,) int32, if given,
+    receives each problem's sweep count."""
+    batched, rm, cm, th = _batched_args(cost, row_mask, col_mask, thresh)
+    sched, cap = eps_schedule(th, n_phases, phase_factor)
+    costs = cost.float()
+    outs = [
+        _solve_one_torch(costs[b] if costs.dim() == 3 else costs, rm[b],
+                         cm[b], th[b], sched[b], cap[b], max_iters)
+        for b in range(rm.shape[0])
+    ]
+    r2c = torch.stack([o[0] for o in outs])
+    c2r = torch.stack([o[1] for o in outs])
+    if sweeps is not None:
+        sweeps.copy_(torch.tensor([o[2] for o in outs], dtype=torch.int32))
+    return (r2c, c2r) if batched else (r2c[0], c2r[0])
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the auction kernel cannot be built")
+
+
+def load_library():
+    """Build csrc/auction.cu into _build/ (keyed by the source's hash) at
+    first use and bind it with ctypes."""
+    global _LIB, BUILD_SECONDS, BUILD_LOG
+    if _LIB is not None:
+        return _LIB
+    with open(_SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    so = os.path.join(_BUILD_DIR, f"libauction_{digest}.so")
+    t0 = time.time()
+    with open(os.path.join(_BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.isfile(so):
+            tmp = so + ".tmp"
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+                   "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SOURCE]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            BUILD_LOG = proc.stderr
+            os.replace(tmp, so)
+    BUILD_SECONDS = time.time() - t0
+    lib = ctypes.CDLL(so)
+    lib.auction_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong,        # cost, batch stride
+        ctypes.c_void_p, ctypes.c_void_p,          # row_mask, col_mask
+        ctypes.c_void_p,                           # thresh (B,)
+        ctypes.POINTER(ctypes.c_float),            # powers (P,), host
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, M
+        ctypes.c_int, ctypes.c_int,                # n_phases, max_iters
+        ctypes.c_void_p, ctypes.c_void_p,          # r2c out, c2r out
+        ctypes.c_void_p,                           # sweeps out (nullable)
+        ctypes.c_void_p,                           # stream
+    ]
+    lib.auction_launch.restype = ctypes.c_int
+    _LIB = lib
+    return lib
+
+
+def masked_assignment_auction_cuda(cost, row_mask, col_mask, thresh,
+                                   max_iters: int = MAX_ITERS,
+                                   n_phases: int = 5,
+                                   phase_factor: float = 4.0, sweeps=None):
+    """Launch the K2 kernel: all phases of every problem in one launch.
+
+    cost: (N, M) shared by all problems or (B, N, M), float32, contiguous.
+    row_mask (N,) or (B, N), col_mask (M,) or (B, M), bool.
+    thresh: scalar or (B,). ``sweeps``: optional (B,) int32 CUDA tensor
+    that receives each problem's sweep count.
+    """
+    global LAUNCHES
+    if not cost.is_cuda:
+        raise ValueError("masked_assignment_auction_cuda needs CUDA tensors")
+    if cost.dtype != torch.float32 or not cost.is_contiguous():
+        raise ValueError("cost must be a contiguous float32 tensor")
+    if cost.dim() not in (2, 3):
+        raise ValueError("cost must be (N, M) or (B, N, M), got "
+                         f"{tuple(cost.shape)}")
+    batched, rm, cm, th = _batched_args(cost, row_mask, col_mask, thresh)
+    b = rm.shape[0]
+    n, m = cost.shape[-2:]
+    if cost.dim() == 3 and cost.shape[0] != b:
+        raise ValueError("cost batch does not match the masks")
+    if rm.shape != (b, n) or cm.shape != (b, m):
+        raise ValueError(
+            f"mask shapes {tuple(rm.shape)}, {tuple(cm.shape)} do not "
+            f"match cost {tuple(cost.shape)}")
+    for t in (rm, cm):
+        if t.device != cost.device:
+            raise ValueError("masks must be on the cost's device")
+    rm = rm.contiguous()
+    cm = cm.contiguous()
+    th = th.contiguous()
+    if not 1 <= n_phases <= _MAX_PHASES:
+        raise ValueError(f"n_phases must be in 1..{_MAX_PHASES}")
+    powers = (ctypes.c_float * n_phases)(*_powers(n_phases, phase_factor))
+    r2c = torch.empty((b, n), dtype=torch.int32, device=cost.device)
+    c2r = torch.empty((b, m), dtype=torch.int32, device=cost.device)
+    if sweeps is not None and (sweeps.shape != (b,)
+                               or sweeps.dtype != torch.int32
+                               or sweeps.device != cost.device):
+        raise ValueError("sweeps must be a (B,) int32 tensor on the device")
+    lib = load_library()
+    stream = torch.cuda.current_stream(cost.device).cuda_stream
+    LAUNCHES += 1
+    err = lib.auction_launch(
+        cost.data_ptr(), n * m if cost.dim() == 3 else 0,
+        rm.data_ptr(), cm.data_ptr(), th.data_ptr(), powers,
+        b, n, m, n_phases, max_iters,
+        r2c.data_ptr(), c2r.data_ptr(),
+        sweeps.data_ptr() if sweeps is not None else None, stream)
+    if err != 0:
+        raise RuntimeError(f"auction kernel launch failed: CUDA error {err}")
+    return (r2c, c2r) if batched else (r2c[0], c2r[0])
+
+
+def masked_assignment_auction(cost, row_mask, col_mask, thresh,
+                              max_iters: int = MAX_ITERS, n_phases: int = 5,
+                              phase_factor: float = 4.0):
+    """K2 on the tensor's device: the plain version for a CPU tensor, the
+    CUDA kernel for a CUDA tensor. Returns int32 (r2c (..., N),
+    c2r (..., M))."""
+    if cost.is_cuda:
+        return masked_assignment_auction_cuda(
+            cost, row_mask, col_mask, thresh, max_iters, n_phases,
+            phase_factor)
+    if cost.device.type != "cpu":
+        raise ValueError(f"no auction implementation for {cost.device}")
+    return masked_assignment_auction_torch(
+        cost, row_mask, col_mask, thresh, max_iters, n_phases, phase_factor)

@@ -1,0 +1,62 @@
+"""ByteTrack: two-stage high/low-confidence association as one slab step
+(port of yolov7_tracker_tpu/trackers/bytetrack.py).
+
+Stages: 1. pool (activated Tracked + Lost) vs high dets at 0.9;
+2. Tracked leftovers vs low dets at 0.5; 3. unconfirmed tracks vs
+leftover high dets at 0.7 (2 and 3 solved as ONE batch-2 auction launch,
+the JAX package's vmapped pair); 4. births; 5. prune and dedup.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import boxes as boxops
+from ..ops.assignment import solve_assignment
+from . import slab as S
+from .registry import register
+
+
+@register("bytetrack")
+def bytetrack_step(slab: S.TrackSlab, dets: S.DetSlab, cfg: S.TrackerConfig):
+    if cfg.feature_dim > 0:
+        raise NotImplementedError(
+            "appearance fusion (feature_dim > 0) is not ported yet")
+    fmt = cfg.kalman_format
+    slab = slab._replace(frame=slab.frame + 1)
+
+    low_conf = max(0.15, cfg.conf_thresh - 0.3)
+    high = dets.valid & (dets.score >= cfg.conf_thresh)
+    low = dets.valid & ~high & (dets.score > low_conf)
+
+    # stage 1: pool vs high dets @0.9
+    pmask = S.pool_mask(slab)
+    slab = S.predict_pool(slab, fmt, pmask)
+    cost = boxops.iou_distance(S.track_tlbr(slab, fmt), dets.tlbr)
+    r2c, c2r = solve_assignment(cost, pmask, high, 0.9)
+    was_tracked = slab.state == S.TRACKED
+    slab = S.apply_matches(slab, dets, r2c, fmt, cfg)
+
+    # stages 2 + 3 in one batch-2 solve: their rows are disjoint from
+    # every row updated in stages 1-2, so both see the post-stage-1 IoU
+    cost23 = boxops.iou_distance(S.track_tlbr(slab, fmt), dets.tlbr)
+    u_tracks0 = pmask & (r2c < 0) & was_tracked
+    umask = S.unconfirmed_mask(slab)
+    u_high = high & (c2r < 0)
+    r2c_b, c2r_b = solve_assignment(
+        cost23, torch.stack([u_tracks0, umask]), torch.stack([low, u_high]),
+        (0.5, 0.7))
+    r2c2, r2c3, c2r3 = r2c_b[0], r2c_b[1], c2r_b[1]
+    slab = S.apply_matches(slab, dets, r2c2, fmt, cfg)
+    slab = S.mark_lost(slab, u_tracks0 & (r2c2 < 0))
+    slab = S.apply_matches(slab, dets, r2c3, fmt, cfg)
+    slab = S.mark_removed(slab, umask & (r2c3 < 0))
+
+    # stage 4: births
+    new_mask = u_high & (c2r3 < 0) & (dets.score > cfg.conf_thresh + 0.1)
+    slab = S.init_new_tracks(slab, dets, new_mask, fmt, cfg)
+
+    # stage 5
+    slab = S.prune_lost(slab, cfg.max_time_lost)
+    slab = S.remove_duplicates(slab, fmt)
+    return slab, S.frame_output(slab, fmt, cfg)

@@ -1,0 +1,390 @@
+"""The track slab: fixed-capacity tracker state as a NamedTuple of tensors
+(port of yolov7_tracker_tpu/trackers/slab.py).
+
+Field names and shapes match the JAX TrackSlab, so a slab round-trips
+through the same npz checkpoint layout. Every lifecycle event is a masked
+update over the (T,) slot axis, so a tracker step is one function
+``(slab, det_slab) -> (slab, frame_output)`` with no host sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops import boxes as boxops
+from ..ops import kalman
+
+# TrackState (basetrack.py:14-18)
+NEW, TRACKED, LOST, REMOVED = 0, 1, 2, 3
+
+
+class TrackSlab(NamedTuple):
+    mean: torch.Tensor              # (T, 8) KF mean
+    cov: torch.Tensor               # (T, 8, 8) KF covariance
+    det_tlwh: torch.Tensor          # (T, 4) raw detection tlwh at last update
+    score: torch.Tensor             # (T,)
+    cls: torch.Tensor               # (T,)
+    state: torch.Tensor             # (T,) int32 TrackState
+    occupied: torch.Tensor          # (T,) bool
+    is_activated: torch.Tensor      # (T,) bool
+    track_id: torch.Tensor          # (T,) int32
+    frame_id: torch.Tensor          # (T,) int32 last-updated frame
+    start_frame: torch.Tensor       # (T,) int32
+    tracklet_len: torch.Tensor      # (T,) int32
+    time_since_update: torch.Tensor  # (T,) int32
+    feature: torch.Tensor           # (T, F)
+    feat_hist: torch.Tensor         # (T, H, F)
+    feat_count: torch.Tensor        # (T,) int32
+    extra: torch.Tensor             # (T, E)
+    ins_seq: torch.Tensor           # (T,) int32
+    lost_seq: torch.Tensor          # (T,) int32
+    next_id: torch.Tensor           # () int32
+    frame: torch.Tensor             # () int32
+
+    @property
+    def capacity(self) -> int:
+        return self.score.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackerConfig:
+    """Static tracker options (the same fields as the JAX TrackerConfig)."""
+
+    tracker: str = "sort"
+    kalman_format: str = "default"
+    conf_thresh: float = 0.2
+    iou_thresh: float = 0.5
+    track_buffer: int = 30
+    frame_rate: int = 30
+    capacity: int = 256
+    det_capacity: int = 128
+    feature_dim: int = 0
+    feature_hist: int = 0
+    use_avg_of_feature: bool = True
+    extra_dim: int = 0
+    gamma: float = 0.1
+    min_area: float = 150.0
+    dhn_weights: str = ""
+    dhn_hidden: int = 256
+    dhn_arch: str = "gru"
+
+    @property
+    def max_time_lost(self) -> int:
+        return int(self.frame_rate / 30.0 * self.track_buffer)
+
+
+class DetSlab(NamedTuple):
+    """Padded per-frame detections."""
+
+    tlbr: torch.Tensor     # (D, 4)
+    score: torch.Tensor    # (D,)
+    cls: torch.Tensor      # (D,)
+    valid: torch.Tensor    # (D,) bool
+    feature: torch.Tensor  # (D, F)
+
+    @property
+    def tlwh(self):
+        return boxops.tlbr_to_tlwh(self.tlbr)
+
+
+def init_slab(cfg: TrackerConfig, device) -> TrackSlab:
+    t, f, h = cfg.capacity, cfg.feature_dim, cfg.feature_hist
+    i32 = dict(dtype=torch.int32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return TrackSlab(
+        mean=torch.zeros((t, 8), **f32),
+        cov=torch.eye(8, **f32).repeat(t, 1, 1),
+        det_tlwh=torch.zeros((t, 4), **f32),
+        score=torch.zeros((t,), **f32),
+        cls=torch.zeros((t,), **f32),
+        state=torch.full((t,), REMOVED, **i32),
+        occupied=torch.zeros((t,), dtype=torch.bool, device=device),
+        is_activated=torch.zeros((t,), dtype=torch.bool, device=device),
+        track_id=torch.zeros((t,), **i32),
+        frame_id=torch.zeros((t,), **i32),
+        start_frame=torch.zeros((t,), **i32),
+        tracklet_len=torch.zeros((t,), **i32),
+        time_since_update=torch.zeros((t,), **i32),
+        feature=torch.zeros((t, f), **f32),
+        feat_hist=torch.zeros((t, h, f), **f32),
+        feat_count=torch.zeros((t,), **i32),
+        extra=torch.zeros((t, cfg.extra_dim), **f32),
+        ins_seq=torch.zeros((t,), **i32),
+        lost_seq=torch.zeros((t,), **i32),
+        next_id=torch.zeros((), **i32),
+        frame=torch.zeros((), **i32),
+    )
+
+
+def make_det_slab(cfg: TrackerConfig, tlbr, score, cls, valid,
+                  device) -> DetSlab:
+    """Pad (or cut) per-frame detections to the slab's det_capacity."""
+    d = cfg.det_capacity
+
+    def pad(x, dtype, fill=0):
+        x = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)[:d]
+        out = torch.full((d,) + tuple(x.shape[1:]), fill, dtype=dtype,
+                         device=device)
+        out[:x.shape[0]] = x
+        return out
+
+    return DetSlab(
+        tlbr=pad(np.asarray(tlbr, np.float32).reshape(-1, 4), torch.float32),
+        score=pad(score, torch.float32),
+        cls=pad(cls, torch.float32),
+        valid=pad(valid, torch.bool, False),
+        feature=torch.zeros((d, cfg.feature_dim), dtype=torch.float32,
+                            device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# masked views
+# ---------------------------------------------------------------------------
+
+def track_tlwh(slab: TrackSlab, fmt: str):
+    if fmt == "none":
+        return slab.det_tlwh
+    kf_tlwh = kalman.tlwh_from_mean(fmt, slab.mean)
+    return torch.where(slab.occupied[:, None], kf_tlwh, slab.det_tlwh)
+
+
+def track_tlbr(slab: TrackSlab, fmt: str):
+    return boxops.tlwh_to_tlbr(track_tlwh(slab, fmt))
+
+
+def pool_mask(slab: TrackSlab):
+    """strack_pool = activated Tracked + Lost."""
+    return slab.occupied & (
+        ((slab.state == TRACKED) & slab.is_activated) | (slab.state == LOST))
+
+
+def unconfirmed_mask(slab: TrackSlab):
+    return slab.occupied & (slab.state == TRACKED) & ~slab.is_activated
+
+
+# ---------------------------------------------------------------------------
+# lifecycle ops (all masked)
+# ---------------------------------------------------------------------------
+
+def predict_pool(slab: TrackSlab, fmt: str,
+                 mask: Optional[torch.Tensor] = None) -> TrackSlab:
+    """KF multi_predict over the pool + time_since_update bump."""
+    if mask is None:
+        mask = pool_mask(slab)
+    mean = kalman.zero_stale_velocity(fmt, slab.mean, slab.state == TRACKED)
+    new_mean, new_cov = kalman.predict(fmt, mean, slab.cov)
+    return slab._replace(
+        mean=torch.where(mask[:, None], new_mean, slab.mean),
+        cov=torch.where(mask[:, None, None], new_cov, slab.cov),
+        time_since_update=torch.where(mask, slab.time_since_update + 1,
+                                      slab.time_since_update),
+    )
+
+
+def apply_matches(slab: TrackSlab, dets: DetSlab, row_to_col, fmt: str,
+                  cfg: TrackerConfig) -> TrackSlab:
+    """Commit matched (track, det) pairs: STrack.update for Tracked rows,
+    STrack.re_activate for Lost rows (tracklet_len restarts at 0)."""
+    upd = row_to_col >= 0
+    det_idx = row_to_col.long().clamp(0, dets.tlbr.shape[0] - 1)
+    det_tlwh = dets.tlwh[det_idx]
+    meas = kalman.measurement_from_tlwh(fmt, det_tlwh)
+    conf = None
+    if kalman.SPECS[fmt].nsa:
+        conf = torch.where(slab.state == TRACKED, dets.score[det_idx],
+                           torch.zeros_like(slab.score))
+    new_mean, new_cov = kalman.update(fmt, slab.mean, slab.cov, meas, conf)
+    was_tracked = slab.state == TRACKED
+    one = torch.ones_like(slab.tracklet_len)
+    return slab._replace(
+        mean=torch.where(upd[:, None], new_mean, slab.mean),
+        cov=torch.where(upd[:, None, None], new_cov, slab.cov),
+        det_tlwh=torch.where(upd[:, None], det_tlwh, slab.det_tlwh),
+        score=torch.where(upd, dets.score[det_idx], slab.score),
+        state=torch.where(upd, torch.full_like(slab.state, TRACKED),
+                          slab.state),
+        is_activated=slab.is_activated | upd,
+        frame_id=torch.where(upd, slab.frame.expand_as(slab.frame_id),
+                             slab.frame_id),
+        tracklet_len=torch.where(
+            upd, torch.where(was_tracked, slab.tracklet_len + one,
+                             torch.zeros_like(one)), slab.tracklet_len),
+        time_since_update=torch.where(upd, torch.zeros_like(one),
+                                      slab.time_since_update),
+    )
+
+
+def mark_lost(slab: TrackSlab, mask) -> TrackSlab:
+    return slab._replace(
+        state=torch.where(mask, torch.full_like(slab.state, LOST),
+                          slab.state))
+
+
+def mark_removed(slab: TrackSlab, mask) -> TrackSlab:
+    """Removed slots are freed for reuse."""
+    return slab._replace(
+        state=torch.where(mask, torch.full_like(slab.state, REMOVED),
+                          slab.state),
+        occupied=slab.occupied & ~mask,
+        is_activated=slab.is_activated & ~mask,
+    )
+
+
+def init_new_tracks(slab: TrackSlab, dets: DetSlab, new_mask, fmt: str,
+                    cfg: TrackerConfig) -> TrackSlab:
+    """Activate new tracks: the k-th new det (in det order) takes the k-th
+    free slot and id next_id + 1 + k; overflow past the free slots drops."""
+    d = new_mask.shape[0]
+    t = slab.capacity
+    dev = new_mask.device
+    free = ~slab.occupied
+    det_rank = torch.cumsum(new_mask.int(), 0) - 1
+    free_rank = torch.cumsum(free.int(), 0) - 1
+    n_free = free.int().sum()
+    slot_for_rank = torch.full((t + 1,), t, dtype=torch.long, device=dev)
+    slot_for_rank[torch.where(free, free_rank, t).long()] = torch.arange(
+        t, device=dev)
+    slot_for_rank = slot_for_rank[:t]
+    placeable = new_mask & (det_rank < n_free)
+    target = torch.where(placeable, slot_for_rank[det_rank.clamp(0, t - 1)],
+                         t)
+
+    det_tlwh = dets.tlwh
+    if fmt == "none":
+        mean0 = torch.zeros((d, 8), dtype=torch.float32, device=dev)
+        cov0 = torch.eye(8, dtype=torch.float32, device=dev).repeat(d, 1, 1)
+    else:
+        mean0, cov0 = kalman.initiate(
+            fmt, kalman.measurement_from_tlwh(fmt, det_tlwh))
+    ids = slab.next_id + 1 + det_rank
+
+    def scat(dst, src):
+        # rows aimed at slot t (not placeable) land in a spare row
+        ext = torch.cat([dst, dst[:1]])
+        ext[target] = src.to(dst.dtype)
+        return ext[:t]
+
+    def full(v, dtype):
+        return torch.full((d,), v, dtype=dtype, device=dev)
+
+    frame1 = slab.frame == 1  # is_activated only on the first frame
+    frame = slab.frame.expand(d)
+    return slab._replace(
+        mean=scat(slab.mean, mean0),
+        cov=scat(slab.cov, cov0),
+        det_tlwh=scat(slab.det_tlwh, det_tlwh),
+        extra=scat(slab.extra, torch.zeros((d,) + slab.extra.shape[1:],
+                                           device=dev)),
+        score=scat(slab.score, dets.score),
+        cls=scat(slab.cls, dets.cls),
+        state=scat(slab.state, full(TRACKED, torch.int32)),
+        occupied=scat(slab.occupied, full(True, torch.bool)),
+        is_activated=scat(slab.is_activated, frame1.expand(d)),
+        track_id=scat(slab.track_id, ids),
+        frame_id=scat(slab.frame_id, frame),
+        start_frame=scat(slab.start_frame, frame),
+        tracklet_len=scat(slab.tracklet_len, full(0, torch.int32)),
+        time_since_update=scat(slab.time_since_update, full(0, torch.int32)),
+        ins_seq=scat(slab.ins_seq,
+                     t + torch.arange(d, dtype=torch.int32, device=dev)),
+        next_id=slab.next_id + placeable.int().sum().to(torch.int32),
+    )
+
+
+def prune_lost(slab: TrackSlab, max_time_lost: int) -> TrackSlab:
+    stale = (slab.occupied & (slab.state == LOST)
+             & (slab.frame - slab.frame_id > max_time_lost))
+    return mark_removed(slab, stale)
+
+
+def remove_duplicates(slab: TrackSlab, fmt: str) -> TrackSlab:
+    """Tracked-vs-lost pairs with IoU distance < 0.15 drop the younger."""
+    tlbr = track_tlbr(slab, fmt)
+    tracked = slab.occupied & (slab.state == TRACKED)
+    lost = slab.occupied & (slab.state == LOST)
+    dist = 1.0 - boxops.iou_matrix(tlbr, tlbr)
+    dup = (dist < 0.15) & tracked[:, None] & lost[None, :]
+    age = slab.frame_id - slab.start_frame
+    older_t = age[:, None] > age[None, :]
+    drop_tracked = (dup & ~older_t).any(dim=1)
+    drop_lost = (dup & older_t).any(dim=0)
+    return mark_removed(slab, drop_tracked | drop_lost)
+
+
+class FrameOutput(NamedTuple):
+    """Per-frame emitted tracks (fixed width = slab capacity)."""
+
+    track_id: torch.Tensor  # (T,) int32
+    tlwh: torch.Tensor      # (T, 4)
+    score: torch.Tensor     # (T,)
+    cls: torch.Tensor       # (T,)
+    valid: torch.Tensor     # (T,) bool
+
+
+def frame_output(slab: TrackSlab, fmt: str, cfg: TrackerConfig) -> FrameOutput:
+    """Activated tracked tracks passing the min-area filter."""
+    tlwh = track_tlwh(slab, fmt)
+    valid = (slab.occupied & (slab.state == TRACKED) & slab.is_activated
+             & (tlwh[:, 2] * tlwh[:, 3] > cfg.min_area))
+    return FrameOutput(track_id=slab.track_id, tlwh=tlwh, score=slab.score,
+                       cls=slab.cls, valid=valid)
+
+
+# ---------------------------------------------------------------------------
+# checkpointing: one npz entry per slab field + the config fingerprint
+# ---------------------------------------------------------------------------
+
+_STATE_FINGERPRINT_FIELDS = (
+    "tracker", "kalman_format", "capacity", "det_capacity",
+    "feature_dim", "feature_hist", "extra_dim",
+)
+
+
+def _state_fingerprint(cfg: TrackerConfig) -> str:
+    return ";".join(
+        f"{k}={getattr(cfg, k)}" for k in _STATE_FINGERPRINT_FIELDS)
+
+
+def save_slab(path: str, slab: TrackSlab, cfg: TrackerConfig,
+              tag: str = "") -> None:
+    """Write tracker state to ``path`` atomically (npz, same layout as the
+    JAX package's save_slab)."""
+    arrays = {f: v.detach().cpu().numpy() for f, v in zip(slab._fields, slab)}
+    arrays["_fingerprint"] = np.asarray(_state_fingerprint(cfg))
+    if tag:
+        arrays["_tag"] = np.asarray(tag)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **arrays)
+    os.replace(tmp, path)
+
+
+def load_slab(path: str, cfg: TrackerConfig, device,
+              expect_tag: str = "") -> TrackSlab:
+    """Load state saved by :func:`save_slab`; raises ValueError on a
+    config- or tag-incompatible checkpoint."""
+    with np.load(path) as z:
+        got, want = str(z["_fingerprint"]), _state_fingerprint(cfg)
+        if got != want:
+            raise ValueError(
+                f"tracker state {path} was saved under a different "
+                f"config:\n  saved:   {got}\n  current: {want}")
+        if expect_tag:
+            got_tag = str(z["_tag"]) if "_tag" in z else ""
+            if got_tag != expect_tag:
+                raise ValueError(
+                    f"tracker state {path} belongs to a different stream:"
+                    f"\n  saved:   {got_tag or '<untagged>'}"
+                    f"\n  current: {expect_tag}")
+        missing = [f for f in TrackSlab._fields if f not in z]
+        if missing:
+            raise ValueError(
+                f"tracker state {path} is missing fields {missing}")
+        return TrackSlab(**{f: torch.as_tensor(z[f], device=device)
+                            for f in TrackSlab._fields})
