@@ -7,15 +7,22 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which must pass:
   1. build   -- nvcc builds csrc/auction.cu (K2, the private-dummy
-                auction) for sm_90a from the checkout.
-  2. kernel  -- the K2 kernel against its plain PyTorch version on the
-                card: >= 32 seeded (128, 300) problems (association-shaped
-                and dense U[0,1], random masks) plus batch-2 launches at
-                the stage-2/3 thresholds, exact equality of r2c/c2r, and a
-                few association problems against scipy.
+                auction) and csrc/auction_square.cu (K1 and K3, the square
+                lapjv-extended auction) for sm_90a from the checkout, side
+                by side.
+  2. kernels -- each kernel against its plain PyTorch version on the card
+                at the tracker's shape (128, 300), exact equality of
+                r2c/c2r. K2: >= 32 seeded problems (association-shaped and
+                dense U[0,1], random masks) plus batch-2 launches at the
+                stage-2/3 thresholds, and a few association problems
+                against scipy. K1: seeded association-shaped and dense
+                problems, against scipy too. K3: batches of 8 and 16, of
+                which each problem is also solved alone by K1 with the
+                same result (a block that leaves when its own problem is
+                done == the lockstep form).
   3. main    -- yolov7-w6 at full width (nc=80, 1088 px, bf16, BN folded,
                 seeded weights with sharpened heads) -> NMS -> ByteTrack
-                (capacity 128, det_capacity 300) over 32 synthetic
+                (capacity 128, det_capacity 300) over 16 synthetic
                 1080x1920 frames through TrackingPipeline.run_sequence,
                 with the K2 launch count reset just before and read just
                 after (2 per frame). The main path's own auction problems
@@ -23,6 +30,18 @@ Phases, each of which must pass:
                 the tracker is replayed on the CPU from the same
                 detections, and a small detector input is checked
                 against a float32 CPU reference.
+  4. serving -- cli/serve.py on the same detector: 8 synthetic 1080x1920
+                cameras, 16 ticks with state checkpoints, then a second
+                call that resumes from them for 8 more. 8 result files
+                with rows for 24 consecutive frames and ids that continue
+                across the resume; one K3 and one K2 launch per tick (the
+                counts are reset just before each call and read just
+                after); the last tick's own stage-1 problems re-solved by
+                the plain version; ms/tick, frames/s and a per-stage
+                breakdown of a tick.
+  5. step    -- step_frame on one stream for 8 frames: 8 K1 launches, and
+                the same slab as lane 0 of a one-stream
+                process_multistream run.
 It prints the kernel JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, if
 there is no CUDA device or if any phase fails. It imports nothing of JAX.
@@ -34,6 +53,8 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -42,6 +63,21 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 REPLACES = "yolov7_tracker_tpu/ops/pallas_auction.py:412"
 SOURCE = "yolov7_tracker_tpu_torch/csrc/auction.cu"
+REPLACES_K1 = "yolov7_tracker_tpu/ops/pallas_auction.py:196"
+REPLACES_K3 = "yolov7_tracker_tpu/ops/pallas_auction.py:631"
+SOURCE_SQUARE = "yolov7_tracker_tpu_torch/csrc/auction_square.cu"
+# std gain of the random conv kernels below the heads. At 1.0 (and still at
+# 1.4) w6's signal dies out on its way through ~100 SiLU layers and every
+# frame gets the same boxes, so every camera would hand the tracker one and
+# the same problem; from 1.8 on every score saturates at 1.0. At 1.6 the
+# boxes follow the image.
+DETECTOR_GAIN = 1.6
+SQUARE_PHASES = 5             # ops/assignment.DEFAULT_PHASES, the tracker's
+# weight a K1 solve of the seeded (128, 300) problems may leave against
+# scipy's optimum: twice the most measured there (0.025)
+SCIPY_GAP_LIMIT = 0.05
+N_STREAMS = 8
+SERVE_TICKS = (16, 8)         # first call, resumed call
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 
 
@@ -196,35 +232,194 @@ def time_kernel(auction, problem, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, continued: K1 and K3 against their plain version
+# ---------------------------------------------------------------------------
+
+def scipy_gap(cost, rm, cm, thresh, r2c):
+    """Weight (thresh - cost over the pairs) left against scipy's optimum."""
+    from yolov7_tracker_tpu_torch.ops.assignment import linear_assignment_host
+
+    big = np.where(rm[:, None] & cm[None, :], cost, 1e9)
+    m0, _, _ = linear_assignment_host(big, thresh)
+    want = sum(thresh - float(cost[a, b]) for a, b in m0)
+    got = sum(thresh - float(cost[i, j]) for i, j in enumerate(r2c) if j >= 0)
+    return want - got
+
+
+def square_bound(n_problems, n, m, cells):
+    """(bound ms, bound by) of a square-auction solve: every input read
+    once and every output written once, against the operations this data
+    needs: one subtract and one compare for each finite cell of the
+    extended matrix that the solve must read (every row at each phase's
+    release, only the unassigned rows at each sweep; counted by the kernel
+    and, identically, by the plain version)."""
+    nbytes = n_problems * (n * m * 4 + n + m + 4 + (n + m) * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int(cells) * 2 / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_square(square, cost, rm, cm, thresh, dev, reps):
+    """Kernel ms (CUDA events), plain ms (one run), per-problem sweeps,
+    cells read and the bound for one (N, M) or (B, N, M) problem on the card."""
+    import torch
+
+    b = cost.shape[0] if cost.dim() == 3 else 1
+    n, m = cost.shape[-2:]
+    sweeps = torch.zeros((b, SQUARE_PHASES), dtype=torch.int32, device=dev)
+    cells = torch.zeros(b, dtype=torch.int64, device=dev)
+    square.masked_assignment_square_cuda(cost, rm, cm, thresh,
+                                         n_phases=SQUARE_PHASES,
+                                         sweeps=sweeps, cells=cells)
+    k_ms = cuda_ms(lambda: square.masked_assignment_square_cuda(
+        cost, rm, cm, thresh, n_phases=SQUARE_PHASES), reps)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    square.masked_assignment_square_torch(cost, rm, cm, thresh,
+                                          n_phases=SQUARE_PHASES)
+    torch.cuda.synchronize()
+    p_ms = (time.time() - t0) * 1e3
+    per_problem = sweeps.sum(dim=1).tolist()
+    bound, by = square_bound(b, n, m, int(cells.sum()))
+    return dict(ms=k_ms, plain_ms=p_ms, sweeps=per_problem,
+                cells=cells.tolist(),
+                us_per_sweep=k_ms * 1e3 / max(max(per_problem), 1),
+                bound_ms=bound, bound_by=by)
+
+
+def square_phase(dev):
+    """K1 and K3 against the plain version at (128, 300); returns the max
+    |difference| over every r2c and c2r compared, and timings of one
+    association-shaped K1 problem and one K3 batch of 8."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import auction_square as square
+
+    def diff(a, b):
+        return max(int((a[0].long() - b[0].long()).abs().max()),
+                   int((a[1].long() - b[1].long()).abs().max()))
+
+    kw = dict(n_phases=SQUARE_PHASES)
+    rng = np.random.default_rng(1)
+    worst = 0
+    t0 = time.time()
+    singles, gaps = [], []
+    for i in range(8):
+        cost, rm, cm = seeded_problem(rng, kind="assoc" if i % 2 == 0
+                                      else "dense")
+        th = float(rng.choice([0.9, 0.7]))
+        args = tuple(torch.from_numpy(x).to(dev) for x in (cost, rm, cm))
+        k = square.masked_assignment_square_cuda(*args, th, **kw)
+        p = square.masked_assignment_square_torch(*args, th, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, diff(k, p))
+        gap = scipy_gap(cost, rm, cm, th, k[0].cpu().numpy())
+        # the auction guarantees (n + m) * eps_final of the optimum (0.7
+        # to 0.8 at the tracker's 5 phases), which a visibly wrong matching
+        # would meet too; these seeded problems leave 0.025 at most, so
+        # hold them to twice that
+        gaps.append(gap)
+        if abs(gap) > SCIPY_GAP_LIMIT:
+            raise AssertionError(f"K1 vs scipy, problem {i}: gap {gap}")
+        singles.append(args + (th,))
+    log(f"K1: 8 single problems (128, 300): max |kernel - plain| = {worst}; "
+        f"weight left against scipy, association "
+        f"{[round(g, 5) for g in gaps[0::2]]}, dense "
+        f"{[round(g, 5) for g in gaps[1::2]]} (limit {SCIPY_GAP_LIMIT}) "
+        f"({time.time() - t0:.1f} s)")
+
+    batches = {}
+    for b in (8, 16):
+        probs = [seeded_problem(rng, kind="assoc" if i % 4 else "dense")
+                 for i in range(b)]
+        cost, rm, cm = (torch.from_numpy(np.stack(x)).to(dev)
+                        for x in zip(*probs))
+        k = square.masked_assignment_square_cuda(cost, rm, cm, 0.9, **kw)
+        p = square.masked_assignment_square_torch(cost, rm, cm, 0.9, **kw)
+        alone = 0
+        for i in range(b):
+            one = square.masked_assignment_square_cuda(
+                cost[i].contiguous(), rm[i], cm[i], 0.9, **kw)
+            alone = max(alone, diff(one, (k[0][i], k[1][i])))
+        torch.cuda.synchronize()
+        worst = max(worst, diff(k, p), alone)
+        log(f"K3: batch of {b}: max |kernel - plain| = {diff(k, p)}, max "
+            f"|K3 - K1 on each problem alone| = {alone}")
+        batches[b] = (cost, rm, cm)
+    if worst != 0:
+        raise AssertionError(
+            f"square auction kernel differs from its plain version: {worst}")
+
+    t1 = time_square(square, *singles[0], dev, reps=20)
+    t3 = {b: time_square(square, *batches[b], 0.9, dev, reps=10)
+          for b in batches}
+    log(f"K1/K3 timings on {card_line()}")
+    log(f"K1 (128, 300) association: kernel {t1['ms']:.4f} ms, "
+        f"{t1['sweeps'][0]} sweeps, {t1['us_per_sweep']:.3f} us/sweep, plain "
+        f"{t1['plain_ms']:.1f} ms, bound {t1['bound_ms']:.6f} ms "
+        f"({t1['bound_by']})")
+    for b, t in t3.items():
+        log(f"K3 B={b}: kernel {t['ms']:.4f} ms, sweeps {t['sweeps']}, "
+            f"{t['us_per_sweep']:.3f} us/sweep of the slowest, plain "
+            f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']})")
+    # K3's time against the batch: one block per problem, so up to the
+    # card's 132 SMs a launch should cost what its slowest problem costs
+    probs = [seeded_problem(rng) for _ in range(264)]
+    cost, rm, cm = (torch.from_numpy(np.stack(x)).to(dev)
+                    for x in zip(*probs))
+    against_b = {}
+    for b in (1, 8, 32, 132, 264):
+        sweeps = torch.zeros((b, SQUARE_PHASES), dtype=torch.int32,
+                             device=dev)
+        square.masked_assignment_square_cuda(
+            cost[:b], rm[:b], cm[:b], 0.9, sweeps=sweeps, **kw)
+        ms = cuda_ms(lambda: square.masked_assignment_square_cuda(
+            cost[:b], rm[:b], cm[:b], 0.9, **kw), 10)
+        against_b[b] = (ms, int(sweeps.sum(dim=1).max()))
+    log("K3 against the batch (association problems; ms, sweeps of the "
+        "slowest): " + ", ".join(
+            f"B={b}: {ms:.3f} ms, {sw}" for b, (ms, sw) in against_b.items()))
+    return worst, t1, t3
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def main_phase(dev):
-    import torch
-
-    from yolov7_tracker_tpu_torch.data import writer
+def build_w6(dev):
+    """yolov7-w6 at full width with seeded, head-sharpened weights, as a
+    TrackingPipeline (ByteTrack 128 / 300); returns (state_dict, pipe)."""
     from yolov7_tracker_tpu_torch.models import zoo
     from yolov7_tracker_tpu_torch.models.yolo import (random_state_dict,
                                                       sharpen_heads)
-    from yolov7_tracker_tpu_torch.ops import auction
     from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
                                                    TrackingPipeline)
-    from yolov7_tracker_tpu_torch.trackers import bytetrack
     from yolov7_tracker_tpu_torch.trackers import slab as S
 
     spec = zoo.get_spec("yolov7-w6", nc=80)
-    sd = random_state_dict(spec, seed=0)
+    sd = random_state_dict(spec, seed=0, gain=DETECTOR_GAIN)
     sharpen_heads(sd, spec)
     pcfg = PipelineConfig(model="yolov7-w6", nc=80, img_size=1088,
                           detector_batch=8, dtype="bfloat16", fuse=True)
     tcfg = S.TrackerConfig(tracker="bytetrack", conf_thresh=0.5,
                            capacity=128, det_capacity=300)
-    pipe = TrackingPipeline(pcfg, tcfg, state_dict=sd, spec=spec, device=dev)
+    return sd, TrackingPipeline(pcfg, tcfg, state_dict=sd, spec=spec,
+                                device=dev)
+
+
+def main_phase(pipe, dev):
+    import torch
+
+    from yolov7_tracker_tpu_torch.data import writer
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.trackers import bytetrack
+    from yolov7_tracker_tpu_torch.trackers import slab as S
 
     rng = np.random.default_rng(0)
     f0 = rng.integers(0, 255, (8, 1080, 1920, 3), np.uint8)
     f1 = np.roll(f0, 8, axis=2)       # an 8-px shift: the scene persists
-    frames = [f for k in range(2) for f in (f0, f1)[k % 2]] * 2   # 32
+    frames = [f for k in range(2) for f in (f0, f1)[k % 2]]      # 16
 
     t0 = time.time()
     pipe.run_sequence(iter(frames[:8]))         # warm-up, not counted
@@ -346,6 +541,283 @@ def breakdown(pipe, frames_u8, batch_dets, dev):
         f"NMS {t_nms / b:.2f} ms, ByteTrack step {t_track / b:.2f} ms")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: many-camera serving through cli/serve.py
+# ---------------------------------------------------------------------------
+
+def read_mot(path):
+    """{frame: set(ids)} of one MOT txt."""
+    by_frame = {}
+    with open(path) as f:
+        for line in f:
+            frame, tid = line.split(",")[:2]
+            by_frame.setdefault(int(frame), set()).add(int(tid))
+    return by_frame
+
+
+def serving_phase(sd, pipe, dev):
+    """Drive cli.serve.main twice (16 ticks, then 8 resumed) on 8 synthetic
+    cameras and check its outputs, its launch counts and its last tick's
+    stage-1 solves; returns (K3 launches, K2 launches, last stage-1
+    problem, last stage-2/3 problem)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch import pipeline as pipeline_mod
+    from yolov7_tracker_tpu_torch.cli import serve
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.ops import auction_square as square
+    from yolov7_tracker_tpu_torch.trackers import bytetrack
+
+    total = sum(SERVE_TICKS)
+    streams = [f"synth://{total}x1080x1920?seed={k + 1}&shift=8"
+               for k in range(N_STREAMS)]
+    last = {}                   # the newest problem handed to each solver
+    stamps = []                 # (start, end) of every tick, synchronized
+    solve1, solve23 = pipeline_mod.masked_assignment, \
+        bytetrack.solve_assignment
+    tick_fn = pipeline_mod.TrackingPipeline.process_multistream
+
+    def recording(name, solve):
+        def wrapped(cost, rm, cm, th, *args, **kw):
+            last[name] = (cost.float().clone(), rm.clone(), cm.clone(), th)
+            return solve(cost, rm, cm, th, *args, **kw)
+        return wrapped
+
+    def timed_tick(self, slabs, frames_u8):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = tick_fn(self, slabs, frames_u8)
+        torch.cuda.synchronize()
+        stamps.append((t0, time.time()))
+        return out
+
+    counts = []
+    pipeline_mod.masked_assignment = recording("stage1", solve1)
+    bytetrack.solve_assignment = recording("stage23", solve23)
+    pipeline_mod.TrackingPipeline.process_multistream = timed_tick
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            weights = os.path.join(tmp, "w6.pt")
+            torch.save(sd, weights)
+            save_dir = os.path.join(OUT_DIR, "serve")
+            state_dir = os.path.join(tmp, "state")
+            for ticks in SERVE_TICKS:
+                argv = ["--streams", *streams, "--model", "yolov7-w6",
+                        "--model_path", weights, "--nc", "80", "--img_size",
+                        "1088", "--conf_thresh", "0.5", "--capacity", "128",
+                        "--det_capacity", "300", "--max_frames", str(ticks),
+                        "--save_dir", save_dir, "--state_dir", state_dir]
+                auction.LAUNCHES = 0
+                square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
+                results, preempted = serve.main(argv)
+                torch.cuda.synchronize()
+                counts.append((square.LAUNCHES_K3, auction.LAUNCHES,
+                               square.LAUNCHES_K1))
+                if preempted or [len(r) for r in results] != \
+                        [ticks] * N_STREAMS:
+                    raise AssertionError(
+                        f"serve: {[len(r) for r in results]} frames per "
+                        f"stream for {ticks} ticks")
+            states = sorted(os.listdir(state_dir))
+            slabs = [pipe.load_tracker_state(os.path.join(state_dir, f),
+                                             expect_tag=streams[i])
+                     for i, f in enumerate(states)]
+    finally:
+        pipeline_mod.masked_assignment = solve1
+        bytetrack.solve_assignment = solve23
+        pipeline_mod.TrackingPipeline.process_multistream = tick_fn
+
+    for (k3, k2, k1), ticks in zip(counts, SERVE_TICKS):
+        if (k3, k2, k1) != (ticks, ticks, 0):
+            raise AssertionError(
+                f"serve: {k3} K3, {k2} K2, {k1} K1 launches in {ticks} ticks")
+    files = sorted(os.listdir(save_dir))
+    if len(files) != N_STREAMS or len(slabs) != N_STREAMS:
+        raise AssertionError(f"serve: result files {files}, states {states}")
+    rows = 0
+    first = SERVE_TICKS[0]
+    for f, slab in zip(files, slabs):
+        by_frame = read_mot(os.path.join(save_dir, f))
+        if sorted(by_frame) != list(range(1, total + 1)):
+            raise AssertionError(f"{f}: rows for frames {sorted(by_frame)}")
+        rows += sum(len(v) for v in by_frame.values())
+        before = set().union(*(by_frame[k] for k in range(1, first + 1)))
+        carried = by_frame[first] & by_frame[first + 1]
+        fresh = set().union(*(by_frame[k] for k in range(first + 1,
+                                                         total + 1))) - before
+        # ids live across the restart, and ids born after it lie above
+        # every id given out before it
+        if not carried or (fresh and min(fresh) <= max(before)) or \
+                int(slab.frame) != total:
+            raise AssertionError(
+                f"{f}: ids do not continue across the resume (carried "
+                f"{len(carried)}, new {sorted(fresh)[:4]}, before max "
+                f"{max(before)}, state frame {int(slab.frame)})")
+    steady = stamps[2:first] + stamps[first + 2:]
+    tick_ms = float(np.mean([b - a for a, b in steady])) * 1e3
+    span = [(stamps[first - 1][1] - stamps[2][0]) / (first - 2),
+            (stamps[-1][1] - stamps[first + 2][0]) / (total - first - 2)]
+    loop_ms = float(np.mean(span)) * 1e3
+    log(f"serving on {card_line()}: {N_STREAMS} streams x "
+        f"{SERVE_TICKS[0]} + {SERVE_TICKS[1]} ticks (resumed), "
+        f"{rows} MOT rows in {len(files)} files, ids continue; launches per "
+        f"call (K3, K2, K1) {counts}; process_multistream "
+        f"{tick_ms:.2f} ms/tick, whole loop (frame queues, stacking, "
+        f"harvest) {loop_ms:.2f} ms/tick = "
+        f"{N_STREAMS / loop_ms * 1e3:.2f} frames/s aggregate, "
+        f"{loop_ms / N_STREAMS:.2f} ms/frame")
+
+    # the last tick's own stage-1 problems: kernel == plain version
+    cost, rm, cm, th = last["stage1"]
+    k = square.masked_assignment_square_cuda(cost, rm, cm, th,
+                                             n_phases=SQUARE_PHASES)
+    p = square.masked_assignment_square_torch(cost, rm, cm, th,
+                                              n_phases=SQUARE_PHASES)
+    worst = max(int((k[0].long() - p[0].long()).abs().max()),
+                int((k[1].long() - p[1].long()).abs().max()))
+    distinct = len({c.cpu().numpy().tobytes() for c in cost})
+    log(f"last tick's {cost.shape[0]} stage-1 problems ({distinct} distinct "
+        f"cost matrices) re-solved: max |K3 - plain| = {worst}; pairs per "
+        f"stream {(k[0] >= 0).sum(dim=1).tolist()}")
+    if worst != 0:
+        raise AssertionError("K3 differs from its plain version on the "
+                             "serving path's problems")
+    serving_breakdown(pipe, slabs, streams, last, dev)
+    return sum(c[0] for c in counts), sum(c[1] for c in counts), last
+
+
+def serving_breakdown(pipe, slabs, streams, last, dev):
+    """Where one tick of 8 streams spends its time, each stage timed alone
+    (CUDA events; NMS and the tracker step include their host syncs and
+    launch gaps), beside the solvers' kernels on the tick's own problems."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.data import letterbox
+    from yolov7_tracker_tpu_torch.data.sequence import SynthFrames
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.ops import auction_square as square
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+    from yolov7_tracker_tpu_torch.ops.assignment import masked_assignment
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    # each camera's last served frame, and the state before it was stepped
+    # is gone: step the final states once more on the same frame instead
+    frames_u8 = np.stack([list(SynthFrames(s))[-1] for s in streams])
+    stacked = S.TrackSlab(*(torch.stack(x) for x in zip(*slabs)))
+    t0 = time.time()
+    for _ in range(3):
+        np.stack(list(frames_u8))
+    t_stack = (time.time() - t0) / 3 * 1e3
+    frames = pipe._frames(frames_u8)
+    src_hw = tuple(frames.shape[1:3])
+    out_hw, unpad_hw = pipe._geometry(src_hw)
+    with torch.no_grad():
+        imgs, _ = letterbox.device_preprocess(
+            frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=pipe.dtype)
+        raw = pipe.model(imgs)
+        t_h2d = cuda_ms(lambda: pipe._frames(frames_u8), 3)
+        t_pre = cuda_ms(lambda: letterbox.device_preprocess(
+            frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=pipe.dtype), 5)
+        t_model = cuda_ms(lambda: pipe.model(imgs), 5)
+        t_nms = cuda_ms(lambda: nms_mod.nms_from_raw(
+            raw, pipe._anchors, tuple(pipe.spec.strides),
+            pipe.pcfg.conf_thres, pipe.pcfg.iou_thres,
+            max_det=pipe.pcfg.max_det, top_k=pipe.pcfg.nms_top_k), 2)
+    dets = pipe.dets_to_slab(*pipe.detect_batch(frames_u8))
+    t_step = cuda_ms(lambda: pipe.step(stacked, dets,
+                                       solve_stage1=masked_assignment), 3)
+    t_one = cuda_ms(lambda: pipe.step(
+        slabs[0], S.DetSlab(*(x[0] for x in dets))), 3)
+    c1, r1, m1, th1 = last["stage1"]
+    c2, r2, m2, th2 = last["stage23"]
+    t_k3 = cuda_ms(lambda: square.masked_assignment_square_cuda(
+        c1, r1, m1, th1, n_phases=SQUARE_PHASES), 10)
+    t_k2 = cuda_ms(lambda: auction.masked_assignment_auction_cuda(
+        c2.contiguous(), r2, m2, th2, n_phases=2, phase_factor=4.0 ** 2.5),
+        20)
+    n = frames.shape[0]
+    log(f"per-tick breakdown on {card_line()} ({n} streams): stack frames "
+        f"on the host {t_stack:.2f} ms, H2D {t_h2d:.2f} ms, letterbox "
+        f"{t_pre:.2f} ms, w6 forward {t_model:.2f} ms, NMS {t_nms:.2f} ms, "
+        f"stacked ByteTrack step {t_step:.2f} ms (of which K3 B={n} "
+        f"{t_k3:.4f} ms and K2 B={2 * n} {t_k2:.4f} ms); the same step on "
+        f"one stream alone (K2 for every stage) {t_one:.2f} ms, so "
+        f"{t_step / n:.2f} against {t_one:.2f} ms of tracker per frame")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: step_frame, the one-stream streaming mode
+# ---------------------------------------------------------------------------
+
+def step_frame_phase(pipe, dev):
+    """8 frames of one camera through step_frame (K1 once per frame) and
+    through a one-stream process_multistream (K3, B = 1): the same slab.
+    Returns (K1 launches, the last stage-1 problem)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch import pipeline as pipeline_mod
+    from yolov7_tracker_tpu_torch.data.sequence import SynthFrames
+    from yolov7_tracker_tpu_torch.ops import auction_square as square
+
+    frames = list(SynthFrames("synth://8x1080x1920?seed=11&shift=8"))
+    last = {}
+    solve1 = pipeline_mod.masked_assignment
+
+    def recording(cost, rm, cm, th, *args, **kw):
+        last["stage1"] = (cost.float().clone(), rm.clone(), cm.clone(), th)
+        return solve1(cost, rm, cm, th, *args, **kw)
+
+    pipeline_mod.masked_assignment = recording
+    try:
+        square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
+        slab = pipe.init_tracker()
+        per_frame = []
+        for f in frames:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            slab, out = pipe.step_frame(slab, f)
+            torch.cuda.synchronize()
+            per_frame.append((time.time() - t0) * 1e3)
+        k1, k3 = square.LAUNCHES_K1, square.LAUNCHES_K3
+    finally:
+        pipeline_mod.masked_assignment = solve1
+    if (k1, k3) != (len(frames), 0):
+        raise AssertionError(f"step_frame: {k1} K1 and {k3} K3 launches for "
+                             f"{len(frames)} frames")
+    slabs = pipe.init_multistream(1)
+    for f in frames:
+        slabs, outs = pipe.process_multistream(slabs, f[None])
+    for name, a, b in zip(slab._fields, slab, slabs):
+        same = (torch.equal(a, b[0]) if not a.dtype.is_floating_point
+                else torch.allclose(a, b[0], rtol=1e-5, atol=1e-4))
+        if not same:
+            raise AssertionError(f"step_frame vs one-stream multistream: "
+                                 f"{name} differs")
+    # the last frame's own stage-1 problem: kernel == plain version
+    cost, rm, cm, th = last["stage1"]
+    k = square.masked_assignment_square_cuda(cost, rm, cm, th,
+                                             n_phases=SQUARE_PHASES)
+    p = square.masked_assignment_square_torch(cost, rm, cm, th,
+                                              n_phases=SQUARE_PHASES)
+    worst = max(int((k[0].long() - p[0].long()).abs().max()),
+                int((k[1].long() - p[1].long()).abs().max()))
+    if worst != 0:
+        raise AssertionError("K1 differs from its plain version on "
+                             f"step_frame's own problem: {worst}")
+    if not bool(out.valid.any()) or not torch.equal(out.valid, outs.valid[0]):
+        raise AssertionError("step_frame emitted no track, or other tracks "
+                             "than the one-stream multistream run")
+    log(f"step_frame on {card_line()}: {len(frames)} frames, {k1} K1 "
+        f"launches, ms per frame {[round(t, 2) for t in per_frame]} (the "
+        f"first pays the batch-1 warm-up), median "
+        f"{float(np.median(per_frame)):.2f}; "
+        f"{int(out.valid.sum())} tracks on the last; slab == lane 0 of a "
+        "one-stream process_multistream run (integers exact, floats "
+        f"1e-5 / 1e-4); last frame's stage-1 problem re-solved: max "
+        f"|K1 - plain| = {worst}, {int((k[0] >= 0).sum())} pairs")
+    return k1, last["stage1"]
+
+
 def detector_reference_check(dev):
     """A small detector input on the card (float32, TF32 off) against the
     same computation on the CPU: preprocess + raw head levels."""
@@ -393,35 +865,84 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.ops import auction_square as square
 
     dev = torch.device("cuda")
     t0 = time.time()
-    auction.load_library()
-    log(f"built {SOURCE} for sm_90a in {auction.BUILD_SECONDS:.1f} s")
-    for line in auction.BUILD_LOG.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    # one nvcc per source, both started together
+    threads = [threading.Thread(target=mod.load_library)
+                for mod in (auction, square)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for mod, source in ((auction, SOURCE), (square, SOURCE_SQUARE)):
+        mod.load_library()      # raises here if its build failed
+        log(f"built {source} for sm_90a in {mod.BUILD_SECONDS:.1f} s")
+        for line in mod.BUILD_LOG.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"ptxas: {line.strip()}")
+    log(f"both builds, side by side: {time.time() - t0:.1f} s")
 
     worst = kernel_phase(dev)
-    launches, solves = main_phase(dev)
+    worst_sq, t_k1, t_k3 = square_phase(dev)
+    sd, pipe = build_w6(dev)
+    launches, solves = main_phase(pipe, dev)
+    k3_launches, k2_serving, serve_last = serving_phase(sd, pipe, dev)
+    k1_launches, step_last = step_frame_phase(pipe, dev)
     detector_reference_check(dev)
+
     record = {"name": "auction_k2_private_dummy", "route": "cuda",
               "source": SOURCE, "replaces": REPLACES, "launches": launches,
+              "launches_serving": k2_serving,
               "max_abs_err": float(worst), "library_ms": None}
     # the last frame's two solves, as the main path gave them
     stage1, stage23 = solves[-2], solves[-1]
     k1, p1, s1, b1, by1 = time_kernel(auction, stage1, dev)
     k2, p2, s2, b2, by2 = time_kernel(auction, stage23, dev)
+    # the serving path's stages 2+3: one launch of B = 2 S problems
+    c23, r23, m23, th23 = serve_last["stage23"]
+    k16, p16, s16, b16, by16 = time_kernel(
+        auction, (c23.contiguous(), r23, m23,
+                  torch.as_tensor(th23, dtype=torch.float32).repeat(
+                      r23.shape[0] // 2)), dev)
     log(f"K2 timings on {card_line()}")
     log(f"K2 stage 1 (B=1, {tuple(stage1[0].shape)}): kernel {k1:.4f} ms, "
         f"plain {p1:.3f} ms, sweeps {s1}, bound {b1:.6f} ms ({by1})")
     log(f"K2 stages 2+3 (B=2): kernel {k2:.4f} ms, plain {p2:.3f} ms, "
         f"sweeps {s2}, bound {b2:.6f} ms ({by2})")
+    log(f"K2 stages 2+3 of a serving tick (B={r23.shape[0]}): kernel "
+        f"{k16:.4f} ms, plain {p16:.3f} ms, sweeps {s16}, bound "
+        f"{b16:.6f} ms ({by16})")
     record.update(ms=k1, plain_ms=p1, bound_ms=b1, bound_by=by1,
                   sweeps=s1, ms_b2=k2, plain_ms_b2=p2, bound_ms_b2=b2,
-                  sweeps_b2=s2)
+                  sweeps_b2=s2, ms_serving=k16, plain_ms_serving=p16,
+                  bound_ms_serving=b16, sweeps_serving=s16)
+
+    # K1 and K3 on the problems their own paths gave them last
+    on_step = time_square(square, *step_last, dev, reps=20)
+    on_tick = time_square(square, *serve_last["stage1"], dev, reps=10)
+    log(f"K1 on step_frame's last problem: kernel {on_step['ms']:.4f} ms, "
+        f"sweeps {on_step['sweeps']}, cells {on_step['cells']}, plain "
+        f"{on_step['plain_ms']:.1f} ms, bound {on_step['bound_ms']:.6f} ms "
+        f"({on_step['bound_by']})")
+    log(f"K3 on the last serving tick's problems (B={N_STREAMS}): kernel "
+        f"{on_tick['ms']:.4f} ms, sweeps {on_tick['sweeps']}, cells "
+        f"{on_tick['cells']}, plain "
+        f"{on_tick['plain_ms']:.1f} ms, bound {on_tick['bound_ms']:.6f} ms "
+        f"({on_tick['bound_by']})")
+    rec_k1 = {"name": "auction_k1_square", "route": "cuda",
+              "source": SOURCE_SQUARE, "replaces": REPLACES_K1,
+              "launches": k1_launches, "max_abs_err": float(worst_sq),
+              "library_ms": None, **on_step,
+              "seeded_problem": t_k1}
+    rec_k3 = {"name": "auction_k3_square_batched", "route": "cuda",
+              "source": SOURCE_SQUARE, "replaces": REPLACES_K3,
+              "launches": k3_launches, "max_abs_err": float(worst_sq),
+              "library_ms": None, **on_tick,
+              "seeded_batches": {str(b): t for b, t in t_k3.items()}}
     log(f"total {time.time() - t0:.1f} s")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [rec_k1, record, rec_k3]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from yolov7_tracker_tpu_torch.ops import auction
+from yolov7_tracker_tpu_torch.ops import auction, auction_square
 
 STEEP = dict(n_phases=2, phase_factor=4.0 ** 2.5)
 
@@ -78,3 +78,64 @@ def test_wrapper_checks_its_inputs(card):
         auction.masked_assignment_auction_cuda(cost.t(), rm, cm, 0.5)
     with pytest.raises(ValueError):
         auction.masked_assignment_auction_cuda(cost, rm[:5], cm, 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(128, 300), (256, 300), (7, 5)])
+def test_square_kernel_k1_equals_plain_version(card, n, m):
+    """Bit-exact on the card, sweep and cell counts included, with the real block
+    staged in shared memory (128 x 300) and read from the cost matrix
+    (256 x 300)."""
+    rng = np.random.default_rng(n * m)
+    for kind in ("assoc", "dense"):
+        cost, rm, cm = (t.to(card) for t in _problem(rng, n, m, kind))
+        for th in (0.5, 0.9):
+            before = auction_square.LAUNCHES_K1
+            ks = torch.zeros((1, 5), dtype=torch.int32, device=card)
+            ps = torch.zeros((1, 5), dtype=torch.int32, device=card)
+            kn = torch.zeros(1, dtype=torch.int64, device=card)
+            pn = torch.zeros(1, dtype=torch.int64, device=card)
+            k = auction_square.masked_assignment_square_cuda(
+                cost, rm, cm, th, n_phases=5, sweeps=ks, cells=kn)
+            assert auction_square.LAUNCHES_K1 == before + 1
+            p = auction_square.masked_assignment_square_torch(
+                cost, rm, cm, th, n_phases=5, sweeps=ps, cells=pn)
+            assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+            assert torch.equal(ks, ps) and torch.equal(kn, pn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [3, 16])
+def test_square_kernel_k3_equals_plain_and_k1(card, b):
+    """One block per problem, each leaving when its own problem is done ==
+    the lockstep plain version == K1 on each problem alone."""
+    rng = np.random.default_rng(b)
+    probs = [_problem(rng, 128, 300, "assoc" if i % 4 else "dense")
+             for i in range(b)]
+    cost, rm, cm = (torch.stack(x).to(card) for x in zip(*probs))
+    before = auction_square.LAUNCHES_K3
+    kr, kc = auction_square.masked_assignment_square_cuda(cost, rm, cm, 0.9,
+                                                          n_phases=5)
+    assert auction_square.LAUNCHES_K3 == before + 1
+    pr, pc = auction_square.masked_assignment_square_torch(cost, rm, cm, 0.9,
+                                                           n_phases=5)
+    assert torch.equal(kr, pr) and torch.equal(kc, pc)
+    for i in range(b):
+        r, c = auction_square.masked_assignment_square_cuda(
+            cost[i].contiguous(), rm[i], cm[i], 0.9, n_phases=5)
+        assert torch.equal(r, kr[i]) and torch.equal(c, kc[i])
+
+
+@pytest.mark.cuda
+def test_square_wrapper_checks_its_inputs(card):
+    cost, rm, cm = (t.to(card) for t in _problem(
+        np.random.default_rng(2), 16, 12, "assoc"))
+    square = auction_square.masked_assignment_square_cuda
+    with pytest.raises(ValueError):
+        square(cost.double(), rm, cm, 0.5)
+    with pytest.raises(ValueError):
+        square(cost.t(), rm, cm, 0.5)
+    with pytest.raises(ValueError):
+        square(cost, rm[:5], cm, 0.5)
+    with pytest.raises(ValueError):
+        square(cost, rm[None], cm[None], 0.5)   # batched masks, single cost

@@ -30,7 +30,9 @@ def test_port_imports_no_jax():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "yolov7_tracker_tpu"))
-        assert len(names) >= 20, names
+        assert len(names) >= 23, names
+        for new in ("ops.auction_square", "ops.cuda_build", "cli.serve"):
+            assert "yolov7_tracker_tpu_torch." + new in names, new
         print("BAD", bad)
     """)
     assert proc.returncode == 0, proc.stderr
@@ -43,13 +45,15 @@ def test_entry_points_need_a_device():
         from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
                                                        TrackingPipeline)
         from yolov7_tracker_tpu_torch.trackers.slab import TrackerConfig
-        from yolov7_tracker_tpu_torch.cli import track
+        from yolov7_tracker_tpu_torch.cli import serve, track
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TrackingPipeline(PipelineConfig(), TrackerConfig("bytetrack"))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             track.main(["--dataset", "mot17", "--config_dir",
                         "yolov7_tracker_tpu/configs", "--track_eval",
                         "false"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--streams", "synth://2x64x64"])
         print("OK")
     """)
     assert proc.returncode == 0, proc.stderr

@@ -71,3 +71,24 @@ def test_bridge_rejects_mismatched_spec(jax_reference):
     other = tspec.parse_yaml_cfg(narrow_w6_cfg(nc=3))
     with pytest.raises(ValueError):
         jax_variables_to_torch(variables, other)
+
+
+def test_random_state_dict_gain_scales_the_kernels_below_the_head():
+    """gain multiplies the std of every conv kernel but the head's, so a
+    deep random detector can be made to pass its signal to the heads."""
+    from yolov7_tracker_tpu_torch.models.yolo import random_state_dict
+
+    spec = tzoo.get_spec("yolov7-tiny", nc=2)
+    base = random_state_dict(spec, seed=3)
+    wide = random_state_dict(spec, seed=3, gain=2.0)
+    assert base.keys() == wide.keys()
+    below, heads = [], 0
+    for k, v in base.items():
+        if v.dim() == 4 and not k.startswith("head_m"):
+            below.append(float(wide[k].std() / v.std()))
+        elif k.startswith("head_m"):
+            heads += 1
+            assert float(wide[k].std()) == pytest.approx(float(v.std()),
+                                                         rel=0.2)
+    assert heads and len(below) > 20
+    assert np.median(below) == pytest.approx(2.0, rel=0.05)

@@ -7,6 +7,9 @@ before ``fuse_variables``, and returns the unfused state_dict of
 (cout, cin, kh, kw), BN scale/bias/mean/var and the implicit vectors
 carry across under the same module path. The port then folds them
 itself (models/fuse.py), so both packages compute the same detector.
+``slab_from_numpy`` / ``slab_to_numpy`` carry tracker state across: the
+two packages' TrackSlabs have the same fields, so a slab of numpy leaves
+(``jax.tree.map(np.asarray, jax_slab)``) becomes the port's and back.
 Nothing here imports JAX: the caller hands in numpy arrays.
 """
 
@@ -17,6 +20,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..trackers.slab import TrackSlab
 from .spec import ModelSpec
 from .yolo import YoloV7
 
@@ -58,3 +62,20 @@ def jax_variables_to_torch(variables_np: Mapping, spec: ModelSpec
             raise ValueError(f"{k}: shape {tuple(sd[k].shape)} != "
                              f"{tuple(v.shape)}")
     return sd
+
+
+def slab_from_numpy(slab_np, device="cpu") -> TrackSlab:
+    """A TrackSlab (or any tuple in its field order) of numpy leaves, e.g.
+    the JAX package's slab fetched to the host, as the port's TrackSlab."""
+    leaves = tuple(slab_np)
+    if len(leaves) != len(TrackSlab._fields):
+        raise ValueError(f"expected {len(TrackSlab._fields)} slab fields, "
+                         f"got {len(leaves)}")
+    return TrackSlab(*(torch.tensor(np.asarray(x), device=device)
+                       for x in leaves))
+
+
+def slab_to_numpy(slab: TrackSlab) -> TrackSlab:
+    """The port's slab with numpy leaves, in the JAX TrackSlab's field
+    order (``JaxTrackSlab(*slab_to_numpy(slab))`` on the JAX side)."""
+    return TrackSlab(*(x.detach().cpu().numpy() for x in slab))

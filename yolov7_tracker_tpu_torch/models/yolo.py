@@ -146,16 +146,21 @@ def init_head_biases(state_dict, spec: ModelSpec) -> None:
         b[:, 5:] += math.log(0.6 / (nc - 0.99))
 
 
-def random_state_dict(spec: ModelSpec, seed: int = 0):
+def random_state_dict(spec: ModelSpec, seed: int = 0, gain: float = 1.0):
     """Seeded random weights in the unfused layout: Flax-style lecun-normal
     conv kernels (truncated at 2 std), zero conv biases, identity BN
-    statistics, implicit vectors around 0 and 1, and the head bias prior."""
+    statistics, implicit vectors around 0 and 1, and the head bias prior.
+    ``gain`` scales the std of every conv kernel below the head: at 1.0 the
+    signal of a deep model (yolov7-w6) dies out through its SiLU layers and
+    the heads emit their biases whatever the image shows."""
     g = torch.Generator().manual_seed(seed)
     model = YoloV7(spec, fused=False)
     sd = {k: v.clone() for k, v in model.state_dict().items()}
     for k, v in sd.items():
         if k.endswith("weight") and v.dim() == 4:
             std = math.sqrt(1.0 / (v[0].numel())) / 0.87962566103423978
+            if not k.startswith("head_m"):
+                std *= gain
             nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std, generator=g)
         elif k.endswith("implicit"):
             base = 0.0 if k.startswith("head_ia") else 1.0

@@ -6,6 +6,11 @@ rectangular auction (ops/auction.py: the hand-written CUDA kernel on a
 CUDA tensor, its plain version on a CPU tensor) with the steep schedule
 of the JAX package's TPU branch: 2 eps phases at factor 4^(n/2), which
 ends at the same final eps as n phases at factor 4.
+``masked_assignment`` is the JAX module's function of that name: the
+square lapjv-extended auction (ops/auction_square.py: the K1/K3 CUDA
+kernels on a CUDA tensor, their plain version on a CPU tensor). It is the
+solver the JAX package runs wherever it is not on a TPU, and the exact
+one; the streaming entry points of pipeline.py use it for stage 1.
 ``linear_assignment_host`` is the scipy ground truth for tests.
 """
 
@@ -14,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from .auction import masked_assignment_auction
+from .auction_square import masked_assignment_square
 
 DEFAULT_PHASES = 5
 
@@ -30,6 +36,17 @@ def solve_assignment(cost, row_mask, col_mask, thresh,
     return masked_assignment_auction(
         cost.float().contiguous(), row_mask, col_mask, thresh, n_phases=2,
         phase_factor=4.0 ** (n_phases / 2.0))
+
+
+def masked_assignment(cost, row_mask, col_mask, thresh,
+                      n_phases: int = DEFAULT_PHASES):
+    """Exact masked assignment with cost-limit gating on the cost's
+    device, by the square auction: a 2-D cost is one problem (kernel K1),
+    a 3-D cost (B, N, M) with masks (B, N) / (B, M) is B problems in one
+    launch (kernel K3). Same contract as :func:`solve_assignment`."""
+    return masked_assignment_square(
+        cost.float().contiguous(), row_mask, col_mask, thresh,
+        n_phases=n_phases)
 
 
 def linear_assignment_host(cost: np.ndarray, thresh: float):

@@ -26,15 +26,11 @@ rounded add, so the two agree exactly.
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
+
+from .cuda_build import build_library
 
 NEG_F = -1e9
 MAX_ITERS = 4096
@@ -44,9 +40,6 @@ _MAX_PHASES = 8     # csrc/auction.cu MAX_PHASES
 # main path went through the kernel.
 LAUNCHES = 0
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG, "csrc", "auction.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
 _LIB = None
 BUILD_SECONDS = None
 BUILD_LOG = ""      # nvcc's -Xptxas -v report (registers, shared memory)
@@ -188,7 +181,8 @@ def _constant(values: tuple, device: torch.device) -> torch.Tensor:
 
 def _batched_args(cost, row_mask, col_mask, thresh):
     """Normalise to cost (N,M) or (B,N,M), masks (B,N)/(B,M), thresh (B,).
-    thresh: a number, a sequence of numbers or a tensor."""
+    thresh: a number, a sequence of numbers or a tensor; k thresholds
+    for B = g * k problems repeat over the g groups."""
     batched = row_mask.dim() == 2
     rm = row_mask if batched else row_mask[None]
     cm = col_mask if batched else col_mask[None]
@@ -198,7 +192,14 @@ def _batched_args(cost, row_mask, col_mask, thresh):
         values = (tuple(float(t) for t in thresh)
                   if isinstance(thresh, (tuple, list)) else (float(thresh),))
         th = _constant(values, cost.device)
-    th = th.reshape(-1).expand(rm.shape[0])
+    th = th.reshape(-1)
+    b = rm.shape[0]
+    if th.numel() == 1:
+        th = th.expand(b)
+    elif th.numel() != b:
+        if b % th.numel():
+            raise ValueError(f"{th.numel()} thresholds for {b} problems")
+        th = th.repeat(b // th.numel())     # (t0, t1, t0, t1, ...)
     return batched, rm.bool(), cm.bool(), th
 
 
@@ -228,39 +229,13 @@ def masked_assignment_auction_torch(cost, row_mask, col_mask, thresh,
 # CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the auction kernel cannot be built")
-
-
 def load_library():
-    """Build csrc/auction.cu into _build/ (keyed by the source's hash) at
-    first use and bind it with ctypes."""
+    """Build csrc/auction.cu (see ops/cuda_build.py) at first use and bind
+    it with ctypes."""
     global _LIB, BUILD_SECONDS, BUILD_LOG
     if _LIB is not None:
         return _LIB
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    so = os.path.join(_BUILD_DIR, f"libauction_{digest}.so")
-    t0 = time.time()
-    with open(os.path.join(_BUILD_DIR, "build.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not os.path.isfile(so):
-            tmp = so + ".tmp"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-                   "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SOURCE]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            BUILD_LOG = proc.stderr
-            os.replace(tmp, so)
-    BUILD_SECONDS = time.time() - t0
-    lib = ctypes.CDLL(so)
+    lib, BUILD_SECONDS, BUILD_LOG = build_library("auction.cu")
     lib.auction_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong,        # cost, batch stride
         ctypes.c_void_p, ctypes.c_void_p,          # row_mask, col_mask

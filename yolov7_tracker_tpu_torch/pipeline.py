@@ -9,8 +9,18 @@ then steps through the batch frame by frame (the JAX ``lax.scan`` as a
 Python loop). Everything stays on the device except the NMS loop
 conditions and the packed per-batch outputs.
 
-Not in this slice of the port: GMC, ReID, int8, the width-packed front,
-spatial sharding, multistream serving and detect_per_frame skipping.
+Two solvers serve stage 1 of the tracker step. The sequence modes
+(``run_sequence*``, ``process_batch``, ``track_frames``) keep the
+private-dummy auction (kernel K2), the JAX package's TPU choice. The
+streaming modes (``step_frame``, ``process_multistream``,
+``track_scan_multi``) take the exact square auction (kernels K1 and K3),
+which is what the JAX package's streaming entry points run on every
+backend but a TPU: a wrong pairing in a crowded many-camera scene costs
+an id switch, and the same algorithm as the reference lets the two
+packages be held against each other through ties.
+
+Not in the port yet: GMC, ReID, int8, the width-packed front, spatial
+sharding and detect_per_frame skipping.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from .models import zoo
 from .models.fuse import fuse_state_dict
 from .models.yolo import YoloV7, random_state_dict
 from .ops import nms as nms_mod
+from .ops.assignment import masked_assignment
 from .trackers import slab as S
 from .trackers.registry import build_tracker
 
@@ -140,13 +151,32 @@ class TrackingPipeline:
     def init_tracker(self) -> S.TrackSlab:
         return S.init_slab(self.tcfg, self.device)
 
+    def save_tracker_state(self, slab: S.TrackSlab, path: str,
+                           tag: str = "") -> None:
+        """Checkpoint mid-sequence tracker state to ``path`` (npz, the JAX
+        package's layout). ``tag`` (e.g. the stream source) guards against
+        resuming another stream's state."""
+        S.save_slab(path, slab, self.tcfg, tag=tag)
+
+    def load_tracker_state(self, path: str,
+                           expect_tag: str = "") -> S.TrackSlab:
+        """Resume state saved by :meth:`save_tracker_state` (or by the JAX
+        package); raises ValueError on a config- or tag-incompatible
+        checkpoint."""
+        return S.load_slab(path, self.tcfg, self.device,
+                           expect_tag=expect_tag)
+
     def dets_to_slab(self, boxes, score, cls, count) -> S.DetSlab:
+        """Detector outputs of one frame, or of S frames with a leading
+        stream axis, cut to det_capacity."""
         d = self.tcfg.det_capacity
+        boxes = boxes[..., :d, :].float()
         return S.DetSlab(
-            tlbr=boxes[:d].float(), score=score[:d].float(),
-            cls=cls[:d].float(),
-            valid=torch.arange(d, device=boxes.device) < count,
-            feature=torch.zeros((d, self.tcfg.feature_dim),
+            tlbr=boxes, score=score[..., :d].float(),
+            cls=cls[..., :d].float(),
+            valid=(torch.arange(d, device=boxes.device)
+                   < torch.as_tensor(count, device=boxes.device)[..., None]),
+            feature=torch.zeros(boxes.shape[:-1] + (self.tcfg.feature_dim,),
                                 device=boxes.device))
 
     def track_frames(self, slab: S.TrackSlab, det_slabs):
@@ -165,6 +195,49 @@ class TrackingPipeline:
         return self.track_frames(slab, [
             self.dets_to_slab(boxes[b], score[b], cls[b], counts[b])
             for b in range(boxes.shape[0])])
+
+    # ------------------------------------------------------------------
+    # streaming: S independent streams advance one frame each per call,
+    # or one stream one frame. Stage 1 is solved by the exact square
+    # auction (see the module docstring): K3 for S streams, K1 for one.
+    # ------------------------------------------------------------------
+
+    def init_multistream(self, n_streams: int) -> S.TrackSlab:
+        """A fresh slab per stream, stacked on a leading stream axis."""
+        slab = self.init_tracker()
+        return S.TrackSlab(*(
+            x[None].repeat((n_streams,) + (1,) * x.dim()) for x in slab))
+
+    def track_scan_multi(self, slabs: S.TrackSlab, det_streams: S.DetSlab):
+        """slabs: stacked over S streams; det_streams: every field
+        (T, S, D, ...). Steps all streams together through the T frames;
+        returns (slabs, FrameOutput (T, S, ...))."""
+        outs = []
+        for t in range(det_streams.valid.shape[0]):
+            slabs, out = self.step(
+                slabs, S.DetSlab(*(x[t] for x in det_streams)),
+                solve_stage1=masked_assignment)
+            outs.append(out)
+        return slabs, S.FrameOutput(*(torch.stack(f) for f in zip(*outs)))
+
+    def process_multistream(self, slabs: S.TrackSlab, frames_u8):
+        """One frame for each of S independent streams: ONE detector batch
+        over the streams' frames (S, H, W, 3), then one tracker step over
+        the stacked slabs (no scan: the streams advance together, so the
+        step's small launches are paid once for S frames)."""
+        boxes, score, cls, counts = self.detect_batch(frames_u8)
+        return self.step(slabs, self.dets_to_slab(boxes, score, cls, counts),
+                         solve_stage1=masked_assignment)
+
+    def step_frame(self, slab: S.TrackSlab, frame):
+        """Detect + associate one (H, W, 3) frame of one stream: the
+        latency-oriented streaming mode."""
+        if not isinstance(frame, torch.Tensor):
+            frame = torch.from_numpy(np.ascontiguousarray(frame))
+        boxes, score, cls, counts = self.detect_batch(frame[None])
+        return self.step(
+            slab, self.dets_to_slab(boxes[0], score[0], cls[0], counts[0]),
+            solve_stage1=masked_assignment)
 
     # ------------------------------------------------------------------
     # output packing: one D2H transfer per batch

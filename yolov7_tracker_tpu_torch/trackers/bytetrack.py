@@ -5,6 +5,10 @@ Stages: 1. pool (activated Tracked + Lost) vs high dets at 0.9;
 2. Tracked leftovers vs low dets at 0.5; 3. unconfirmed tracks vs
 leftover high dets at 0.7 (2 and 3 solved as ONE batch-2 auction launch,
 the JAX package's vmapped pair); 4. births; 5. prune and dedup.
+
+The step also takes a stacked slab and DetSlab (S streams on a leading
+axis, trackers/slab.py): stage 1 is then one S-problem solve and stages
+2 + 3 one 2S-problem launch.
 """
 
 from __future__ import annotations
@@ -18,7 +22,15 @@ from .registry import register
 
 
 @register("bytetrack")
-def bytetrack_step(slab: S.TrackSlab, dets: S.DetSlab, cfg: S.TrackerConfig):
+def bytetrack_step(slab: S.TrackSlab, dets: S.DetSlab, cfg: S.TrackerConfig,
+                   solve_stage1=None):
+    """One frame of one stream, or of S stacked streams. ``solve_stage1``
+    solves the pool-vs-high-dets problem: the private-dummy auction
+    (``solve_assignment``) by default; the streaming entry points of
+    pipeline.py pass the exact square auction
+    (ops.assignment.masked_assignment)."""
+    if solve_stage1 is None:
+        solve_stage1 = solve_assignment
     if cfg.feature_dim > 0:
         raise NotImplementedError(
             "appearance fusion (feature_dim > 0) is not ported yet")
@@ -33,7 +45,7 @@ def bytetrack_step(slab: S.TrackSlab, dets: S.DetSlab, cfg: S.TrackerConfig):
     pmask = S.pool_mask(slab)
     slab = S.predict_pool(slab, fmt, pmask)
     cost = boxops.iou_distance(S.track_tlbr(slab, fmt), dets.tlbr)
-    r2c, c2r = solve_assignment(cost, pmask, high, 0.9)
+    r2c, c2r = solve_stage1(cost, pmask, high, 0.9)
     was_tracked = slab.state == S.TRACKED
     slab = S.apply_matches(slab, dets, r2c, fmt, cfg)
 
@@ -43,10 +55,16 @@ def bytetrack_step(slab: S.TrackSlab, dets: S.DetSlab, cfg: S.TrackerConfig):
     u_tracks0 = pmask & (r2c < 0) & was_tracked
     umask = S.unconfirmed_mask(slab)
     u_high = high & (c2r < 0)
+    rows = torch.stack([u_tracks0, umask], dim=-2)      # (..., 2, T)
+    cols = torch.stack([low, u_high], dim=-2)           # (..., 2, D)
+    if cost23.dim() > 2:
+        # stacked streams: each stream's cost matrix serves its pair
+        cost23 = cost23.unsqueeze(-3).expand(
+            rows.shape[:-1] + cost23.shape[-2:]).flatten(0, -3)
     r2c_b, c2r_b = solve_assignment(
-        cost23, torch.stack([u_tracks0, umask]), torch.stack([low, u_high]),
-        (0.5, 0.7))
-    r2c2, r2c3, c2r3 = r2c_b[0], r2c_b[1], c2r_b[1]
+        cost23, rows.flatten(0, -2), cols.flatten(0, -2), (0.5, 0.7))
+    r2c_b, c2r_b = r2c_b.view(rows.shape), c2r_b.view(cols.shape)
+    r2c2, r2c3, c2r3 = r2c_b[..., 0, :], r2c_b[..., 1, :], c2r_b[..., 1, :]
     slab = S.apply_matches(slab, dets, r2c2, fmt, cfg)
     slab = S.mark_lost(slab, u_tracks0 & (r2c2 < 0))
     slab = S.apply_matches(slab, dets, r2c3, fmt, cfg)

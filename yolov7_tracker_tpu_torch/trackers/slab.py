@@ -5,6 +5,12 @@ Field names and shapes match the JAX TrackSlab, so a slab round-trips
 through the same npz checkpoint layout. Every lifecycle event is a masked
 update over the (T,) slot axis, so a tracker step is one function
 ``(slab, det_slab) -> (slab, frame_output)`` with no host sync.
+
+Every helper also takes a STACKED slab and DetSlab, each field with the
+same leading axes (the S streams of multistream serving: mean (S, T, 8),
+next_id (S,), ...), and treats the streams independently; the shapes in
+the comments below are those of one stream. This is the JAX package's
+``jax.vmap`` of the step, written out.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ class TrackSlab(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.score.shape[0]
+        return self.score.shape[-1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,7 +157,7 @@ def track_tlwh(slab: TrackSlab, fmt: str):
     if fmt == "none":
         return slab.det_tlwh
     kf_tlwh = kalman.tlwh_from_mean(fmt, slab.mean)
-    return torch.where(slab.occupied[:, None], kf_tlwh, slab.det_tlwh)
+    return torch.where(slab.occupied[..., None], kf_tlwh, slab.det_tlwh)
 
 
 def track_tlbr(slab: TrackSlab, fmt: str):
@@ -180,8 +186,8 @@ def predict_pool(slab: TrackSlab, fmt: str,
     mean = kalman.zero_stale_velocity(fmt, slab.mean, slab.state == TRACKED)
     new_mean, new_cov = kalman.predict(fmt, mean, slab.cov)
     return slab._replace(
-        mean=torch.where(mask[:, None], new_mean, slab.mean),
-        cov=torch.where(mask[:, None, None], new_cov, slab.cov),
+        mean=torch.where(mask[..., None], new_mean, slab.mean),
+        cov=torch.where(mask[..., None, None], new_cov, slab.cov),
         time_since_update=torch.where(mask, slab.time_since_update + 1,
                                       slab.time_since_update),
     )
@@ -192,26 +198,26 @@ def apply_matches(slab: TrackSlab, dets: DetSlab, row_to_col, fmt: str,
     """Commit matched (track, det) pairs: STrack.update for Tracked rows,
     STrack.re_activate for Lost rows (tracklet_len restarts at 0)."""
     upd = row_to_col >= 0
-    det_idx = row_to_col.long().clamp(0, dets.tlbr.shape[0] - 1)
-    det_tlwh = dets.tlwh[det_idx]
+    det_idx = row_to_col.long().clamp(0, dets.tlbr.shape[-2] - 1)
+    det_tlwh = torch.take_along_dim(dets.tlwh, det_idx[..., None], dim=-2)
+    det_score = torch.take_along_dim(dets.score, det_idx, dim=-1)
     meas = kalman.measurement_from_tlwh(fmt, det_tlwh)
     conf = None
     if kalman.SPECS[fmt].nsa:
-        conf = torch.where(slab.state == TRACKED, dets.score[det_idx],
+        conf = torch.where(slab.state == TRACKED, det_score,
                            torch.zeros_like(slab.score))
     new_mean, new_cov = kalman.update(fmt, slab.mean, slab.cov, meas, conf)
     was_tracked = slab.state == TRACKED
     one = torch.ones_like(slab.tracklet_len)
     return slab._replace(
-        mean=torch.where(upd[:, None], new_mean, slab.mean),
-        cov=torch.where(upd[:, None, None], new_cov, slab.cov),
-        det_tlwh=torch.where(upd[:, None], det_tlwh, slab.det_tlwh),
-        score=torch.where(upd, dets.score[det_idx], slab.score),
+        mean=torch.where(upd[..., None], new_mean, slab.mean),
+        cov=torch.where(upd[..., None, None], new_cov, slab.cov),
+        det_tlwh=torch.where(upd[..., None], det_tlwh, slab.det_tlwh),
+        score=torch.where(upd, det_score, slab.score),
         state=torch.where(upd, torch.full_like(slab.state, TRACKED),
                           slab.state),
         is_activated=slab.is_activated | upd,
-        frame_id=torch.where(upd, slab.frame.expand_as(slab.frame_id),
-                             slab.frame_id),
+        frame_id=torch.where(upd, slab.frame[..., None], slab.frame_id),
         tracklet_len=torch.where(
             upd, torch.where(was_tracked, slab.tracklet_len + one,
                              torch.zeros_like(one)), slab.tracklet_len),
@@ -240,66 +246,75 @@ def init_new_tracks(slab: TrackSlab, dets: DetSlab, new_mask, fmt: str,
                     cfg: TrackerConfig) -> TrackSlab:
     """Activate new tracks: the k-th new det (in det order) takes the k-th
     free slot and id next_id + 1 + k; overflow past the free slots drops."""
-    d = new_mask.shape[0]
+    lead = new_mask.shape[:-1]          # () or the stream axes
+    d = new_mask.shape[-1]
     t = slab.capacity
     dev = new_mask.device
     free = ~slab.occupied
-    det_rank = torch.cumsum(new_mask.int(), 0) - 1
-    free_rank = torch.cumsum(free.int(), 0) - 1
-    n_free = free.int().sum()
-    slot_for_rank = torch.full((t + 1,), t, dtype=torch.long, device=dev)
-    slot_for_rank[torch.where(free, free_rank, t).long()] = torch.arange(
-        t, device=dev)
-    slot_for_rank = slot_for_rank[:t]
+    det_rank = torch.cumsum(new_mask.int(), -1) - 1
+    free_rank = torch.cumsum(free.int(), -1) - 1
+    n_free = free.int().sum(-1, keepdim=True)
+    # slot_for_rank[k] = the k-th free slot; occupied slots write to a
+    # spare entry t that is cut off
+    slot_for_rank = torch.full(lead + (t + 1,), t, dtype=torch.long,
+                               device=dev)
+    slot_for_rank.scatter_(
+        -1, torch.where(free, free_rank, t).long(),
+        torch.arange(t, device=dev).expand(lead + (t,)))
     placeable = new_mask & (det_rank < n_free)
-    target = torch.where(placeable, slot_for_rank[det_rank.clamp(0, t - 1)],
-                         t)
+    target = torch.where(
+        placeable,
+        slot_for_rank.gather(-1, det_rank.clamp(0, t - 1).long()), t)
 
     det_tlwh = dets.tlwh
     if fmt == "none":
-        mean0 = torch.zeros((d, 8), dtype=torch.float32, device=dev)
-        cov0 = torch.eye(8, dtype=torch.float32, device=dev).repeat(d, 1, 1)
+        mean0 = torch.zeros(lead + (d, 8), dtype=torch.float32, device=dev)
+        cov0 = torch.eye(8, dtype=torch.float32, device=dev).expand(
+            lead + (d, 8, 8))
     else:
         mean0, cov0 = kalman.initiate(
             fmt, kalman.measurement_from_tlwh(fmt, det_tlwh))
-    ids = slab.next_id + 1 + det_rank
+    ids = slab.next_id[..., None] + 1 + det_rank
+    slot_dim = len(lead)
 
     def scat(dst, src):
         # rows aimed at slot t (not placeable) land in a spare row
-        ext = torch.cat([dst, dst[:1]])
-        ext[target] = src.to(dst.dtype)
-        return ext[:t]
+        ext = torch.cat([dst, dst.narrow(slot_dim, 0, 1)], dim=slot_dim)
+        idx = target.reshape(target.shape + (1,) * (src.dim() - target.dim()))
+        ext.scatter_(slot_dim, idx.expand_as(src), src.to(dst.dtype))
+        return ext.narrow(slot_dim, 0, t)
 
     def full(v, dtype):
-        return torch.full((d,), v, dtype=dtype, device=dev)
+        return torch.full(lead + (d,), v, dtype=dtype, device=dev)
 
-    frame1 = slab.frame == 1  # is_activated only on the first frame
-    frame = slab.frame.expand(d)
+    # is_activated only on the first frame
+    frame1 = (slab.frame == 1)[..., None].expand(lead + (d,))
+    frame = slab.frame[..., None].expand(lead + (d,))
     return slab._replace(
         mean=scat(slab.mean, mean0),
         cov=scat(slab.cov, cov0),
         det_tlwh=scat(slab.det_tlwh, det_tlwh),
-        extra=scat(slab.extra, torch.zeros((d,) + slab.extra.shape[1:],
-                                           device=dev)),
+        extra=scat(slab.extra, torch.zeros(
+            lead + (d,) + slab.extra.shape[slot_dim + 1:], device=dev)),
         score=scat(slab.score, dets.score),
         cls=scat(slab.cls, dets.cls),
         state=scat(slab.state, full(TRACKED, torch.int32)),
         occupied=scat(slab.occupied, full(True, torch.bool)),
-        is_activated=scat(slab.is_activated, frame1.expand(d)),
+        is_activated=scat(slab.is_activated, frame1),
         track_id=scat(slab.track_id, ids),
         frame_id=scat(slab.frame_id, frame),
         start_frame=scat(slab.start_frame, frame),
         tracklet_len=scat(slab.tracklet_len, full(0, torch.int32)),
         time_since_update=scat(slab.time_since_update, full(0, torch.int32)),
-        ins_seq=scat(slab.ins_seq,
-                     t + torch.arange(d, dtype=torch.int32, device=dev)),
-        next_id=slab.next_id + placeable.int().sum().to(torch.int32),
+        ins_seq=scat(slab.ins_seq, (t + torch.arange(
+            d, dtype=torch.int32, device=dev)).expand(lead + (d,))),
+        next_id=slab.next_id + placeable.int().sum(-1).to(torch.int32),
     )
 
 
 def prune_lost(slab: TrackSlab, max_time_lost: int) -> TrackSlab:
     stale = (slab.occupied & (slab.state == LOST)
-             & (slab.frame - slab.frame_id > max_time_lost))
+             & (slab.frame[..., None] - slab.frame_id > max_time_lost))
     return mark_removed(slab, stale)
 
 
@@ -309,11 +324,11 @@ def remove_duplicates(slab: TrackSlab, fmt: str) -> TrackSlab:
     tracked = slab.occupied & (slab.state == TRACKED)
     lost = slab.occupied & (slab.state == LOST)
     dist = 1.0 - boxops.iou_matrix(tlbr, tlbr)
-    dup = (dist < 0.15) & tracked[:, None] & lost[None, :]
+    dup = (dist < 0.15) & tracked[..., :, None] & lost[..., None, :]
     age = slab.frame_id - slab.start_frame
-    older_t = age[:, None] > age[None, :]
-    drop_tracked = (dup & ~older_t).any(dim=1)
-    drop_lost = (dup & older_t).any(dim=0)
+    older_t = age[..., :, None] > age[..., None, :]
+    drop_tracked = (dup & ~older_t).any(dim=-1)
+    drop_lost = (dup & older_t).any(dim=-2)
     return mark_removed(slab, drop_tracked | drop_lost)
 
 
@@ -331,7 +346,7 @@ def frame_output(slab: TrackSlab, fmt: str, cfg: TrackerConfig) -> FrameOutput:
     """Activated tracked tracks passing the min-area filter."""
     tlwh = track_tlwh(slab, fmt)
     valid = (slab.occupied & (slab.state == TRACKED) & slab.is_activated
-             & (tlwh[:, 2] * tlwh[:, 3] > cfg.min_area))
+             & (tlwh[..., 2] * tlwh[..., 3] > cfg.min_area))
     return FrameOutput(track_id=slab.track_id, tlwh=tlwh, score=slab.score,
                        cls=slab.cls, valid=valid)
 
