@@ -7,9 +7,10 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which must pass:
   1. build   -- nvcc builds csrc/auction.cu (K2, the private-dummy
-                auction) and csrc/auction_square.cu (K1 and K3, the square
-                lapjv-extended auction) for sm_90a from the checkout, side
-                by side.
+                auction), csrc/auction_square.cu (K1 and K3, the square
+                lapjv-extended auction) and the latter's profiling build
+                (-DAUCTION_PROFILE) for sm_90a from the checkout, side by
+                side.
   2. kernels -- each kernel against its plain PyTorch version on the card
                 at the tracker's shape (128, 300), exact equality of
                 r2c/c2r. K2: >= 32 seeded problems (association-shaped and
@@ -19,7 +20,13 @@ Phases, each of which must pass:
                 problems, against scipy too. K3: batches of 8 and 16, of
                 which each problem is also solved alone by K1 with the
                 same result (a block that leaves when its own problem is
-                done == the lockstep form).
+                done == the lockstep form). K1/K3 also on problems that
+                stress the sweep: every row bidding after each release,
+                256 x 300 (weights not staged), 7 x 5 and other shapes
+                with N > M or odd widths, everything masked out, max_iters
+                hit, 6 phases, and B = 264 (two waves of blocks). For
+                K1/K3 the sweeps of every phase and the cells read are
+                compared as well.
   3. main    -- yolov7-w6 at full width (nc=80, 1088 px, bf16, BN folded,
                 seeded weights with sharpened heads) -> NMS -> ByteTrack
                 (capacity 128, det_capacity 300) over 16 synthetic
@@ -42,9 +49,19 @@ Phases, each of which must pass:
   5. step    -- step_frame on one stream for 8 frames: 8 K1 launches, and
                 the same slab as lane 0 of a one-stream
                 process_multistream run.
+Then K1 on step_frame's last problem and K3 on the last tick's are timed
+(ms, us per sweep, bound) and profiled (where a sweep's cycles go, by the
+profiling build, which no path uses), and both problems are written to
+chiprun_out/chip_smoke/square_problems.pt.
 It prints the kernel JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, if
 there is no CUDA device or if any phase fails. It imports nothing of JAX.
+
+    python3 chip_smoke.py --square-only [--problems square_problems.pt]
+
+is a short run for work on K1/K3 alone: build, phase 2 for K1/K3, and,
+given the file a full run wrote, the timing and profile on the paths'
+problems. It prints no result line.
 """
 
 from __future__ import annotations
@@ -259,9 +276,10 @@ def square_bound(n_problems, n, m, cells):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_square(square, cost, rm, cm, thresh, dev, reps):
-    """Kernel ms (CUDA events), plain ms (one run), per-problem sweeps,
-    cells read and the bound for one (N, M) or (B, N, M) problem on the card."""
+def time_square(square, cost, rm, cm, thresh, dev, reps, plain=True):
+    """Kernel ms (CUDA events), plain ms (one run, if asked for), per-problem
+    sweeps, cells read and the bound for one (N, M) or (B, N, M) problem on
+    the card."""
     import torch
 
     b = cost.shape[0] if cost.dim() == 3 else 1
@@ -273,12 +291,14 @@ def time_square(square, cost, rm, cm, thresh, dev, reps):
                                          sweeps=sweeps, cells=cells)
     k_ms = cuda_ms(lambda: square.masked_assignment_square_cuda(
         cost, rm, cm, thresh, n_phases=SQUARE_PHASES), reps)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    square.masked_assignment_square_torch(cost, rm, cm, thresh,
-                                          n_phases=SQUARE_PHASES)
-    torch.cuda.synchronize()
-    p_ms = (time.time() - t0) * 1e3
+    p_ms = None
+    if plain:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        square.masked_assignment_square_torch(cost, rm, cm, thresh,
+                                              n_phases=SQUARE_PHASES)
+        torch.cuda.synchronize()
+        p_ms = (time.time() - t0) * 1e3
     per_problem = sweeps.sum(dim=1).tolist()
     bound, by = square_bound(b, n, m, int(cells.sum()))
     return dict(ms=k_ms, plain_ms=p_ms, sweeps=per_problem,
@@ -287,32 +307,155 @@ def time_square(square, cost, rm, cm, thresh, dev, reps):
                 bound_ms=bound, bound_by=by)
 
 
+def square_diff(a, b):
+    """max |difference| over two (r2c, c2r) results."""
+    return max(int((a[0].long() - b[0].long()).abs().max()),
+               int((a[1].long() - b[1].long()).abs().max()))
+
+
+def square_check(square, cost, rm, cm, thresh, dev, **kw):
+    """K1 or K3 against the plain version on one problem or batch: the max
+    |difference| over r2c, c2r, the sweeps of every phase and problem and
+    the cells read (0 means bit-identical), with the kernel's result and
+    its sweeps per problem."""
+    import torch
+
+    kw.setdefault("n_phases", SQUARE_PHASES)
+    b = cost.shape[0] if cost.dim() == 3 else 1
+    outs = []
+    for solve in (square.masked_assignment_square_cuda,
+                  square.masked_assignment_square_torch):
+        sweeps = torch.zeros((b, kw["n_phases"]), dtype=torch.int32,
+                             device=dev)
+        cells = torch.zeros(b, dtype=torch.int64, device=dev)
+        outs.append((solve(cost, rm, cm, thresh, sweeps=sweeps, cells=cells,
+                           **kw), sweeps, cells))
+    torch.cuda.synchronize()
+    (k, ks, kc), (p, ps, pc) = outs
+    worst = max(square_diff(k, p), int((ks - ps).abs().max()),
+                int((kc - pc).abs().max()))
+    return worst, k, ks.sum(dim=1).tolist()
+
+
+def stress_problems(rng, dev):
+    """(name, cost, rm, cm, thresh, kwargs) of problems that stress the
+    sweep: long bidder lists, the unstaged and the scalar paths, a list that
+    is empty from the start, a sweep limit that is hit, more phases, and a
+    batch of two waves of blocks."""
+    import torch
+
+    def on_card(*xs):
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in xs)
+
+    out = []
+    # every cost far under the limit: each release frees every row, so the
+    # first sweeps of a phase have hundreds of bidders
+    cost = rng.uniform(0.0, 0.4, (128, 300)).astype(np.float32)
+    out.append(("dense under the limit, no masks (all rows bid)",
+                *on_card(cost, np.ones(128, bool), np.ones(300, bool)), 0.9,
+                {}))
+    for kind in ("assoc", "dense"):
+        out.append((f"256 x 300 {kind} (cost matrix read through L2)",
+                    *on_card(*seeded_problem(rng, 256, 300, kind)), 0.9, {}))
+    for n, m in ((7, 5), (130, 100), (40, 23)):
+        out.append((f"{n} x {m} dense",
+                    *on_card(*seeded_problem(rng, n, m, "dense")), 0.7, {}))
+    cost, _, _ = seeded_problem(rng)
+    out.append(("all masked out",
+                *on_card(cost, np.zeros(128, bool), np.zeros(300, bool)),
+                0.9, {}))
+    assoc = on_card(*seeded_problem(rng))
+    out.append(("max_iters = 20 (hit)", *assoc, 0.9, {"max_iters": 20}))
+    out.append(("6 phases", *assoc, 0.9, {"n_phases": 6}))
+    probs = [seeded_problem(rng, kind="assoc" if i % 8 else "dense")
+             for i in range(264)]
+    out.append(("K3, B = 264 (two waves of blocks), 3 phases",
+                *on_card(*(np.stack(x) for x in zip(*probs))), 0.9,
+                {"n_phases": 3}))
+    return out
+
+
+def profile_line(square, name, cost, rm, cm, thresh, dev):
+    """Log where the cycles of a solve go, by the profiling build of K1/K3
+    (clock64() sums on lane 0 of each warp): of a batch the problem with
+    the most cycles; the shares of the whole solve, and the parts of a
+    shared-out sweep on the warp that worked the most in them. Also times
+    the profiling build against the timed one."""
+    import torch
+
+    b = cost.shape[0] if cost.dim() == 3 else 1
+    kw = dict(n_phases=SQUARE_PHASES)
+    sweeps = torch.zeros((b, SQUARE_PHASES), dtype=torch.int32, device=dev)
+    *_, cycles = square.profile_square(cost, rm, cm, thresh, sweeps=sweeps,
+                                       **kw)
+    prof_ms = cuda_ms(lambda: square.profile_square(cost, rm, cm, thresh,
+                                                    **kw), 5)
+    timed_ms = cuda_ms(lambda: square.masked_assignment_square_cuda(
+        cost, rm, cm, thresh, **kw), 5)
+    parts = square.PROFILE_PARTS[:-2]
+    per_solve = ("stage", "release", "long-list sweeps", "solo sweeps",
+                 "solo wait", "gate")
+    in_sweep = [k for k in parts if k not in per_solve]
+    work = [parts.index(k) for k in in_sweep if not k.endswith("barrier")]
+    slow = int(cycles[:, 0, :-2].sum(dim=1).argmax())
+    n_long = int(cycles[slow, 0, -2])
+    n_solo = int(cycles[slow, :, -1].sum())
+    solo_cycles = int(cycles[slow, :, parts.index("solo sweeps")].sum())
+    warp = int(cycles[slow][:, work].sum(dim=1).argmax())
+    cyc = dict(zip(parts, cycles[slow, warp, :-2].tolist()))
+    n_sweeps = max(int(sweeps[slow].sum()), 1)
+    n_short = max(n_sweeps - n_long - n_solo, 1)
+    # the block's warps meet at every barrier, so any warp's parts add up
+    # to the solve; only one warp at a time runs solo sweeps
+    shared = sum(cyc[k] for k in in_sweep)
+    walls = {"stage": cyc["stage"], "release": cyc["release"],
+             "long-list sweeps": cyc["long-list sweeps"],
+             "shared-out sweeps": shared, "solo sweeps": solo_cycles,
+             "gate": cyc["gate"]}
+    total = sum(walls.values())
+    each = {"long-list sweeps": n_long, "shared-out sweeps": n_short,
+            "solo sweeps": n_solo}
+    log(f"profile of {name} (problem {slow} of {b}; {n_sweeps} sweeps: "
+        f"{n_long} with long lists, {n_short} shared out, {n_solo} solo; "
+        f"{total} cycles; profiling build {prof_ms:.4f} ms against "
+        f"{timed_ms:.4f} ms): "
+        + ", ".join(
+            f"{k} {v} ({100.0 * v / total:.1f}%"
+            + (f", {v / max(each[k], 1):.0f} each)" if k in each else ")")
+            for k, v in walls.items())
+        + f"; a shared-out sweep on its busiest warp ({warp}): "
+        + ", ".join(f"{k} {cyc[k] / n_short:.0f}" for k in in_sweep))
+    return cyc | walls | {
+        "sweeps": n_sweeps, "long_list_sweep_count": n_long,
+        "shared_out_sweep_count": n_short, "solo_sweep_count": n_solo,
+        "problem": slow, "warp": warp, "profile_build_ms": prof_ms}
+
+
 def square_phase(dev):
-    """K1 and K3 against the plain version at (128, 300); returns the max
-    |difference| over every r2c and c2r compared, and timings of one
-    association-shaped K1 problem and one K3 batch of 8."""
+    """K1 and K3 against the plain version at (128, 300) and on the stress
+    problems; returns the max |difference| over every r2c, c2r, sweep count
+    and cell count compared, and timings of one association-shaped K1
+    problem and one K3 batch of 8."""
     import torch
 
     from yolov7_tracker_tpu_torch.ops import auction_square as square
 
-    def diff(a, b):
-        return max(int((a[0].long() - b[0].long()).abs().max()),
-                   int((a[1].long() - b[1].long()).abs().max()))
-
+    diff = square_diff
     kw = dict(n_phases=SQUARE_PHASES)
     rng = np.random.default_rng(1)
     worst = 0
     t0 = time.time()
-    singles, gaps = [], []
+    singles, results, gaps = [], [], []
+    ks = torch.zeros((8, SQUARE_PHASES), dtype=torch.int32, device=dev)
+    kc = torch.zeros(8, dtype=torch.int64, device=dev)
     for i in range(8):
         cost, rm, cm = seeded_problem(rng, kind="assoc" if i % 2 == 0
                                       else "dense")
         th = float(rng.choice([0.9, 0.7]))
         args = tuple(torch.from_numpy(x).to(dev) for x in (cost, rm, cm))
-        k = square.masked_assignment_square_cuda(*args, th, **kw)
-        p = square.masked_assignment_square_torch(*args, th, **kw)
-        torch.cuda.synchronize()
-        worst = max(worst, diff(k, p))
+        k = square.masked_assignment_square_cuda(
+            *args, th, sweeps=ks[i:i + 1], cells=kc[i:i + 1], **kw)
         gap = scipy_gap(cost, rm, cm, th, k[0].cpu().numpy())
         # the auction guarantees (n + m) * eps_final of the optimum (0.7
         # to 0.8 at the tracker's 5 phases), which a visibly wrong matching
@@ -322,7 +465,20 @@ def square_phase(dev):
         if abs(gap) > SCIPY_GAP_LIMIT:
             raise AssertionError(f"K1 vs scipy, problem {i}: gap {gap}")
         singles.append(args + (th,))
-    log(f"K1: 8 single problems (128, 300): max |kernel - plain| = {worst}; "
+        results.append(k)
+    # the plain version solves the eight in lockstep, each as it would
+    # alone (tests/test_torch_auction_square.py holds it to that), in a
+    # sixth of the time of eight solves
+    ps = torch.zeros_like(ks)
+    pc = torch.zeros_like(kc)
+    p = square.masked_assignment_square_torch(
+        *(torch.stack(x) for x in list(zip(*singles))[:3]),
+        torch.tensor([x[3] for x in singles]), sweeps=ps, cells=pc, **kw)
+    torch.cuda.synchronize()
+    worst = max([diff(k, (p[0][i], p[1][i])) for i, k in enumerate(results)]
+                + [int((ks - ps).abs().max()), int((kc - pc).abs().max())])
+    log(f"K1: 8 single problems (128, 300): max |kernel - plain| (r2c, c2r, "
+        f"sweeps per phase, cells) = {worst}; "
         f"weight left against scipy, association "
         f"{[round(g, 5) for g in gaps[0::2]]}, dense "
         f"{[round(g, 5) for g in gaps[1::2]]} (limit {SCIPY_GAP_LIMIT}) "
@@ -334,35 +490,44 @@ def square_phase(dev):
                  for i in range(b)]
         cost, rm, cm = (torch.from_numpy(np.stack(x)).to(dev)
                         for x in zip(*probs))
-        k = square.masked_assignment_square_cuda(cost, rm, cm, 0.9, **kw)
-        p = square.masked_assignment_square_torch(cost, rm, cm, 0.9, **kw)
+        d, k, _ = square_check(square, cost, rm, cm, 0.9, dev)
         alone = 0
         for i in range(b):
             one = square.masked_assignment_square_cuda(
                 cost[i].contiguous(), rm[i], cm[i], 0.9, **kw)
             alone = max(alone, diff(one, (k[0][i], k[1][i])))
         torch.cuda.synchronize()
-        worst = max(worst, diff(k, p), alone)
-        log(f"K3: batch of {b}: max |kernel - plain| = {diff(k, p)}, max "
+        worst = max(worst, d, alone)
+        log(f"K3: batch of {b}: max |kernel - plain| = {d}, max "
             f"|K3 - K1 on each problem alone| = {alone}")
         batches[b] = (cost, rm, cm)
+    t0 = time.time()
+    for name, cost, rm, cm, th, extra in stress_problems(rng, dev):
+        d, k, sw = square_check(square, cost, rm, cm, th, dev, **extra)
+        worst = max(worst, d)
+        log(f"stress, {name}: max |kernel - plain| = {d} (r2c, c2r, sweeps "
+            f"per phase, cells); sweeps {sw if len(sw) <= 8 else max(sw)}, "
+            f"pairs {int((k[0] >= 0).sum())}")
+    log(f"stress problems: {time.time() - t0:.1f} s")
     if worst != 0:
         raise AssertionError(
             f"square auction kernel differs from its plain version: {worst}")
 
-    t1 = time_square(square, *singles[0], dev, reps=20)
-    t3 = {b: time_square(square, *batches[b], 0.9, dev, reps=10)
+    t1 = time_square(square, *singles[0], dev, reps=20, plain=False)
+    t3 = {b: time_square(square, *batches[b], 0.9, dev, reps=10, plain=False)
           for b in batches}
     log(f"K1/K3 timings on {card_line()}")
     log(f"K1 (128, 300) association: kernel {t1['ms']:.4f} ms, "
-        f"{t1['sweeps'][0]} sweeps, {t1['us_per_sweep']:.3f} us/sweep, plain "
-        f"{t1['plain_ms']:.1f} ms, bound {t1['bound_ms']:.6f} ms "
-        f"({t1['bound_by']})")
+        f"{t1['sweeps'][0]} sweeps, {t1['us_per_sweep']:.3f} us/sweep, "
+        f"bound {t1['bound_ms']:.6f} ms ({t1['bound_by']})")
     for b, t in t3.items():
         log(f"K3 B={b}: kernel {t['ms']:.4f} ms, sweeps {t['sweeps']}, "
-            f"{t['us_per_sweep']:.3f} us/sweep of the slowest, plain "
-            f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.6f} ms "
-            f"({t['bound_by']})")
+            f"{t['us_per_sweep']:.3f} us/sweep of the slowest, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    profile_line(square, "K1 on the seeded association problem", *singles[0],
+                 dev)
+    profile_line(square, "K3 on the seeded batch of 8", *batches[8], 0.9,
+                 dev)
     # K3's time against the batch: one block per problem, so up to the
     # card's 132 SMs a launch should cost what its slowest problem costs
     probs = [seeded_problem(rng) for _ in range(264)]
@@ -669,15 +834,11 @@ def serving_phase(sd, pipe, dev):
 
     # the last tick's own stage-1 problems: kernel == plain version
     cost, rm, cm, th = last["stage1"]
-    k = square.masked_assignment_square_cuda(cost, rm, cm, th,
-                                             n_phases=SQUARE_PHASES)
-    p = square.masked_assignment_square_torch(cost, rm, cm, th,
-                                              n_phases=SQUARE_PHASES)
-    worst = max(int((k[0].long() - p[0].long()).abs().max()),
-                int((k[1].long() - p[1].long()).abs().max()))
+    worst, k, _ = square_check(square, cost, rm, cm, th, dev)
     distinct = len({c.cpu().numpy().tobytes() for c in cost})
     log(f"last tick's {cost.shape[0]} stage-1 problems ({distinct} distinct "
-        f"cost matrices) re-solved: max |K3 - plain| = {worst}; pairs per "
+        f"cost matrices) re-solved: max |K3 - plain| (r2c, c2r, sweeps per "
+        f"phase, cells) = {worst}; pairs per "
         f"stream {(k[0] >= 0).sum(dim=1).tolist()}")
     if worst != 0:
         raise AssertionError("K3 differs from its plain version on the "
@@ -795,12 +956,7 @@ def step_frame_phase(pipe, dev):
                                  f"{name} differs")
     # the last frame's own stage-1 problem: kernel == plain version
     cost, rm, cm, th = last["stage1"]
-    k = square.masked_assignment_square_cuda(cost, rm, cm, th,
-                                             n_phases=SQUARE_PHASES)
-    p = square.masked_assignment_square_torch(cost, rm, cm, th,
-                                              n_phases=SQUARE_PHASES)
-    worst = max(int((k[0].long() - p[0].long()).abs().max()),
-                int((k[1].long() - p[1].long()).abs().max()))
+    worst, k, _ = square_check(square, cost, rm, cm, th, dev)
     if worst != 0:
         raise AssertionError("K1 differs from its plain version on "
                              f"step_frame's own problem: {worst}")
@@ -814,7 +970,8 @@ def step_frame_phase(pipe, dev):
         f"{int(out.valid.sum())} tracks on the last; slab == lane 0 of a "
         "one-stream process_multistream run (integers exact, floats "
         f"1e-5 / 1e-4); last frame's stage-1 problem re-solved: max "
-        f"|K1 - plain| = {worst}, {int((k[0] >= 0).sum())} pairs")
+        f"|K1 - plain| (r2c, c2r, sweeps per phase, cells) = {worst}, "
+        f"{int((k[0] >= 0).sum())} pairs")
     return k1, last["stage1"]
 
 
@@ -854,9 +1011,95 @@ def detector_reference_check(dev):
         f"{worst:.2e} (tolerance 1e-3)")
 
 
-def main():
+def path_timings(square, step_last, tick_last, dev):
+    """K1 on step_frame's last problem and K3 on a serving tick's, as their
+    paths gave them: time, sweeps, cells and bound of the timed build, then
+    the profiling build's shares. Returns the two records."""
+    on_step = time_square(square, *step_last, dev, reps=20)
+    on_tick = time_square(square, *tick_last, dev, reps=10)
+    b = tick_last[0].shape[0]
+    log(f"K1/K3 on their paths' problems, on {card_line()}")
+    log(f"K1 on step_frame's last problem: kernel {on_step['ms']:.4f} ms, "
+        f"sweeps {on_step['sweeps']}, {on_step['us_per_sweep']:.3f} "
+        f"us/sweep, cells {on_step['cells']}, plain "
+        f"{on_step['plain_ms']:.1f} ms, bound {on_step['bound_ms']:.6f} ms "
+        f"({on_step['bound_by']})")
+    log(f"K3 on the last serving tick's problems (B={b}): kernel "
+        f"{on_tick['ms']:.4f} ms, sweeps {on_tick['sweeps']}, "
+        f"{on_tick['us_per_sweep']:.3f} us/sweep of the slowest, cells "
+        f"{on_tick['cells']}, plain "
+        f"{on_tick['plain_ms']:.1f} ms, bound {on_tick['bound_ms']:.6f} ms "
+        f"({on_tick['bound_by']})")
+    on_step["profile_cycles"] = profile_line(
+        square, "K1 on step_frame's last problem", *step_last, dev)
+    on_tick["profile_cycles"] = profile_line(
+        square, f"K3 on the last serving tick's problems (B={b})",
+        *tick_last, dev)
+    return on_step, on_tick
+
+
+def build_kernels(mods):
+    """One nvcc per build, all started together; mods: (module, source,
+    load_library arguments). Raises if a build failed."""
+    t0 = time.time()
+    threads = [threading.Thread(target=mod.load_library, args=args)
+               for mod, _, args in mods]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for mod, source, args in mods:
+        mod.load_library(*args)      # raises here if its build failed
+        if args:
+            continue                 # the profiling build: same source
+        log(f"built {source} for sm_90a in {mod.BUILD_SECONDS:.1f} s")
+        for line in mod.BUILD_LOG.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas: {line.strip()}")
+            elif "Compiling entry" in line or "Function properties" in line:
+                # name the function the next lines speak of, without its
+                # mangled arguments
+                log(f"ptxas: {line.strip()[:150]}")
+    log(f"{len(mods)} builds, side by side: {time.time() - t0:.1f} s")
+
+
+def square_only(dev, problems_file):
+    """The short run behind --square-only: build K1/K3 and their profiling
+    build, hold them against the plain version (seeded and stress
+    problems), time them, and, given the square_problems.pt that a full
+    run wrote, time and profile them on those problems of the paths."""
     import torch
 
+    from yolov7_tracker_tpu_torch.ops import auction_square as square
+
+    build_kernels([(square, SOURCE_SQUARE, ()), (square, SOURCE_SQUARE,
+                                                 (True,))])
+    square_phase(dev)
+    if problems_file:
+        saved = torch.load(problems_file)
+
+        def on_card(problem):
+            return tuple(x.to(dev) if isinstance(x, torch.Tensor) else x
+                         for x in problem)
+
+        path_timings(square, on_card(saved["step"]), on_card(saved["tick"]),
+                     dev)
+    log("square-only run done (not the smoke run: no result line)")
+    return 0
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--square-only", action="store_true",
+                    help="only build, check, time and profile K1/K3")
+    ap.add_argument("--problems", default="",
+                    help="with --square-only: a square_problems.pt written "
+                         "by a full run (the paths' own last problems)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -868,21 +1111,11 @@ def main():
     from yolov7_tracker_tpu_torch.ops import auction_square as square
 
     dev = torch.device("cuda")
+    if args.square_only:
+        return square_only(dev, args.problems)
     t0 = time.time()
-    # one nvcc per source, both started together
-    threads = [threading.Thread(target=mod.load_library)
-                for mod in (auction, square)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for mod, source in ((auction, SOURCE), (square, SOURCE_SQUARE)):
-        mod.load_library()      # raises here if its build failed
-        log(f"built {source} for sm_90a in {mod.BUILD_SECONDS:.1f} s")
-        for line in mod.BUILD_LOG.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"ptxas: {line.strip()}")
-    log(f"both builds, side by side: {time.time() - t0:.1f} s")
+    build_kernels([(auction, SOURCE, ()), (square, SOURCE_SQUARE, ()),
+                   (square, SOURCE_SQUARE, (True,))])
 
     worst = kernel_phase(dev)
     worst_sq, t_k1, t_k3 = square_phase(dev)
@@ -919,18 +1152,18 @@ def main():
                   sweeps_b2=s2, ms_serving=k16, plain_ms_serving=p16,
                   bound_ms_serving=b16, sweeps_serving=s16)
 
-    # K1 and K3 on the problems their own paths gave them last
-    on_step = time_square(square, *step_last, dev, reps=20)
-    on_tick = time_square(square, *serve_last["stage1"], dev, reps=10)
-    log(f"K1 on step_frame's last problem: kernel {on_step['ms']:.4f} ms, "
-        f"sweeps {on_step['sweeps']}, cells {on_step['cells']}, plain "
-        f"{on_step['plain_ms']:.1f} ms, bound {on_step['bound_ms']:.6f} ms "
-        f"({on_step['bound_by']})")
-    log(f"K3 on the last serving tick's problems (B={N_STREAMS}): kernel "
-        f"{on_tick['ms']:.4f} ms, sweeps {on_tick['sweeps']}, cells "
-        f"{on_tick['cells']}, plain "
-        f"{on_tick['plain_ms']:.1f} ms, bound {on_tick['bound_ms']:.6f} ms "
-        f"({on_tick['bound_by']})")
+    # K1 and K3 on the problems their own paths gave them last, which are
+    # kept for a later --square-only run
+    on_step, on_tick = path_timings(square, step_last, serve_last["stage1"],
+                                    dev)
+
+    def on_host(problem):
+        return tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                     for x in problem)
+
+    torch.save({"step": on_host(step_last),
+                "tick": on_host(serve_last["stage1"])},
+               os.path.join(OUT_DIR, "square_problems.pt"))
     rec_k1 = {"name": "auction_k1_square", "route": "cuda",
               "source": SOURCE_SQUARE, "replaces": REPLACES_K1,
               "launches": k1_launches, "max_abs_err": float(worst_sq),

@@ -126,6 +126,80 @@ def test_square_kernel_k3_equals_plain_and_k1(card, b):
         assert torch.equal(r, kr[i]) and torch.equal(c, kc[i])
 
 
+def _square_both(card, cost, rm, cm, th, **kw):
+    """K1/K3 and the plain version on the same problem: results, sweeps
+    per phase and problem, cells read."""
+    b = cost.shape[0] if cost.dim() == 3 else 1
+    n_phases = kw.setdefault("n_phases", 5)
+    outs = []
+    for solve in (auction_square.masked_assignment_square_cuda,
+                  auction_square.masked_assignment_square_torch):
+        sweeps = torch.zeros((b, n_phases), dtype=torch.int32, device=card)
+        cells = torch.zeros(b, dtype=torch.int64, device=card)
+        r2c, c2r = solve(cost, rm, cm, th, sweeps=sweeps, cells=cells, **kw)
+        outs.append((r2c, c2r, sweeps, cells))
+    torch.cuda.synchronize()
+    return outs
+
+
+_STRESS = {
+    # name: (n, m, kind, masks, thresh, solver arguments)
+    "all_rows_bid": (128, 300, "low", "none", 0.9, {}),
+    "unstaged_256x300": (256, 300, "dense", "random", 0.9, {}),
+    "scalar_7x5": (7, 5, "dense", "random", 0.7, {}),
+    "more_rows_than_columns": (130, 100, "dense", "random", 0.7, {}),
+    "more_rows_odd_width": (40, 23, "dense", "random", 0.7, {}),
+    "all_masked": (128, 300, "assoc", "all", 0.9, {}),
+    "max_iters_hit": (128, 300, "assoc", "random", 0.9, {"max_iters": 20}),
+    "six_phases": (128, 300, "assoc", "random", 0.9, {"n_phases": 6}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_STRESS))
+def test_square_kernel_on_problems_that_stress_the_sweep(card, name):
+    """Bit-exact, sweeps per phase and cells included, where the carried
+    bidder list is long (every cost under the limit: each release frees
+    every row), empty from the start (everything masked out) or cut by
+    max_iters, on the unstaged and the scalar-load paths, with more rows
+    than columns, and over six phases."""
+    n, m, kind, masks, th, kw = _STRESS[name]
+    rng = np.random.default_rng(len(name) + n)
+    if kind == "low":
+        cost = torch.from_numpy(
+            rng.uniform(0.0, 0.4, (n, m)).astype(np.float32))
+    else:
+        cost, rm, cm = _problem(rng, n, m, kind)
+    if masks == "none":
+        rm, cm = torch.ones(n, dtype=torch.bool), torch.ones(m,
+                                                             dtype=torch.bool)
+    elif masks == "all":
+        rm, cm = torch.zeros(n, dtype=torch.bool), torch.zeros(
+            m, dtype=torch.bool)
+    k, p = _square_both(card, cost.to(card), rm.to(card), cm.to(card), th,
+                        **kw)
+    for got, want in zip(k, p):
+        assert torch.equal(got, want)
+    if name == "max_iters_hit":
+        assert int(k[2].max()) == 20
+    if name == "all_rows_bid":
+        assert int((k[0] >= 0).sum()) == n
+
+
+@pytest.mark.cuda
+def test_square_kernel_k3_two_waves_of_blocks(card):
+    """B = 264 problems on 132 SMs, one block each: the second wave starts
+    as blocks of the first leave."""
+    rng = np.random.default_rng(264)
+    probs = [_problem(rng, 128, 300, "assoc" if i % 8 else "dense")
+             for i in range(264)]
+    cost, rm, cm = (torch.stack(x).to(card) for x in zip(*probs))
+    k, p = _square_both(card, cost, rm, cm, 0.9)
+    for got, want in zip(k, p):
+        assert torch.equal(got, want)
+    assert len({int(x) for x in k[2].sum(dim=1)}) > 8
+
+
 @pytest.mark.cuda
 def test_square_wrapper_checks_its_inputs(card):
     cost, rm, cm = (t.to(card) for t in _problem(

@@ -52,9 +52,23 @@ _MAX_PHASES = 8     # csrc/auction_square.cu MAX_PHASES
 LAUNCHES_K1 = 0
 LAUNCHES_K3 = 0
 
-_LIB = None
+_LIBS = {}          # bound libraries: False the timed build, True profiling
 BUILD_SECONDS = None
 BUILD_LOG = ""      # nvcc's -Xptxas -v report (registers, shared memory)
+
+# The profiling build of the same source (-DAUCTION_PROFILE): lane 0 of
+# each warp of a block sums its clock cycles over these parts of a solve.
+# "long-list sweeps" is all of the sweeps with more bidders than warps;
+# "solo sweeps" the sweeps this warp ran alone for the last bidder of a
+# phase and "solo wait" its wait while another warp did; "top" (loop
+# control, the deferred key clear) to "award barrier" are the parts of a
+# shared-out sweep, in which a warp without a bidder waits in the two
+# barriers. The last two entries are counts of sweeps, not cycles.
+PROFILE_PARTS = ("stage", "release", "long-list sweeps", "top",
+                 "scan + reduce", "bid + atomic", "bid barrier", "award",
+                 "award barrier", "solo sweeps", "solo wait", "gate",
+                 "long-list sweep count", "solo sweep count")
+PROFILE_WARPS = 32      # csrc/auction_square.cu PROFILE_WARPS
 
 
 # ---------------------------------------------------------------------------
@@ -82,11 +96,13 @@ def _extended_weights(cost, rm, cm, th):
     return w, c
 
 
-def _solve_torch(cost, rm, cm, th, sched, cap, max_iters):
+def _solve_torch(cost, rm, cm, th, sched, cap, max_iters, on_sweep=None):
     """Lockstep solve of B problems. Returns (r2c (B, N) int32, c2r (B, M)
     int32, sweeps (B, P) int32, cells (B,) int64): cells counts the finite
     entries of the extended matrix the solve had to read -- every row's
-    at each phase's release, the unassigned rows' at each sweep."""
+    at each phase's release, the unassigned rows' at each sweep.
+    ``on_sweep(phase, sweep, r2c)``, if given, sees the extended (B, S)
+    matching after each release (sweep -1) and after each sweep."""
     b, n, m = cost.shape
     s = n + m
     dev = cost.device
@@ -120,6 +136,8 @@ def _solve_torch(cost, rm, cm, th, sched, cap, max_iters):
         cells += n * (m + 1) + m * (n + 1)
         it = 0
         unassigned = r2c < 0
+        if on_sweep is not None:
+            on_sweep(ph, -1, r2c)
         while it < max_iters and bool(unassigned.any()):
             sweeps[:, ph] += unassigned.any(dim=1)
             cells += (unassigned[:, :n].sum(dim=1) * (m + 1)
@@ -149,6 +167,8 @@ def _solve_torch(cost, rm, cm, th, sched, cap, max_iters):
             c2r = torch.where(contested, winner, c2r)
             prices = torch.where(contested, col_best, prices)
             unassigned = r2c < 0
+            if on_sweep is not None:
+                on_sweep(ph, it, r2c)
             it += 1
 
     r2c_ext = r2c[:, :n]
@@ -209,13 +229,17 @@ def masked_assignment_square_torch(cost, row_mask, col_mask, thresh,
 # CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
 
-def load_library():
+def load_library(profile: bool = False):
     """Build csrc/auction_square.cu (see ops/cuda_build.py) at first use
-    and bind it with ctypes."""
-    global _LIB, BUILD_SECONDS, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
-    lib, BUILD_SECONDS, BUILD_LOG = build_library("auction_square.cu")
+    and bind it with ctypes. ``profile``: the build with -DAUCTION_PROFILE,
+    cached under its own name, which no path uses (see ``profile_square``)."""
+    global BUILD_SECONDS, BUILD_LOG
+    if profile in _LIBS:
+        return _LIBS[profile]
+    lib, seconds, log = build_library(
+        "auction_square.cu", ("AUCTION_PROFILE",) if profile else ())
+    if not profile:
+        BUILD_SECONDS, BUILD_LOG = seconds, log
     for fn in (lib.auction_square_launch, lib.auction_square_batched_launch):
         fn.argtypes = [
             ctypes.c_void_p,                           # cost (B, N, M)
@@ -227,28 +251,20 @@ def load_library():
             ctypes.c_void_p, ctypes.c_void_p,          # r2c out, c2r out
             ctypes.c_void_p,                           # sweeps (nullable)
             ctypes.c_void_p,                           # cells (nullable)
+            ctypes.c_void_p,                           # profile (nullable)
             ctypes.c_void_p,                           # stream
         ]
         fn.restype = ctypes.c_int
-    _LIB = lib
+    _LIBS[profile] = lib
     return lib
 
 
-def masked_assignment_square_cuda(cost, row_mask, col_mask, thresh,
-                                  max_iters: int = MAX_ITERS,
-                                  n_phases: int = 6,
-                                  phase_factor: float = 4.0, sweeps=None,
-                                  cells=None):
-    """Launch K1 (cost (N, M), one block) or K3 (cost (B, N, M), one block
-    per problem): all phases of every problem in one launch.
-
-    cost float32, contiguous; row_mask (N,) / (B, N) and col_mask (M,) /
-    (B, M) bool; thresh a scalar or (B,). ``sweeps``: optional
-    (B, n_phases) int32 CUDA tensor that receives each problem's bid
-    sweeps per phase; ``cells``: optional (B,) int64 CUDA tensor that
-    receives the finite entries of the extended matrix each solve read.
-    """
-    global LAUNCHES_K1, LAUNCHES_K3
+def _launch(profile, cost, row_mask, col_mask, thresh, max_iters, n_phases,
+            phase_factor, sweeps, cells):
+    """Check the arguments and launch K1 or K3 of the timed build or, with
+    ``profile`` a (B, PROFILE_WARPS, len(PROFILE_PARTS)) int64 CUDA
+    tensor, of the profiling build. Returns (batched, r2c (B, N),
+    c2r (B, M))."""
     if not cost.is_cuda:
         raise ValueError("masked_assignment_square_cuda needs CUDA tensors")
     if cost.dtype != torch.float32 or not cost.is_contiguous():
@@ -280,23 +296,64 @@ def masked_assignment_square_cuda(cost, row_mask, col_mask, thresh,
     powers = (ctypes.c_float * n_phases)(*_powers(n_phases, phase_factor))
     r2c = torch.empty((b, n), dtype=torch.int32, device=cost.device)
     c2r = torch.empty((b, m), dtype=torch.int32, device=cost.device)
-    lib = load_library()
+    lib = load_library(profile is not None)
     stream = torch.cuda.current_stream(cost.device).cuda_stream
-    if batched:
-        launch = lib.auction_square_batched_launch
-        LAUNCHES_K3 += 1
-    else:
-        launch = lib.auction_square_launch
-        LAUNCHES_K1 += 1
+    launch = (lib.auction_square_batched_launch if batched
+              else lib.auction_square_launch)
     err = launch(
         cost.data_ptr(), rm.data_ptr(), cm.data_ptr(), th.data_ptr(), powers,
         b, n, m, n_phases, max_iters, r2c.data_ptr(), c2r.data_ptr(),
         sweeps.data_ptr() if sweeps is not None else None,
-        cells.data_ptr() if cells is not None else None, stream)
+        cells.data_ptr() if cells is not None else None,
+        profile.data_ptr() if profile is not None else None, stream)
     if err != 0:
         raise RuntimeError(
             f"square auction kernel launch failed: CUDA error {err}")
+    return batched, r2c, c2r
+
+
+def masked_assignment_square_cuda(cost, row_mask, col_mask, thresh,
+                                  max_iters: int = MAX_ITERS,
+                                  n_phases: int = 6,
+                                  phase_factor: float = 4.0, sweeps=None,
+                                  cells=None):
+    """Launch K1 (cost (N, M), one block) or K3 (cost (B, N, M), one block
+    per problem): all phases of every problem in one launch.
+
+    cost float32, contiguous; row_mask (N,) / (B, N) and col_mask (M,) /
+    (B, M) bool; thresh a scalar or (B,). ``sweeps``: optional
+    (B, n_phases) int32 CUDA tensor that receives each problem's bid
+    sweeps per phase; ``cells``: optional (B,) int64 CUDA tensor that
+    receives the finite entries of the extended matrix each solve read.
+    """
+    global LAUNCHES_K1, LAUNCHES_K3
+    batched, r2c, c2r = _launch(None, cost, row_mask, col_mask, thresh,
+                                max_iters, n_phases, phase_factor, sweeps,
+                                cells)
+    if batched:
+        LAUNCHES_K3 += 1
+    else:
+        LAUNCHES_K1 += 1
     return (r2c, c2r) if batched else (r2c[0], c2r[0])
+
+
+def profile_square(cost, row_mask, col_mask, thresh,
+                   max_iters: int = MAX_ITERS, n_phases: int = 6,
+                   phase_factor: float = 4.0, sweeps=None):
+    """Where a solve's cycles go: launch the profiling build of K1/K3 on the
+    same arguments as ``masked_assignment_square_cuda`` and return
+    (r2c, c2r, cycles): cycles (B, PROFILE_WARPS, len(PROFILE_PARTS))
+    int64, clock64() sums by warp (zeros beyond the block's warps) and
+    part. It exists for chip_smoke.py to measure with: no path calls it,
+    it adds to no launch count and its times are not the kernel's (the
+    clock reads cost cycles themselves)."""
+    b = row_mask.shape[0] if row_mask.dim() == 2 else 1
+    cycles = torch.zeros((b, PROFILE_WARPS, len(PROFILE_PARTS)),
+                         dtype=torch.int64, device=cost.device)
+    batched, r2c, c2r = _launch(cycles, cost, row_mask, col_mask, thresh,
+                                max_iters, n_phases, phase_factor, sweeps,
+                                None)
+    return ((r2c, c2r) if batched else (r2c[0], c2r[0])) + (cycles,)
 
 
 def masked_assignment_square(cost, row_mask, col_mask, thresh,

@@ -36,13 +36,17 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_library(source_name: str) -> Built:
+def build_library(source_name: str, defines: tuple = ()) -> Built:
     """Compile ``csrc/<source_name>`` for sm_90a (no multiply-add
     contraction: the kernels are bit-exact against their plain versions)
-    and load it. Raises RuntimeError with nvcc's output on failure."""
+    and load it. ``defines`` are passed to nvcc as ``-D<name>`` and are part
+    of the cached library's name, so a build with a define never stands in
+    for the build without it. Raises RuntimeError with nvcc's output on
+    failure."""
     source = os.path.join(CSRC_DIR, source_name)
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        digest = hashlib.sha256(
+            f.read() + " ".join(defines).encode()).hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     stem = os.path.splitext(source_name)[0]
     so = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
@@ -54,7 +58,8 @@ def build_library(source_name: str) -> Built:
             tmp = so + ".tmp"
             cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-                   "-shared", "-Xcompiler", "-fPIC", "-o", tmp, source]
+                   "-shared", "-Xcompiler", "-fPIC",
+                   *(f"-D{d}" for d in defines), "-o", tmp, source]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
