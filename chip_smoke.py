@@ -8,15 +8,22 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each of which must pass:
   1. build   -- nvcc builds csrc/auction.cu (K2, the private-dummy
                 auction), csrc/auction_square.cu (K1 and K3, the square
-                lapjv-extended auction) and the latter's profiling build
+                lapjv-extended auction) and the profiling build of each
                 (-DAUCTION_PROFILE) for sm_90a from the checkout, side by
                 side.
   2. kernels -- each kernel against its plain PyTorch version on the card
                 at the tracker's shape (128, 300), exact equality of
-                r2c/c2r. K2: >= 32 seeded problems (association-shaped and
-                dense U[0,1], random masks) plus batch-2 launches at the
-                stage-2/3 thresholds, and a few association problems
-                against scipy. K1: seeded association-shaped and dense
+                r2c/c2r and of every problem's sweep count. K2: >= 32
+                seeded problems (association-shaped and dense U[0,1],
+                random masks) plus batch-2 launches at the stage-2/3
+                thresholds, a few association problems against scipy, and
+                problems that stress the sweep: every row bidding on equal
+                costs, 256 x 300 (weights not staged), 7 x 5, 300 x 128
+                (never settles), 127 x 301 (no 16-byte loads), everything
+                masked out, max_iters hit, a phase that ends on an
+                unchanged state,
+                5 phases at factor 4, a (B, N, M) cost with B thresholds,
+                and B = 264. K1: seeded association-shaped and dense
                 problems, against scipy too. K3: batches of 8 and 16, of
                 which each problem is also solved alone by K1 with the
                 same result (a block that leaves when its own problem is
@@ -49,10 +56,12 @@ Phases, each of which must pass:
   5. step    -- step_frame on one stream for 8 frames: 8 K1 launches, and
                 the same slab as lane 0 of a one-stream
                 process_multistream run.
-Then K1 on step_frame's last problem and K3 on the last tick's are timed
-(ms, us per sweep, bound) and profiled (where a sweep's cycles go, by the
-profiling build, which no path uses), and both problems are written to
-chiprun_out/chip_smoke/square_problems.pt.
+Then K2 on the offline path's last stage-1 and stage-2/3 problems and on
+the last tick's 2S problems, K1 on step_frame's last problem and K3 on the
+last tick's are timed (ms, us per sweep, bound) and profiled (where a
+solve's cycles go, by the profiling builds, which no path uses), and the
+problems are written to chiprun_out/chip_smoke/k2_problems.pt and
+square_problems.pt.
 It prints the kernel JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, if
 there is no CUDA device or if any phase fails. It imports nothing of JAX.
@@ -62,6 +71,10 @@ there is no CUDA device or if any phase fails. It imports nothing of JAX.
 is a short run for work on K1/K3 alone: build, phase 2 for K1/K3, and,
 given the file a full run wrote, the timing and profile on the paths'
 problems. It prints no result line.
+
+    python3 chip_smoke.py --k2-only [--problems k2_problems.pt]
+
+is its twin for work on K2.
 """
 
 from __future__ import annotations
@@ -90,6 +103,8 @@ SOURCE_SQUARE = "yolov7_tracker_tpu_torch/csrc/auction_square.cu"
 # boxes follow the image.
 DETECTOR_GAIN = 1.6
 SQUARE_PHASES = 5             # ops/assignment.DEFAULT_PHASES, the tracker's
+# K2's eps schedule in the tracker (ops/assignment.solve_assignment)
+K2_STEEP = dict(n_phases=2, phase_factor=4.0 ** 2.5)
 # weight a K1 solve of the seeded (128, 300) problems may leave against
 # scipy's optimum: twice the most measured there (0.025)
 SCIPY_GAP_LIMIT = 0.05
@@ -125,6 +140,23 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fire, launches=20, replays=10):
+    """Mean ms per launch of fire() on the card with no host work between
+    launches: `launches` of them captured into one CUDA graph, which is
+    replayed `replays` times between two CUDA events after a warm-up. For
+    kernels shorter than the host takes to launch them, which a loop over
+    the wrapper (or over fire) would time instead."""
+    import torch
+
+    fire()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fire()
+    return cuda_ms(graph.replay, replays) / launches
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the K2 kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -152,22 +184,99 @@ def seeded_problem(rng, n=128, m=300, kind="assoc"):
     return cost, rng.random(n) < 0.8, rng.random(m) < 0.85
 
 
-def compare(auction, problems, dev):
-    """Kernel vs plain version on each (cost, rm, cm, thresh); returns the
-    max |difference| over r2c and c2r (0 means bit-identical)."""
+def k2_both(auction, cost, rm, cm, th, dev, **kw):
+    """K2 and its plain version on one problem or batch on the card: the
+    max |difference| over r2c, c2r and every problem's sweep count (0 means
+    bit-identical), the kernel's r2c and its sweeps per problem."""
     import torch
 
-    worst = 0
-    for cost, rm, cm, th in problems:
-        args = (cost.to(dev), rm.to(dev), cm.to(dev), th.to(dev))
-        kr, kc = auction.masked_assignment_auction_cuda(
-            *args, n_phases=2, phase_factor=4.0 ** 2.5)
-        pr, pc = auction.masked_assignment_auction_torch(
-            *args, n_phases=2, phase_factor=4.0 ** 2.5)
-        torch.cuda.synchronize()
-        worst = max(worst, int((kr.long() - pr.long()).abs().max()),
-                    int((kc.long() - pc.long()).abs().max()))
-    return worst
+    kw = {**K2_STEEP, **kw}
+    b = rm.shape[0] if rm.dim() == 2 else 1
+    ks = torch.zeros(b, dtype=torch.int32, device=dev)
+    ps = torch.zeros(b, dtype=torch.int32, device=dev)
+    kr, kc = auction.masked_assignment_auction_cuda(cost, rm, cm, th,
+                                                    sweeps=ks, **kw)
+    pr, pc = auction.masked_assignment_auction_torch(cost, rm, cm, th,
+                                                     sweeps=ps, **kw)
+    torch.cuda.synchronize()
+    worst = max(int((kr.long() - pr.long()).abs().max()),
+                int((kc.long() - pc.long()).abs().max()),
+                int((ks - ps).abs().max()))
+    return worst, kr, ks.tolist()
+
+
+def compare(auction, problems, dev):
+    """Kernel vs plain version on each (cost, rm, cm, thresh) at the
+    tracker's schedule; returns the max |difference| over r2c, c2r and the
+    sweep counts (0 means bit-identical)."""
+    return max(k2_both(auction, cost.to(dev), rm.to(dev), cm.to(dev),
+                       th.to(dev) if hasattr(th, "to") else th, dev)[0]
+               for cost, rm, cm, th in problems)
+
+
+def dense_host_case(k):
+    """The k-th of the twelve dense U[0, 1] problems of random shape that
+    tests/test_torch_auction.py pins K2 on (same generator, same seed)."""
+    rng = np.random.default_rng(3)
+    for _ in range(k + 1):
+        n, m = int(rng.integers(2, 60)), int(rng.integers(2, 60))
+        cost = rng.random((n, m)).astype(np.float32)
+        rm = rng.random(n) < 0.85
+        cm = rng.random(m) < 0.85
+        th = float(rng.choice([0.3, 0.5, 0.8]))
+    return cost, rm, cm, th
+
+
+def k2_stress_problems(rng, dev):
+    """(name, cost, rm, cm, thresh, kwargs) of problems that stress K2's
+    sweep: long bidder lists with ties, the unstaged and the scalar paths,
+    more rows than columns, nothing to match, a sweep limit that is hit, a
+    phase that ends on an unchanged state, more phases, a batch with its
+    own cost and threshold for each problem, and two waves of blocks."""
+    import torch
+
+    def on_card(*xs):
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in xs)
+
+    out = []
+    # one cost everywhere: every row bids, and only the jitter and the
+    # lowest row break the ties
+    out.append(("equal costs, no masks (every row bids, ties)",
+                *on_card(np.full((128, 300), 0.25, np.float32),
+                         np.ones(128, bool), np.ones(300, bool)), 0.9, {}))
+    for kind in ("assoc", "dense"):
+        out.append((f"256 x 300 {kind} (cost matrix read through L2)",
+                    *on_card(*seeded_problem(rng, 256, 300, kind)), 0.9, {}))
+    # 300 x 128 never settles (rows outbid each other for too few columns):
+    # the sweep limit ends its phases, at 64 to keep the plain version short
+    for n, m, extra in ((7, 5, {}), (300, 128, {"max_iters": 64}),
+                        (127, 301, {})):
+        out.append((f"{n} x {m} dense" + (", max_iters = 64 (hit)"
+                                          if extra else ""),
+                    *on_card(*seeded_problem(rng, n, m, "dense")), 0.7,
+                    extra))
+    cost, _, _ = seeded_problem(rng)
+    out.append(("all masked out",
+                *on_card(cost, np.zeros(128, bool), np.zeros(300, bool)),
+                0.9, {}))
+    dense = on_card(*seeded_problem(rng, kind="dense"))
+    out.append(("max_iters = 3 (hit)", *dense, 0.9, {"max_iters": 3}))
+    *case, th = dense_host_case(9)
+    out.append(("dense host case 9 (a phase ends on an unchanged state)",
+                *on_card(*case), th, {}))
+    out.append(("5 phases at factor 4", *dense, 0.9,
+                {"n_phases": 5, "phase_factor": 4.0}))
+    probs = [seeded_problem(rng, kind="assoc" if i % 2 else "dense")
+             for i in range(6)]
+    out.append(("(B, N, M) cost, B = 6 distinct thresholds",
+                *on_card(*(np.stack(x) for x in zip(*probs))),
+                torch.tensor([0.3, 0.5, 0.6, 0.7, 0.8, 0.9]), {}))
+    probs = [seeded_problem(rng, kind="assoc" if i % 8 else "dense")
+             for i in range(264)]
+    out.append(("B = 264 (two waves of blocks)",
+                *on_card(*(np.stack(x) for x in zip(*probs))), 0.9, {}))
+    return out
 
 
 def kernel_phase(dev):
@@ -186,8 +295,8 @@ def kernel_phase(dev):
                          torch.from_numpy(cm), torch.tensor(th)))
     t0 = time.time()
     worst = compare(auction, problems, dev)
-    log(f"32 single problems (128, 300): max |kernel - plain| = {worst} "
-        f"({time.time() - t0:.1f} s)")
+    log(f"32 single problems (128, 300): max |kernel - plain| (r2c, c2r, "
+        f"sweeps) = {worst} ({time.time() - t0:.1f} s)")
     pairs = []
     for _ in range(4):
         cost, _, _ = seeded_problem(rng)
@@ -198,13 +307,20 @@ def kernel_phase(dev):
     worst = max(worst, compare(auction, pairs, dev))
     log(f"4 batch-2 launches at thresholds [0.5, 0.7]: max |kernel - plain| "
         f"so far = {worst}")
+    t0 = time.time()
+    for name, cost, rm, cm, th, extra in k2_stress_problems(rng, dev):
+        d, r2c, sw = k2_both(auction, cost, rm, cm, th, dev, **extra)
+        worst = max(worst, d)
+        log(f"K2 stress, {name}: max |kernel - plain| (r2c, c2r, sweeps) = "
+            f"{d}; sweeps {sw if len(sw) <= 8 else (min(sw), max(sw))}, "
+            f"pairs {int((r2c >= 0).sum())}")
+    log(f"K2 stress problems: {time.time() - t0:.1f} s")
     if worst != 0:
         raise AssertionError(f"kernel differs from its plain version: {worst}")
 
     for cost, rm, cm, th in problems[:16:2]:
         r2c, _ = auction.masked_assignment_auction_cuda(
-            cost.to(dev), rm.to(dev), cm.to(dev), th.to(dev), n_phases=2,
-            phase_factor=4.0 ** 2.5)
+            cost.to(dev), rm.to(dev), cm.to(dev), th.to(dev), **K2_STEEP)
         r2c = r2c.cpu().numpy()
         c = cost.numpy()
         big = np.where(rm.numpy()[:, None] & cm.numpy()[None, :], c, 1e9)
@@ -218,34 +334,118 @@ def kernel_phase(dev):
                 f"kernel vs scipy: {len(got)} vs {len(want)} pairs, cost "
                 f"{gc} vs {wc}")
     log("8 association problems: kernel == scipy (same pairs, cost 1e-3)")
+
+    # the three ways the kernel holds the weights, timed on seeded problems
+    log(f"K2 on seeded problems, on {card_line()}")
+    for name, (n, m, kind) in {
+            "staged, 16-byte loads": (128, 300, "assoc"),
+            "read through L2": (256, 300, "assoc"),
+            "staged, scalar loads": (127, 301, "dense")}.items():
+        cost, rm, cm = (torch.from_numpy(x).to(dev)
+                        for x in seeded_problem(rng, n, m, kind))
+        sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+        auction.masked_assignment_auction_cuda(cost, rm, cm, 0.9,
+                                               sweeps=sweeps, **K2_STEEP)
+        ms = graph_ms(auction.prepared_auction(cost, rm, cm, 0.9,
+                                               **K2_STEEP))
+        log(f"K2 ({n}, {m}) {kind}, weights {name}: kernel {ms:.4f} ms, "
+            f"{int(sweeps)} sweeps, {ms * 1e3 / int(sweeps):.3f} us/sweep")
     return worst
 
 
 def time_kernel(auction, problem, dev):
-    """(kernel ms, plain ms, sweeps, bound_ms, bound_by) for one main-path
+    """Kernel ms (launches that follow each other in a CUDA graph, no host
+    work between them), ms per call of the wrapper (which its host work
+    bounds when the kernel is shorter), plain ms, per-problem sweeps, us
+    per sweep of the slowest problem and the bound for one main-path
     problem (cost, rm, cm, thresh) on the card."""
     import torch
 
     cost, rm, cm, th = (t.to(dev) for t in problem)
     b = rm.shape[0] if rm.dim() == 2 else 1
-    kw = dict(n_phases=2, phase_factor=4.0 ** 2.5)
     sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
     auction.masked_assignment_auction_cuda(cost, rm, cm, th, sweeps=sweeps,
-                                           **kw)
-    k_ms = cuda_ms(lambda: auction.masked_assignment_auction_cuda(
-        cost, rm, cm, th, **kw), 50)
+                                           **K2_STEEP)
+    k_ms = graph_ms(auction.prepared_auction(cost, rm, cm, th, **K2_STEEP))
+    w_ms = cuda_ms(lambda: auction.masked_assignment_auction_cuda(
+        cost, rm, cm, th, **K2_STEEP), 50)
     p_ms = cuda_ms(lambda: auction.masked_assignment_auction_torch(
-        cost, rm, cm, th, **kw), 3)
+        cost, rm, cm, th, **K2_STEEP), 3)
     n, m = cost.shape[-2:]
     # each input read once, each output written once
     nbytes = cost.numel() * 4 + b * (n + m) + b * 4 + b * (n + m) * 4
-    # per sweep every row makes one pass over its m + n columns: one
-    # subtract and one max/compare per element
+    # the function's sweep: every row makes one pass over its m + n
+    # columns, one subtract and one max/compare per element
     ops = int(sweeps.sum()) * n * (m + n) * 2
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (k_ms, p_ms, sweeps.tolist(), max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    sweeps = sweeps.tolist()
+    return dict(ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, sweeps=sweeps,
+                us_per_sweep=k_ms * 1e3 / max(max(sweeps), 1),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_profile_line(auction, name, problem, dev):
+    """Log where the cycles of a K2 solve go, by the profiling build
+    (clock64() sums on lane 0 of each warp): of a batch the problem with
+    the most cycles, and of its warps the one with the most cycles outside
+    the barriers (the block's warps meet at every barrier, so any warp's
+    parts add up to the solve). Also times the profiling build against the
+    timed one. Returns the cycles by part."""
+    import torch
+
+    cost, rm, cm, th = (t.to(dev) for t in problem)
+    b = rm.shape[0] if rm.dim() == 2 else 1
+    sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
+    *_, cycles = auction.profile_auction(cost, rm, cm, th, sweeps=sweeps,
+                                         **K2_STEEP)
+    prof_ms = graph_ms(auction.prepared_auction(
+        cost, rm, cm, th, profile=torch.zeros_like(cycles), **K2_STEEP))
+    timed_ms = graph_ms(auction.prepared_auction(cost, rm, cm, th,
+                                                 **K2_STEEP))
+    parts = auction.profile_parts()
+    timed = [k for k, part in enumerate(parts) if not part.endswith("count")]
+    counts = [k for k, part in enumerate(parts) if part.endswith("count")]
+    work = [k for k in timed if "barrier" not in parts[k]]
+    slow = int(cycles[:, 0, timed].sum(dim=1).argmax())
+    warp = int(cycles[slow][:, work].sum(dim=1).argmax())
+    cyc = {parts[k]: int(cycles[slow, warp, k]) for k in timed}
+    cyc.update({parts[k]: int(cycles[slow, :, k].sum()) for k in counts})
+    total = sum(cyc[parts[k]] for k in timed)
+    n_sweeps = max(int(sweeps[slow]), 1)
+    log(f"profile of {name} (problem {slow} of {b}, warp {warp}; "
+        f"{n_sweeps} sweeps; {total} cycles, {total / n_sweeps:.0f} a "
+        f"sweep; profiling build {prof_ms:.4f} ms against "
+        f"{timed_ms:.4f} ms): "
+        + ", ".join(f"{parts[k]} {cyc[parts[k]]} "
+                    f"({100.0 * cyc[parts[k]] / total:.1f}%)" for k in timed)
+        + "; " + ", ".join(f"{parts[k]} {cyc[parts[k]]}" for k in counts))
+    return cyc | {"sweeps": n_sweeps, "problem": slow, "warp": warp,
+                  "cycles": total, "profile_build_ms": prof_ms}
+
+
+def k2_path_timings(auction, problems, dev):
+    """K2 on the problems its paths gave it last ({name: (cost, rm, cm,
+    thresh)}): time, sweeps and bound of the timed build, then the
+    profiling build's shares. Returns {name: record}."""
+    log(f"K2 timings on {card_line()}")
+    out = {}
+    for name, problem in problems.items():
+        t = time_kernel(auction, problem, dev)
+        b = len(t["sweeps"])
+        log(f"K2 {name} (B={b}, {tuple(problem[0].shape[-2:])}): kernel "
+            f"{t['ms']:.4f} ms, sweeps {t['sweeps']}, "
+            f"{t['us_per_sweep']:.3f} us/sweep"
+            f"{' of the slowest' if b > 1 else ''}, through the wrapper "
+            f"{t['wrapper_ms']:.4f} ms a call, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']})")
+        out[name] = t
+    for name, problem in problems.items():
+        out[name]["profile_cycles"] = k2_profile_line(
+            auction, f"K2 {name}", problem, dev)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -893,9 +1093,8 @@ def serving_breakdown(pipe, slabs, streams, last, dev):
     c2, r2, m2, th2 = last["stage23"]
     t_k3 = cuda_ms(lambda: square.masked_assignment_square_cuda(
         c1, r1, m1, th1, n_phases=SQUARE_PHASES), 10)
-    t_k2 = cuda_ms(lambda: auction.masked_assignment_auction_cuda(
-        c2.contiguous(), r2, m2, th2, n_phases=2, phase_factor=4.0 ** 2.5),
-        20)
+    t_k2 = graph_ms(auction.prepared_auction(c2.contiguous(), r2, m2, th2,
+                                             **K2_STEEP))
     n = frames.shape[0]
     log(f"per-tick breakdown on {card_line()} ({n} streams): stack frames "
         f"on the host {t_stack:.2f} ms, H2D {t_h2d:.2f} ms, letterbox "
@@ -1051,7 +1250,12 @@ def build_kernels(mods):
     for mod, source, args in mods:
         mod.load_library(*args)      # raises here if its build failed
         if args:
-            continue                 # the profiling build: same source
+            # the profiling build, same source: what its counters cost
+            for line in getattr(mod, "PROFILE_BUILD_LOG", "").splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"ptxas, profiling build of {source}: "
+                        f"{line.strip()}")
+            continue
         log(f"built {source} for sm_90a in {mod.BUILD_SECONDS:.1f} s")
         for line in mod.BUILD_LOG.splitlines():
             if "registers" in line or "spill" in line:
@@ -1061,6 +1265,21 @@ def build_kernels(mods):
                 # mangled arguments
                 log(f"ptxas: {line.strip()[:150]}")
     log(f"{len(mods)} builds, side by side: {time.time() - t0:.1f} s")
+
+
+def to_card(problem, dev):
+    """A saved problem's tensors on the card."""
+    import torch
+
+    return tuple(x.to(dev) if isinstance(x, torch.Tensor) else x
+                 for x in problem)
+
+
+def to_host(problem):
+    import torch
+
+    return tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                 for x in problem)
 
 
 def square_only(dev, problems_file):
@@ -1077,14 +1296,28 @@ def square_only(dev, problems_file):
     square_phase(dev)
     if problems_file:
         saved = torch.load(problems_file)
-
-        def on_card(problem):
-            return tuple(x.to(dev) if isinstance(x, torch.Tensor) else x
-                         for x in problem)
-
-        path_timings(square, on_card(saved["step"]), on_card(saved["tick"]),
-                     dev)
+        path_timings(square, to_card(saved["step"], dev),
+                     to_card(saved["tick"], dev), dev)
     log("square-only run done (not the smoke run: no result line)")
+    return 0
+
+
+def k2_only(dev, problems_file):
+    """The short run behind --k2-only: build K2 and its profiling build,
+    hold K2 against the plain version (seeded and stress problems), and,
+    given the k2_problems.pt that a full run wrote, time and profile it on
+    those problems of the paths."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import auction
+
+    build_kernels([(auction, SOURCE, ()), (auction, SOURCE, (True,))])
+    kernel_phase(dev)
+    if problems_file:
+        saved = torch.load(problems_file)
+        k2_path_timings(auction, {name: to_card(problem, dev)
+                                  for name, problem in saved.items()}, dev)
+    log("k2-only run done (not the smoke run: no result line)")
     return 0
 
 
@@ -1096,9 +1329,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--square-only", action="store_true",
                     help="only build, check, time and profile K1/K3")
+    ap.add_argument("--k2-only", action="store_true",
+                    help="only build, check, time and profile K2")
     ap.add_argument("--problems", default="",
-                    help="with --square-only: a square_problems.pt written "
-                         "by a full run (the paths' own last problems)")
+                    help="with --square-only or --k2-only: the "
+                         "square_problems.pt or k2_problems.pt written by a "
+                         "full run (the paths' own last problems)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1113,8 +1349,11 @@ def main(argv=None):
     dev = torch.device("cuda")
     if args.square_only:
         return square_only(dev, args.problems)
+    if args.k2_only:
+        return k2_only(dev, args.problems)
     t0 = time.time()
     build_kernels([(auction, SOURCE, ()), (square, SOURCE_SQUARE, ()),
+                   (auction, SOURCE, (True,)),
                    (square, SOURCE_SQUARE, (True,))])
 
     worst = kernel_phase(dev)
@@ -1125,44 +1364,35 @@ def main(argv=None):
     k1_launches, step_last = step_frame_phase(pipe, dev)
     detector_reference_check(dev)
 
+    # K2 on the last frame's two solves, as the main path gave them, and on
+    # the serving path's stages 2+3: one launch of B = 2 S problems
+    c23, r23, m23, th23 = serve_last["stage23"]
+    k2_problems = {
+        "stage 1 offline": solves[-2],
+        "stages 2+3 offline": solves[-1],
+        "stages 2+3 of a serving tick": (
+            c23.contiguous(), r23, m23,
+            torch.as_tensor(th23, dtype=torch.float32).repeat(
+                r23.shape[0] // 2))}
+    on_k2 = k2_path_timings(auction, k2_problems, dev)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.save({name: to_host(problem)
+                for name, problem in k2_problems.items()},
+               os.path.join(OUT_DIR, "k2_problems.pt"))
+    t1, t2, t16 = on_k2.values()
     record = {"name": "auction_k2_private_dummy", "route": "cuda",
               "source": SOURCE, "replaces": REPLACES, "launches": launches,
               "launches_serving": k2_serving,
-              "max_abs_err": float(worst), "library_ms": None}
-    # the last frame's two solves, as the main path gave them
-    stage1, stage23 = solves[-2], solves[-1]
-    k1, p1, s1, b1, by1 = time_kernel(auction, stage1, dev)
-    k2, p2, s2, b2, by2 = time_kernel(auction, stage23, dev)
-    # the serving path's stages 2+3: one launch of B = 2 S problems
-    c23, r23, m23, th23 = serve_last["stage23"]
-    k16, p16, s16, b16, by16 = time_kernel(
-        auction, (c23.contiguous(), r23, m23,
-                  torch.as_tensor(th23, dtype=torch.float32).repeat(
-                      r23.shape[0] // 2)), dev)
-    log(f"K2 timings on {card_line()}")
-    log(f"K2 stage 1 (B=1, {tuple(stage1[0].shape)}): kernel {k1:.4f} ms, "
-        f"plain {p1:.3f} ms, sweeps {s1}, bound {b1:.6f} ms ({by1})")
-    log(f"K2 stages 2+3 (B=2): kernel {k2:.4f} ms, plain {p2:.3f} ms, "
-        f"sweeps {s2}, bound {b2:.6f} ms ({by2})")
-    log(f"K2 stages 2+3 of a serving tick (B={r23.shape[0]}): kernel "
-        f"{k16:.4f} ms, plain {p16:.3f} ms, sweeps {s16}, bound "
-        f"{b16:.6f} ms ({by16})")
-    record.update(ms=k1, plain_ms=p1, bound_ms=b1, bound_by=by1,
-                  sweeps=s1, ms_b2=k2, plain_ms_b2=p2, bound_ms_b2=b2,
-                  sweeps_b2=s2, ms_serving=k16, plain_ms_serving=p16,
-                  bound_ms_serving=b16, sweeps_serving=s16)
+              "max_abs_err": float(worst), "library_ms": None, **t1,
+              **{f"{k}_b2": v for k, v in t2.items()},
+              **{f"{k}_serving": v for k, v in t16.items()}}
 
     # K1 and K3 on the problems their own paths gave them last, which are
     # kept for a later --square-only run
     on_step, on_tick = path_timings(square, step_last, serve_last["stage1"],
                                     dev)
-
-    def on_host(problem):
-        return tuple(x.cpu() if isinstance(x, torch.Tensor) else x
-                     for x in problem)
-
-    torch.save({"step": on_host(step_last),
-                "tick": on_host(serve_last["stage1"])},
+    torch.save({"step": to_host(step_last),
+                "tick": to_host(serve_last["stage1"])},
                os.path.join(OUT_DIR, "square_problems.pt"))
     rec_k1 = {"name": "auction_k1_square", "route": "cuda",
               "source": SOURCE_SQUARE, "replaces": REPLACES_K1,

@@ -168,3 +168,324 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         auction.masked_assignment_auction_cuda(
             torch.from_numpy(cost), torch.from_numpy(rm),
             torch.from_numpy(cm), 0.8)
+
+
+# ---------------------------------------------------------------------------
+# What the CUDA kernel's sweep rests on, modelled in numpy: a row scans its
+# real columns and its own dummy only, the release test is made on what can
+# have changed since the sweep before, the bidders stand in a handed-on
+# list, a column's winner is the maximum of (bid image, ~row) keys, and the
+# unchanged-state stop is told from what the sweep touched.
+# ---------------------------------------------------------------------------
+
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+_NEG = np.float32(-1e9)
+_ZERO = np.float32(0.0)
+
+
+def _image(x):
+    """Order-preserving uint32 image of a float32 value, -0.0 as +0.0."""
+    u = int((np.float32(x) + _ZERO).view(np.uint32))
+    return (~u & 0xffffffff) if u & 0x80000000 else (u | 0x80000000)
+
+
+def _weights(cost, rm, cm, thresh):
+    """The (n, m) real weights, by the plain version's own arithmetic."""
+    c, r, k = (torch.from_numpy(np.asarray(x)) for x in (cost, rm, cm))
+    valid = r[:, None] & k[None, :]
+    neg = torch.tensor(auction.NEG_F, dtype=torch.float32)
+    th = torch.tensor(thresh, dtype=torch.float32)
+    w = torch.where(valid, th - c, neg)
+    return torch.where(valid, w + auction._jitter(*c.shape, "cpu"),
+                       neg).numpy()
+
+
+def _kernel_model(cost, rm, cm, thresh, n_phases, phase_factor,
+                  max_iters=auction.MAX_ITERS, on_sweep=None):
+    """The kernel's solve in numpy float32 on the compact n x (m + n)
+    problem. Returns (r2c, c2r, prices, sweeps, row scans)."""
+    n, m = cost.shape
+    w = _weights(cost, rm, cm, thresh)
+    sched, cap = auction.eps_schedule(
+        torch.tensor([thresh], dtype=torch.float32), n_phases, phase_factor)
+    sched, cap = sched[0].numpy(), cap.numpy()[0]
+    prices = np.zeros(m + n, np.float32)
+    c2r = np.full(m + n, -1)
+    r2c = np.full(n, -1)
+    keys = [[0] * (m + n), [0] * (m + n)]   # taken in turn, sweep by sweep
+    bidders, winners, freed = list(range(n)), [], []
+    won_at, rel_at = [-2] * n, [-1] * n
+    old_col, old_price, hint = [0] * n, [_ZERO] * n, [_ZERO] * n
+    sweeps = scans = 0
+
+    def held(i, rc):
+        return max((w[i, rc] if rc < m else _ZERO) - prices[rc], _NEG)
+
+    def passes_whole(i):
+        v1 = max((w[i] - prices[:m]).max(), _ZERO - prices[m + i])
+        return held(i, r2c[i]) >= v1 - eps
+
+    for ph in range(n_phases):
+        eps = sched[ph]
+        it, n_open, first = 0, 1, True
+        while it < max_iters and n_open > 0:
+            key, key_before = keys[sweeps & 1], keys[~sweeps & 1]
+            # the winners of the sweep before clear their keys of that sweep
+            for i in winners:
+                key_before[r2c[i]] = 0
+            assert not any(key_before) and not any(key)
+            # release tests, all at the prices the sweep before left
+            if first:
+                whole = [i for i in range(n) if r2c[i] >= 0]
+                kept = []
+            else:
+                whole = winners
+                kept = [i for i in range(n)
+                        if r2c[i] >= 0 and won_at[i] != sweeps - 1]
+            released = []
+            for i in whole:
+                if not rm[i]:
+                    # a masked-out row holds its own dummy and passes
+                    assert r2c[i] == m + i and passes_whole(i)
+                elif not first and held(i, r2c[i]) >= hint[i] - eps:
+                    # it won a sweep ago; nothing is worth more than its
+                    # bid's second-best value now
+                    assert passes_whole(i)
+                else:
+                    scans += 1
+                    if not passes_whole(i):
+                        released.append(i)
+            for i in kept:
+                if not rm[i]:
+                    continue
+                h = held(i, r2c[i])
+                if not all(h >= (w[i, j] - prices[j]) - eps
+                           for j in freed if j < m):
+                    released.append(i)
+            assert len(set(released)) == len(released)
+            released = [(i, int(r2c[i])) for i in released]
+            for i, rc in released:
+                rel_at[i], old_col[i], old_price[i] = sweeps, rc, prices[rc]
+                r2c[i], c2r[rc], prices[rc] = -1, -1, _ZERO
+                bidders.append(i)
+            # one bid round: real columns, then the own dummy, merged last
+            assert len(set(bidders)) == len(bidders)
+            assert set(bidders) == set(np.flatnonzero(r2c < 0).tolist())
+            bids = []
+            for i in bidders:
+                scans += bool(rm[i])
+                values = w[i] - prices[:m]
+                bi = int(values.argmax())               # the first maximum
+                b1 = values[bi]
+                b2 = np.delete(values, bi).max() if m > 1 else -np.inf
+                own_v = _ZERO - prices[m + i]
+                if own_v > b1:
+                    b1, bi, b2 = own_v, m + i, b1
+                else:
+                    b2 = max(b2, own_v)
+                b2 = max(b2, _NEG)
+                if not rm[i]:
+                    # the closed form of a masked-out row
+                    assert (b1, bi, b2) == (own_v, m + i, _NEG)
+                bv = (prices[bi] + min(b1 - b2, cap)) + eps
+                assert bv.dtype == np.float32
+                key[bi] = max(key[bi], (_image(bv) << 32) | (0x7fffffff - i))
+                bids.append((bi, bv, b2))
+            wins = [0x7fffffff - (key[bi] & 0xffffffff) == i
+                    for i, (bi, _, _) in zip(bidders, bids)]
+            handed_on, winners, changed = [], [], False
+            for i, (bi, bv, b2), win in zip(bidders, bids, wins):
+                if not win:
+                    handed_on.append(i)
+                    continue
+                prev = int(c2r[bi])
+                if prev >= 0:
+                    r2c[prev] = -1
+                    handed_on.append(prev)
+                c2r[bi], r2c[i], prices[bi] = i, bi, bv
+                won_at[i], hint[i] = sweeps, b2
+                winners.append(i)
+                if not (rel_at[i] == sweeps and old_col[i] == bi
+                        and old_price[i].view(np.int32) == bv.view(np.int32)):
+                    changed = True
+            assert sum(map(bool, key)) == len(winners)
+            freed = [rc for _, rc in released]
+            n_open = len(handed_on) + len(released)
+            repeat = not changed and len(winners) == len(released)
+            bidders, first = handed_on, False
+            if on_sweep is not None:
+                on_sweep(ph, it, r2c, c2r, prices)
+            it += 1
+            sweeps += 1
+            if repeat:
+                break
+    return r2c, c2r, prices, sweeps, scans
+
+
+def _stress_cases():
+    """name -> (cost, rm, cm, thresh, solver arguments): small twins of the
+    problems chip_smoke.py stresses the kernel with on the card."""
+    rng = np.random.default_rng(21)
+    steep = dict(n_phases=2, phase_factor=4.0 ** 2.5)
+
+    def dense(n, m):
+        return _problem(rng, n, m, "dense")
+
+    ones = (np.ones(24, bool), np.ones(36, bool))
+    cases = {
+        "assoc": (*_problem(rng, 24, 16, "assoc"), 0.8, steep),
+        "dense": (*dense(24, 16), 0.5, steep),
+        "equal_costs_all_rows_bid": (
+            np.full((24, 36), 0.25, np.float32), *ones, 0.9, steep),
+        "width_of_four": (*dense(16, 40), 0.7, steep),
+        "7x5": (*dense(7, 5), 0.7, steep),
+        "more_rows_than_columns": (*dense(30, 12), 0.7, steep),
+        "odd_widths": (*dense(13, 29), 0.7, steep),
+        "all_masked": (dense(12, 20)[0], np.zeros(12, bool),
+                       np.zeros(20, bool), 0.9, steep),
+        "max_iters_hit": (*dense(24, 32), 0.9, dict(max_iters=3, **steep)),
+        "five_phases": (*dense(24, 32), 0.9,
+                        dict(n_phases=5, phase_factor=4.0)),
+    }
+    cost, rm, cm, thresh = _host_cases()[9]
+    cases["unchanged_state_stop"] = (cost, rm, cm, thresh, steep)
+    return cases
+
+
+@pytest.mark.parametrize("name", sorted(_stress_cases()))
+def test_kernel_model_equals_plain_version_after_every_sweep(name):
+    """The numpy model of the kernel's sweep leaves the plain version's
+    (r2c, c2r, prices), bit for bit, after every sweep of every phase, and
+    stops where it stops."""
+    cost, rm, cm, thresh, kw = _stress_cases()[name]
+    n, m = cost.shape
+    sched, cap = auction.eps_schedule(
+        torch.tensor([thresh], dtype=torch.float32), kw["n_phases"],
+        kw["phase_factor"])
+    max_iters = kw.get("max_iters", auction.MAX_ITERS)
+    plain, model = {}, {}
+
+    def seen(into):
+        def on_sweep(ph, it, r2c, c2r, prices):
+            into[ph, it] = (np.asarray(r2c)[:n].copy(),
+                            np.asarray(c2r)[:m + n].copy(),
+                            np.asarray(prices)[:m + n].copy())
+        return on_sweep
+
+    p_r2c, p_c2r, p_sweeps = auction._solve_one_torch(
+        *(torch.from_numpy(np.asarray(x)) for x in (cost, rm, cm)),
+        torch.tensor(thresh, dtype=torch.float32), sched[0], cap[0],
+        max_iters, on_sweep=seen(plain))
+    r2c, _, _, sweeps, scans = _kernel_model(
+        cost, rm, cm, thresh, kw["n_phases"], kw["phase_factor"], max_iters,
+        on_sweep=seen(model))
+    assert sweeps == p_sweeps == len(plain) and sorted(model) == sorted(plain)
+    for step in plain:
+        for got, want in zip(model[step], plain[step]):
+            assert got.dtype.kind == want.dtype.kind
+            np.testing.assert_array_equal(
+                got.view(np.int32) if got.dtype == np.float32 else got,
+                want.view(np.int32) if want.dtype == np.float32 else want,
+                err_msg=str(step))
+    # the gate of the plain version applied to the model's matching
+    gated = [j if 0 <= j < m and rm[i] and cost[i, j] <= np.float32(thresh)
+             else -1 for i, j in enumerate(r2c)]
+    assert gated == p_r2c.tolist()
+    # far fewer row scans than the dense sweep's two for every row
+    assert scans <= 2 * n * sweeps
+    if name == "max_iters_hit":
+        assert sweeps == 3 * kw["n_phases"]
+    if name == "unchanged_state_stop":
+        last = max(plain)
+        assert last[1] > 0 and all(
+            np.array_equal(a.view(np.int32), b.view(np.int32))
+            for a, b in zip(plain[last], plain[last[0], last[1] - 1]))
+
+
+def test_batch_with_distinct_thresholds_equals_single_solves():
+    """A (B, N, M) cost with B thresholds: each problem's result and sweep
+    count are those of the problem solved alone."""
+    rng = np.random.default_rng(13)
+    probs = [_problem(rng, 16, 20, "dense") for _ in range(3)]
+    cost, rm, cm = (torch.from_numpy(np.stack(x)) for x in zip(*probs))
+    ths = (0.4, 0.6, 0.9)
+    sweeps = torch.zeros(3, dtype=torch.int32)
+    r2c, c2r = auction.masked_assignment_auction_torch(
+        cost, rm, cm, torch.tensor(ths), sweeps=sweeps, **STEEP)
+    for b, th in enumerate(ths):
+        one = torch.zeros(1, dtype=torch.int32)
+        r, c = auction.masked_assignment_auction_torch(
+            cost[b], rm[b], cm[b], th, sweeps=one, **STEEP)
+        assert torch.equal(r, r2c[b]) and torch.equal(c, c2r[b])
+        assert int(one) == int(sweeps[b]) > 0
+
+
+_ROW_VALUES = st.one_of(
+    st.sampled_from([-1e9, -2.0, -0.5, -0.0, 0.0, 0.25, 1.0]),
+    st.floats(-4.0, 4.0, width=32))
+# prices up to the bid cap 2 (thresh + 1) plus eps, thresh <= 1
+_PRICES = st.one_of(st.sampled_from([0.0, 2e-4, 4.0]),
+                    st.floats(0.0, 6.0, width=32))
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.tuples(_ROW_VALUES, _PRICES), min_size=1, max_size=40),
+       st.integers(0, 39), st.sampled_from([2e-4, 0.0594, 1.9]),
+       st.booleans())
+def test_release_test_column_by_column_equals_the_row_maximum(row, held_at,
+                                                              eps, dup):
+    """cur >= max_j(v_j) - eps holds exactly when cur >= v_j - eps holds
+    for every column (rounded subtraction is monotone): on rows with
+    duplicated maxima, -1e9 weights and prices up to the bid cap."""
+    w = np.asarray([x[0] for x in row], np.float32)
+    prices = np.asarray([x[1] for x in row], np.float32)
+    if dup:
+        w = np.concatenate([w, w[:1]])
+        prices = np.concatenate([prices, prices[:1]])
+    eps = np.float32(eps)
+    values = w - prices
+    cur = max(values[held_at % values.size], _NEG)
+    whole = bool(cur >= values.max() - eps)
+    by_column = all(bool(cur >= v - eps) for v in values)
+    assert whole == by_column
+    # and through torch's float32, as the plain version computes it
+    t = torch.from_numpy(w) - torch.from_numpy(prices)
+    assert whole == bool(torch.tensor(cur) >= t.max() - torch.tensor(eps))
+
+
+def test_profiling_build_is_cached_under_its_own_name(monkeypatch, tmp_path):
+    """The profiling build of K2 (-DAUCTION_PROFILE) never stands in for
+    the timed one, and no path asks for it."""
+    import subprocess
+
+    from yolov7_tracker_tpu_torch.ops import cuda_build
+
+    commands = []
+
+    def fake_run(cmd, **kw):
+        commands.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "w").close()
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build.subprocess, "run", fake_run)
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: path)
+    timed = cuda_build.build_library("auction.cu")
+    prof = cuda_build.build_library("auction.cu", ("AUCTION_PROFILE",))
+    assert timed.lib != prof.lib and len(commands) == 2
+    assert "-DAUCTION_PROFILE" in commands[1]
+    assert not any(arg.startswith("-D") for arg in commands[0])
+    assert commands[0][-1].endswith("csrc/auction.cu")
+
+    loads = []
+    monkeypatch.setattr(auction, "load_library",
+                        lambda profile=False: loads.append(profile))
+    cost, rm, cm = (torch.from_numpy(x) for x in _problem(
+        np.random.default_rng(1), 12, 9, "assoc"))
+    solve_assignment(cost, rm, cm, 0.8)
+    with pytest.raises(ValueError):
+        auction.profile_auction(cost, rm, cm, 0.8)
+    assert loads == []          # a CPU tensor builds and loads nothing

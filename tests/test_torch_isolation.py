@@ -84,3 +84,14 @@ def test_chip_smoke_square_only_fails_without_a_card():
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr and '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_k2_only_fails_without_a_card():
+    """The short K2 run of chip_smoke.py needs the card as the full run
+    does."""
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--k2-only"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and '"ok"' not in proc.stdout

@@ -15,7 +15,9 @@ Two implementations with the same function, bit for bit:
   weight matrix, with host-synced while loops. It runs on any device.
 * ``masked_assignment_auction_cuda`` -- the hand-written kernel in
   ``csrc/auction.cu``: all phases of B problems in one launch, one
-  thread block per problem.
+  thread block per problem. A sweep there scans only what it can change
+  (a row's real columns and its own dummy; the rows that bid; the rows
+  whose release test can have changed), and ends with the same state.
 
 ``masked_assignment_auction`` dispatches on the tensor's device: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel (or
@@ -40,9 +42,11 @@ _MAX_PHASES = 8     # csrc/auction.cu MAX_PHASES
 # main path went through the kernel.
 LAUNCHES = 0
 
-_LIB = None
+_LIBS = {}          # bound libraries: False the timed build, True profiling
 BUILD_SECONDS = None
 BUILD_LOG = ""      # nvcc's -Xptxas -v report (registers, shared memory)
+PROFILE_BUILD_LOG = ""  # the same of the profiling build
+PROFILE_WARPS = 32  # csrc/auction.cu PROFILE_WARPS
 
 
 def _round_up(x: int, m: int) -> int:
@@ -93,7 +97,9 @@ def _gate(cost, r2c_ext, row_mask, thresh):
 
 
 def _solve_one_torch(cost, row_mask, col_mask, thresh, sched, cap,
-                     max_iters):
+                     max_iters, on_sweep=None):
+    """One problem, every phase. ``on_sweep(phase, sweep, r2c, c2r,
+    prices)``, if given, sees the padded state after each sweep."""
     n, m = cost.shape
     dev = cost.device
     np_r = _round_up(max(n, 1), 128)
@@ -114,7 +120,7 @@ def _solve_one_torch(cost, row_mask, col_mask, thresh, sched, cap,
     prices = torch.zeros(mp, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     sweeps = 0
-    for eps in sched:
+    for ph, eps in enumerate(sched):
         it, n_open = 0, 1
         while it < max_iters and n_open > 0:
             before = (r2c, c2r, prices)
@@ -158,6 +164,8 @@ def _solve_one_torch(cost, row_mask, col_mask, thresh, sched, cap,
             c2r = torch.where(contested, winner, c2r)
             prices = torch.where(contested, col_best, prices)
             n_open = int(((r2c < 0).sum() + n_released.sum()).item())
+            if on_sweep is not None:
+                on_sweep(ph, it, r2c, c2r, prices)
             it += 1
             sweeps += 1
             if _same_state(before, (r2c, c2r, prices)):
@@ -229,13 +237,19 @@ def masked_assignment_auction_torch(cost, row_mask, col_mask, thresh,
 # CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-def load_library():
+def load_library(profile: bool = False):
     """Build csrc/auction.cu (see ops/cuda_build.py) at first use and bind
-    it with ctypes."""
-    global _LIB, BUILD_SECONDS, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
-    lib, BUILD_SECONDS, BUILD_LOG = build_library("auction.cu")
+    it with ctypes. ``profile``: the build with -DAUCTION_PROFILE, cached
+    under its own name, which no path uses (see ``profile_auction``)."""
+    global BUILD_SECONDS, BUILD_LOG, PROFILE_BUILD_LOG
+    if profile in _LIBS:
+        return _LIBS[profile]
+    lib, seconds, log = build_library(
+        "auction.cu", ("AUCTION_PROFILE",) if profile else ())
+    if profile:
+        PROFILE_BUILD_LOG = log
+    else:
+        BUILD_SECONDS, BUILD_LOG = seconds, log
     lib.auction_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong,        # cost, batch stride
         ctypes.c_void_p, ctypes.c_void_p,          # row_mask, col_mask
@@ -245,25 +259,31 @@ def load_library():
         ctypes.c_int, ctypes.c_int,                # n_phases, max_iters
         ctypes.c_void_p, ctypes.c_void_p,          # r2c out, c2r out
         ctypes.c_void_p,                           # sweeps out (nullable)
+        ctypes.c_void_p,                           # profile (nullable)
         ctypes.c_void_p,                           # stream
     ]
     lib.auction_launch.restype = ctypes.c_int
-    _LIB = lib
+    lib.auction_profile_parts.argtypes = []
+    lib.auction_profile_parts.restype = ctypes.c_char_p
+    _LIBS[profile] = lib
     return lib
 
 
-def masked_assignment_auction_cuda(cost, row_mask, col_mask, thresh,
-                                   max_iters: int = MAX_ITERS,
-                                   n_phases: int = 5,
-                                   phase_factor: float = 4.0, sweeps=None):
-    """Launch the K2 kernel: all phases of every problem in one launch.
+def profile_parts() -> tuple:
+    """Names of the parts of a solve over which the profiling build sums
+    its clock cycles, as the source lists them (the last entries, named
+    "... count", are counts and not cycles)."""
+    return tuple(load_library(True).auction_profile_parts().decode()
+                 .split(","))
 
-    cost: (N, M) shared by all problems or (B, N, M), float32, contiguous.
-    row_mask (N,) or (B, N), col_mask (M,) or (B, M), bool.
-    thresh: scalar or (B,). ``sweeps``: optional (B,) int32 CUDA tensor
-    that receives each problem's sweep count.
-    """
-    global LAUNCHES
+
+def _prepare(profile, cost, row_mask, col_mask, thresh, max_iters, n_phases,
+             phase_factor, sweeps):
+    """Check the arguments and allocate the outputs of a launch of the
+    timed build or, with ``profile`` a (B, PROFILE_WARPS, parts) int64 CUDA
+    tensor, of the profiling build. Returns (fire, batched, r2c (B, N),
+    c2r (B, M)): ``fire()`` launches the kernel once on these arguments
+    and raises if the launch is refused."""
     if not cost.is_cuda:
         raise ValueError("masked_assignment_auction_cuda needs CUDA tensors")
     if cost.dtype != torch.float32 or not cost.is_contiguous():
@@ -295,18 +315,79 @@ def masked_assignment_auction_cuda(cost, row_mask, col_mask, thresh,
                                or sweeps.dtype != torch.int32
                                or sweeps.device != cost.device):
         raise ValueError("sweeps must be a (B,) int32 tensor on the device")
-    lib = load_library()
-    stream = torch.cuda.current_stream(cost.device).cuda_stream
-    LAUNCHES += 1
-    err = lib.auction_launch(
-        cost.data_ptr(), n * m if cost.dim() == 3 else 0,
-        rm.data_ptr(), cm.data_ptr(), th.data_ptr(), powers,
-        b, n, m, n_phases, max_iters,
-        r2c.data_ptr(), c2r.data_ptr(),
-        sweeps.data_ptr() if sweeps is not None else None, stream)
-    if err != 0:
-        raise RuntimeError(f"auction kernel launch failed: CUDA error {err}")
+    lib = load_library(profile is not None)
+    args = (cost.data_ptr(), n * m if cost.dim() == 3 else 0,
+            rm.data_ptr(), cm.data_ptr(), th.data_ptr(), powers,
+            b, n, m, n_phases, max_iters, r2c.data_ptr(), c2r.data_ptr(),
+            sweeps.data_ptr() if sweeps is not None else None,
+            profile.data_ptr() if profile is not None else None)
+    # every buffer the kernel reads or writes lives as long as fire does
+    keep = (cost, rm, cm, th, r2c, c2r, sweeps, profile)
+
+    def fire():
+        global LAUNCHES
+        stream = torch.cuda.current_stream(keep[0].device).cuda_stream
+        err = lib.auction_launch(*args, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"auction kernel launch failed: CUDA error {err}")
+        if profile is None:
+            LAUNCHES += 1
+
+    return fire, batched, r2c, c2r
+
+
+def masked_assignment_auction_cuda(cost, row_mask, col_mask, thresh,
+                                   max_iters: int = MAX_ITERS,
+                                   n_phases: int = 5,
+                                   phase_factor: float = 4.0, sweeps=None):
+    """Launch the K2 kernel: all phases of every problem in one launch.
+
+    cost: (N, M) shared by all problems or (B, N, M), float32, contiguous.
+    row_mask (N,) or (B, N), col_mask (M,) or (B, M), bool.
+    thresh: scalar or (B,). ``sweeps``: optional (B,) int32 CUDA tensor
+    that receives each problem's sweep count.
+    """
+    fire, batched, r2c, c2r = _prepare(None, cost, row_mask, col_mask, thresh,
+                                       max_iters, n_phases, phase_factor,
+                                       sweeps)
+    fire()
     return (r2c, c2r) if batched else (r2c[0], c2r[0])
+
+
+def prepared_auction(cost, row_mask, col_mask, thresh,
+                     max_iters: int = MAX_ITERS, n_phases: int = 5,
+                     phase_factor: float = 4.0, profile=None):
+    """``fire``: one launch of the K2 kernel on these arguments per call,
+    into the same output buffers, with none of the wrapper's host work (a
+    solve of a few sweeps is shorter than that work, so a loop over
+    ``masked_assignment_auction_cuda`` times the host). With ``profile``
+    (see ``profile_auction``) it launches the profiling build. For
+    measuring: the paths call the wrapper."""
+    return _prepare(profile, cost, row_mask, col_mask, thresh, max_iters,
+                    n_phases, phase_factor, None)[0]
+
+
+def profile_auction(cost, row_mask, col_mask, thresh,
+                    max_iters: int = MAX_ITERS, n_phases: int = 5,
+                    phase_factor: float = 4.0, sweeps=None):
+    """Where a solve's cycles go: launch the profiling build of K2 on the
+    same arguments as ``masked_assignment_auction_cuda`` and return
+    (r2c, c2r, cycles): cycles (B, PROFILE_WARPS, len(profile_parts()))
+    int64, clock64() sums by warp (zeros beyond the block's warps) and
+    part. It exists for chip_smoke.py to measure with: no path calls it,
+    it adds to no launch count and its times are not the kernel's (the
+    clock reads cost cycles themselves)."""
+    if not cost.is_cuda:
+        raise ValueError("profile_auction needs CUDA tensors")
+    b = row_mask.shape[0] if row_mask.dim() == 2 else 1
+    cycles = torch.zeros((b, PROFILE_WARPS, len(profile_parts())),
+                         dtype=torch.int64, device=cost.device)
+    fire, batched, r2c, c2r = _prepare(cycles, cost, row_mask, col_mask,
+                                       thresh, max_iters, n_phases,
+                                       phase_factor, sweeps)
+    fire()
+    return ((r2c, c2r) if batched else (r2c[0], c2r[0])) + (cycles,)
 
 
 def masked_assignment_auction(cost, row_mask, col_mask, thresh,
