@@ -56,13 +56,39 @@ Phases, each of which must pass:
   5. step    -- step_frame on one stream for 8 frames: 8 K1 launches, and
                 the same slab as lane 0 of a one-stream
                 process_multistream run.
+  6. trackers -- the same detector through
+                TrackingPipeline.run_sequence_stateful for sort,
+                c_bioutracker, uavmot, deepsort (DeepSORT CNN) and
+                bytetrack with OSNet x1_0 appearance fusion on the 16
+                frames of phase 3, and for botsort (ECC) and strongsort
+                (OSNet x1_0 on all 300 det slots, ECC) on 16 frames of a
+                camera panning 8 px a frame over phase 3's first frame
+                smoothed (see TRACKER_RUNS); seeded ReID weights with BN
+                statistics measured on the first frame's crops
+                (calibrate_bn). The phase runs under PyTorch's default
+                TF32 flags (cuDNN may use TF32), as a user's process
+                would: the pipeline itself runs ReID in float32. For each:
+                K2 launches (reset just before the run, read just after)
+                equal to its solves a frame x 16; every tracker step under
+                torch.cuda.set_sync_debug_mode("error") (a host sync inside
+                a step fails the phase), for botsort and strongsort also
+                without the GMC's warp; a CPU replay of the tracker step on
+                the detections, features and warps the card gave (K2's
+                plain version) with the same ids and boxes; ms/frame. Also
+                each ReID model on 16 crops through the pipeline's
+                reid_forward on the card against the CPU (relative 1e-3), ECC
+                on two frames of the pan (the 8-px shift within 0.5 px),
+                strongsort's frame split into crops, ReID forward, ECC and
+                tracker step, and the deepsort cascade's K2 levels timed
+                from a CUDA graph.
 Then K2 on the offline path's last stage-1 and stage-2/3 problems and on
 the last tick's 2S problems, K1 on step_frame's last problem and K3 on the
 last tick's are timed (ms, us per sweep, bound) and profiled (where a
 solve's cycles go, by the profiling builds, which no path uses), and the
 problems are written to chiprun_out/chip_smoke/k2_problems.pt and
 square_problems.pt.
-It prints the kernel JSON line, the card's name and power limit, and last
+It prints the trackers JSON line, the kernel JSON line, the card's name
+and power limit, and last
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, if
 there is no CUDA device or if any phase fails. It imports nothing of JAX.
 
@@ -110,6 +136,28 @@ K2_STEEP = dict(n_phases=2, phase_factor=4.0 ** 2.5)
 SCIPY_GAP_LIMIT = 0.05
 N_STREAMS = 8
 SERVE_TICKS = (16, 8)         # first call, resumed call
+# phase 6: (name, TrackerConfig fields, PipelineConfig fields, K2 solves a
+# frame); deepsort's cascade solves each of its max_time_lost (30) levels.
+# The GMC trackers (botsort, strongsort) run on a camera pan (pan_frames):
+# between two unrelated noise frames of phase 3, ECC returns a wild but
+# finite warp (a scale of 4 and a 113 degree turn on the card), which the
+# reference's semantics apply, and the NSA Kalman update on such states
+# turns float32 rounding into 1e-3 of relative box error between the card
+# and the CPU (same ids), beyond phase 3's replay tolerance.
+TRACKER_RUNS = (
+    ("sort", dict(tracker="sort"), {}, 2),
+    ("c_bioutracker", dict(tracker="c_bioutracker"), {}, 3),
+    ("uavmot", dict(tracker="uavmot"), {}, 3),
+    ("botsort", dict(tracker="botsort"), dict(gmc_method="ecc"), 2),
+    ("deepsort", dict(tracker="deepsort"), dict(reid="deepsort_cnn"), 32),
+    ("strongsort", dict(tracker="strongsort"),
+     dict(reid="osnet_x1_0", reid_capacity=0, gmc_method="ecc"), 3),
+    ("bytetrack_osnet", dict(tracker="bytetrack", feature_dim=512),
+     dict(reid="osnet_x1_0"), 2),
+)
+PAN_PX = 8                    # the pan's shift a frame
+REID_REL_TOL = 1e-3           # card vs CPU, float32 (TF32 off)
+ECC_SHIFT_TOL = 0.5           # px
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 
 
@@ -773,6 +821,15 @@ def build_w6(dev):
                                 device=dev)
 
 
+def offline_frames():
+    """The 16 synthetic 1080x1920 frames of phases 3 and 6: 8 noise frames,
+    then the same 8 shifted 8 px to the right."""
+    rng = np.random.default_rng(0)
+    f0 = rng.integers(0, 255, (8, 1080, 1920, 3), np.uint8)
+    f1 = np.roll(f0, 8, axis=2)       # an 8-px shift: the scene persists
+    return [f for k in range(2) for f in (f0, f1)[k % 2]]
+
+
 def main_phase(pipe, dev):
     import torch
 
@@ -781,10 +838,8 @@ def main_phase(pipe, dev):
     from yolov7_tracker_tpu_torch.trackers import bytetrack
     from yolov7_tracker_tpu_torch.trackers import slab as S
 
-    rng = np.random.default_rng(0)
-    f0 = rng.integers(0, 255, (8, 1080, 1920, 3), np.uint8)
-    f1 = np.roll(f0, 8, axis=2)       # an 8-px shift: the scene persists
-    frames = [f for k in range(2) for f in (f0, f1)[k % 2]]      # 16
+    frames = offline_frames()
+    f1 = np.stack(frames[8:])
 
     t0 = time.time()
     pipe.run_sequence(iter(frames[:8]))         # warm-up, not counted
@@ -1174,6 +1229,473 @@ def step_frame_phase(pipe, dev):
     return k1, last["stage1"]
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the other trackers, ReID and GMC on the offline path
+# ---------------------------------------------------------------------------
+
+def tracker_pipeline(sd, dev, tracker_kw, pipe_kw):
+    """A TrackingPipeline on phase 3's detector (yolov7-w6, nc=80, 1088 px,
+    bf16, BN folded) with the given tracker and ReID / GMC settings; ReID
+    weights are the pipeline's seeded ones (random BN statistics)."""
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                   TrackingPipeline)
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    pcfg = PipelineConfig(model="yolov7-w6", nc=80, img_size=1088,
+                          detector_batch=8, dtype="bfloat16", fuse=True,
+                          **pipe_kw)
+    tcfg = S.TrackerConfig(conf_thresh=0.5, capacity=128, det_capacity=300,
+                           **tracker_kw)
+    return TrackingPipeline(pcfg, tcfg, state_dict=sd,
+                            spec=zoo.get_spec("yolov7-w6", nc=80),
+                            device=dev)
+
+
+def calibrate_reid(pipe, frame):
+    """Seeded ReID weights that tell crops apart: ``calibrate_bn`` on the
+    crops of the frame's detections."""
+    from yolov7_tracker_tpu_torch.reid import extractor
+
+    boxes = pipe.detect_batch(frame[None])[0][0, :pipe.tcfg.det_capacity]
+    calibrate_bn(pipe.reid_model, extractor.extract_crops(
+        pipe._frames(frame), boxes, pipe.reid_hw).permute(0, 3, 1, 2))
+
+
+def calibrate_bn(model, crops):
+    """With random BN statistics alone, embeddings of different crops come
+    out nearly parallel (tests/test_torch_reid.py measures it), so the
+    statistics are measured instead, as training would leave them: one
+    train-mode pass over ``crops`` (N, 3, H, W). OSNet's embedding is then
+    scaled to unit mean norm, the scale at which ByteTrack's 1 - f.f' reads
+    as a cosine distance; the DeepSORT CNN normalises its own output."""
+    import torch
+
+    norms = [m for m in model.modules()
+             if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d))]
+    for m in norms:
+        m.reset_running_stats()
+        m.momentum = None                # a plain average over the pass
+    with torch.no_grad():
+        model.train()(crops)
+        model.eval()
+        for m in norms:
+            m.momentum = 0.1
+        if hasattr(model, "fc"):
+            scale = 1.0 / float(model(crops).norm(dim=1).mean())
+            model.fc[1].weight.mul_(scale)
+            model.fc[1].bias.mul_(scale)
+
+
+def replay_on_cpu(pipe, dets, slabs, results, name):
+    """Step the tracker on the CPU (K2's plain version) through the
+    detections, features and warps the card's run gave it; ids must equal
+    the card's and boxes agree as in phase 3. ``slabs``: the card's slab
+    before each step, compared field by field where the replay differs
+    (that frame's inputs are then saved under OUT_DIR)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    slab = S.init_slab(pipe.tcfg, "cpu")
+    for k, det in enumerate(dets):
+        before = slab
+        slab, out = pipe.step(slab, S.DetSlab(*(x.cpu() for x in det)))
+        _, ids, tlwhs, _ = results[k]
+        v = out.valid.numpy()
+        if out.track_id.numpy()[v].tolist() != ids or not np.allclose(
+                out.tlwh.numpy()[v], np.asarray(tlwhs).reshape(-1, 4),
+                atol=1e-2):
+            diffs = {f: float((a.cpu().double() - b.double()).abs().max())
+                     for f, a, b in zip(S.TrackSlab._fields, slabs[k],
+                                        before) if a.numel()}
+            cpu_ids = out.track_id.numpy()[v].tolist()
+            log(f"{name}: replay differs at frame {k}: card {len(ids)} rows, "
+                f"CPU {len(cpu_ids)}; ids only on the card "
+                f"{sorted(set(ids) - set(cpu_ids))[:8]}, only on the CPU "
+                f"{sorted(set(cpu_ids) - set(ids))[:8]}; slab before the "
+                f"step, card - CPU, max |diff| by field {diffs}")
+            os.makedirs(OUT_DIR, exist_ok=True)
+            torch.save({"det": S.DetSlab(*(x.cpu() for x in det)),
+                        "slab": S.TrackSlab(*(x.cpu() for x in slabs[k])),
+                        "card": results[k], "cfg": vars(pipe.tcfg)},
+                       os.path.join(OUT_DIR, f"replay_{name}_{k}.pt"))
+            raise AssertionError(f"{name}: CPU replay differs at frame {k}")
+
+
+def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
+    """Drive one tracker through run_sequence_stateful (after a warm-up
+    batch); check its K2 launches and its CPU replay. Returns (record,
+    pipe, the detections the step got)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    pipe = tracker_pipeline(sd, dev, tracker_kw, pipe_kw)
+    if pipe.reid_model is not None:
+        calibrate_reid(pipe, frames[0])
+    pipe.run_sequence(iter(frames[:8]))        # warm-up, not counted
+    if pipe.gmc is not None:
+        pipe.gmc.set_state({})                 # start as a new sequence
+    dets, slabs = [], []
+    step = pipe.step
+
+    def recording_step(slab, det, **kw):
+        dets.append(S.DetSlab(*(x.clone() for x in det)))  # no host sync
+        slabs.append(S.TrackSlab(*(x.clone() for x in slab)))
+        return no_sync_step(step, slab, det, **kw)
+
+    pipe.step = recording_step
+    torch.cuda.synchronize()
+    auction.LAUNCHES = 0
+    t0 = time.time()
+    results, slab = pipe.run_sequence_stateful(iter(frames))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = auction.LAUNCHES
+    pipe.step = step
+    n = len(frames)
+    if launches != per_frame * n:
+        raise AssertionError(f"{name}: {launches} K2 launches in {n} frames, "
+                             f"expected {per_frame} a frame")
+    tracks = [len(ids) for _, ids, _, _ in results]
+    if len(results) != n or max(tracks) < 1 or int(slab.frame) != n:
+        raise AssertionError(f"{name}: tracks per frame {tracks}")
+    if not all(bool(torch.isfinite(d.feature).all()) for d in dets):
+        raise AssertionError(f"{name}: non-finite ReID features")
+    t0 = time.time()
+    replay_on_cpu(pipe, dets, slabs, results, name)
+    replay_s = time.time() - t0
+    if pipe.gmc is not None:
+        without_gmc(pipe, dets)
+    warps = torch.stack([d.warp.to(dev) for d in dets])
+    rec = {"ms_per_frame": wall / n * 1e3, "k2_launches": launches,
+           "k2_per_frame": per_frame, "tracks_per_frame_mean":
+           float(np.mean(tracks)), "tracks_per_frame_max": max(tracks),
+           "ids": int(slab.next_id), "cpu_replay": "same ids, boxes 1e-2",
+           "cpu_replay_s": replay_s,
+           "feature_dim": pipe.tcfg.feature_dim, "reid": pipe.pcfg.reid,
+           "gmc": pipe.pcfg.gmc_method,
+           "warp_tx_range": [float(warps[:, 0, 2].min()),
+                             float(warps[:, 0, 2].max())]}
+    log(f"{name} on {card_line()}: {wall / n * 1e3:.2f} ms/frame over {n} "
+        f"frames, {launches} K2 launches ({per_frame} a frame), tracks/frame "
+        f"mean {np.mean(tracks):.1f} max {max(tracks)}, {int(slab.next_id)} "
+        f"ids; CPU replay ({replay_s:.1f} s): same ids, boxes within 1e-2")
+    return rec, pipe, dets
+
+
+def no_sync_step(step, slab, det, **kw):
+    """One tracker step with torch.cuda.set_sync_debug_mode("error"): a
+    device-to-host wait inside the step raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return step(slab, det, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def without_gmc(pipe, dets):
+    """The run's detections and features as a pipeline without GMC hands
+    them to the step (dets_to_slab's identity warp, made on the card),
+    stepped from a fresh slab with no host sync inside a step."""
+    import torch
+
+    slab = pipe.init_tracker()
+    for det in dets:
+        plain = pipe.dets_to_slab(det.tlbr, det.score, det.cls,
+                                  det.valid.sum())
+        if not (plain.warp.is_cuda and torch.equal(plain.valid, det.valid)):
+            raise AssertionError("dets_to_slab: warp or mask off the card")
+        slab, out = no_sync_step(pipe.step, slab,
+                                 plain._replace(feature=det.feature))
+    if int(out.valid.sum()) < 1:
+        raise AssertionError(f"{pipe.tcfg.tracker} without GMC: no tracks")
+    log(f"{pipe.tcfg.tracker} without GMC: {len(dets)} steps with no host "
+        f"sync, {int(out.valid.sum())} tracks on the last frame")
+
+
+def reid_check(pipe, frame, det, dev):
+    """The pipeline's ReID model on 16 crops of its own detections, on the
+    card through reid_forward (as embed_dets runs it) and on a CPU copy:
+    max relative difference of the features."""
+    import copy
+
+    import torch
+
+    from yolov7_tracker_tpu_torch.reid import extractor
+
+    frame = pipe._frames(frame)
+    crops = extractor.extract_crops(frame, det.tlbr[:16], pipe.reid_hw)
+    cpu_crops = extractor.extract_crops(frame.cpu(), det.tlbr[:16].cpu(),
+                                        pipe.reid_hw)
+    cpu_model = copy.deepcopy(pipe.reid_model).cpu().to(
+        memory_format=torch.contiguous_format)
+    card = pipe.reid_forward(crops).cpu()
+    with torch.no_grad():
+        cpu = cpu_model(cpu_crops.permute(0, 3, 1, 2))
+    crop_diff = float((crops.cpu() - cpu_crops).abs().max())
+    rel = float((card - cpu).abs().max() / cpu.abs().max())
+    if not rel <= REID_REL_TOL or not crop_diff < 1e-4:
+        raise AssertionError(f"{pipe.pcfg.reid}: card vs CPU, crops "
+                             f"{crop_diff}, features relative {rel}")
+    log(f"{pipe.pcfg.reid} on 16 crops, card vs CPU float32: crops max "
+        f"|diff| {crop_diff:.2e}, features max relative diff {rel:.2e} "
+        f"(tolerance {REID_REL_TOL})")
+    return {"crops_max_abs_diff": crop_diff, "features_max_rel_diff": rel}
+
+
+def smooth_frame(frame, dev, k=8):
+    """The frame's k x k grid of pixels, bilinearly upsampled back to its
+    size on the card: texture that varies over a few pixels."""
+    import torch
+
+    small = torch.from_numpy(frame[::k, ::k]).to(dev).permute(2, 0, 1)
+    big = torch.nn.functional.interpolate(
+        small[None].float(), size=frame.shape[:2], mode="bilinear",
+        align_corners=False)[0]
+    return big.round().clamp(0, 255).to(torch.uint8).permute(1, 2, 0)
+
+
+def pan_frames(frames, dev):
+    """A camera panning PAN_PX to the right a frame over phase 3's first
+    frame smoothed (``smooth_frame``): on white noise at this size ECC's
+    Gauss-Newton steps diverge even for the 8-px pair
+    (tests/test_torch_gmc.py). As many frames as ``frames``, uint8 on the
+    host."""
+    import torch
+
+    base = smooth_frame(frames[0], dev)
+    return [torch.roll(base, PAN_PX * t, dims=1).cpu().numpy()
+            for t in range(len(frames))]
+
+
+def ecc_check(frames, dev):
+    """GMC('ecc') between two frames of the pan: the warp must recover the
+    PAN_PX shift. Returns the warp and the ms of one ECC estimate (gray,
+    downscale, 50 steps)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.trackers.gmc import GMC
+
+    a, b = (torch.from_numpy(f).to(dev) for f in frames[:2])
+    gmc = GMC("ecc")
+    gmc.apply(a)
+    warp = gmc.apply(b)
+    tx, ty = float(warp[0, 2]), float(warp[1, 2])
+    if abs(tx - PAN_PX) > ECC_SHIFT_TOL or abs(ty) > ECC_SHIFT_TOL:
+        raise AssertionError(f"ECC on the 8-px pair: warp {warp.tolist()}")
+
+    prev_gray = gmc.prev_gray
+
+    def once():
+        gmc.prev_gray = prev_gray
+        return gmc.apply(b)
+
+    ms = cuda_ms(once, 3)
+    log(f"ECC on the 8-px-shifted pair: tx {tx:.4f}, ty {ty:.4f} px "
+        f"(tolerance {ECC_SHIFT_TOL}), {ms:.2f} ms an estimate")
+    return {"warp": warp.tolist(), "ms": ms}
+
+
+def strongsort_breakdown(pipe, frames, dets, dev):
+    """strongsort's frame split into its parts, each timed alone with CUDA
+    events on the run's last frame: crops of all 300 det slots, the OSNet
+    forward on them, one ECC estimate, the tracker step."""
+    from yolov7_tracker_tpu_torch.reid import extractor
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    frame = pipe._frames(frames[-1])
+    det = dets[-1]
+    crops = extractor.extract_crops(frame, det.tlbr, pipe.reid_hw)
+    x = crops.permute(0, 3, 1, 2)
+    t_crops = cuda_ms(lambda: extractor.extract_crops(
+        frame, det.tlbr, pipe.reid_hw), 5)
+    t_reid = cuda_ms(lambda: pipe.reid_forward(crops), 3)
+    gmc = pipe.gmc
+    prev_gray = gmc.prev_gray
+
+    def ecc_once():
+        gmc.prev_gray = prev_gray
+        return gmc.apply(frame)
+
+    t_ecc = cuda_ms(ecc_once, 3)
+    ecc_ops = profile_ops(ecc_once)
+    slab = S.init_slab(pipe.tcfg, dev)
+    for d in dets[:-1]:
+        slab, _ = pipe.step(slab, d)
+    t_step = cuda_ms(lambda: pipe.step(slab, det), 3)
+    # OSNet x1_0: about 1 GMAC a 256x128 crop (torchreid's count: 0.98
+    # GFLOPs as multiply-adds), 2 operations each
+    macs = sum(m.weight.numel() * int(np.prod(o))
+               for m, o in conv_out_sizes(pipe.reid_model, x[:1]))
+    rec = {"crops_ms": t_crops, "reid_forward_ms": t_reid, "ecc_ms": t_ecc,
+           "tracker_step_ms": t_step, "crops": int(det.tlbr.shape[0]),
+           "reid_gmac_per_crop": float(macs) / 1e9, "ecc_profile": ecc_ops}
+    log(f"strongsort frame on {card_line()}: crops of {det.tlbr.shape[0]} "
+        f"slots {t_crops:.2f} ms, OSNet x1_0 forward {t_reid:.2f} ms "
+        f"({macs / 1e9:.3f} GMAC a crop, float32, TF32 off), ECC "
+        f"{t_ecc:.2f} ms, tracker step {t_step:.2f} ms")
+    return rec
+
+
+def profile_ops(fn, top=6):
+    """torch.profiler over one call of fn: the ops with the most CUDA time
+    and the most CPU time (ms, calls), the host syncs, and the device's
+    share of the call's wall time; logged and returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+        events = prof.key_averages()
+    except RuntimeError as e:        # a profiler that cannot trace the card
+        log(f"profile: torch.profiler failed: {e}")
+        return {"error": str(e)}
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    by_dev = sorted(events, key=device_us, reverse=True)[:top]
+    by_cpu = sorted(events, key=lambda e: e.cpu_time_total,
+                    reverse=True)[:top]
+    syncs = sum(e.count for e in events if "Synchronize" in e.key)
+    device_ms = sum(device_us(e) for e in events) / 1e3
+    rec = {"wall_ms": wall_ms, "device_ms": device_ms, "syncs": syncs,
+           "launches": sum(e.count for e in events
+                           if e.key == "cudaLaunchKernel"),
+           "top_device": [(e.key[:48], device_us(e) / 1e3, e.count)
+                          for e in by_dev],
+           "top_cpu": [(e.key[:48], e.cpu_time_total / 1e3, e.count)
+                       for e in by_cpu]}
+    log(f"profile: {wall_ms:.2f} ms wall, {device_ms:.2f} ms on the "
+        f"device, {rec['launches']} kernel launches, {syncs} host syncs; "
+        f"most device time {rec['top_device']}; most CPU time "
+        f"{rec['top_cpu']}")
+    return rec
+
+
+def conv_out_sizes(model, x):
+    """(conv, output spatial size) of every Conv2d of ``model`` on x, for
+    counting multiply-adds."""
+    import torch
+
+    sizes = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: sizes.append((m, o.shape[-2:])))
+        for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sizes
+
+
+def cascade_timing(pipe, dets, dev):
+    """deepsort's cascade on the run's last frame, replayed on the CPU to
+    capture its 30 level problems, each then timed on the card from a CUDA
+    graph (kernel only) and through the wrapper (a call as the path makes
+    it)."""
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.trackers import appearance
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    problems = []
+    solve = appearance.solve_assignment
+
+    def capture(cost, rm, cm, th):
+        problems.append((cost.clone(), rm.clone(), cm.clone(), th))
+        return solve(cost, rm, cm, th)
+
+    slab = S.init_slab(pipe.tcfg, "cpu")
+    for d in dets[:-1]:
+        slab, _ = pipe.step(slab, S.DetSlab(*(x.cpu() for x in d)))
+    appearance.solve_assignment = capture
+    try:
+        pipe.step(slab, S.DetSlab(*(x.cpu() for x in dets[-1])))
+    finally:
+        appearance.solve_assignment = solve
+    kernel, wrapper, rows = [], [], []
+    for cost, rm, cm, th in problems:
+        cost, rm, cm = (t.to(dev) for t in (cost, rm, cm))
+        kernel.append(graph_ms(auction.prepared_auction(
+            cost.contiguous(), rm, cm, th, **K2_STEEP)))
+        wrapper.append(cuda_ms(lambda: auction.masked_assignment_auction_cuda(
+            cost.contiguous(), rm, cm, th, **K2_STEEP), 20))
+        rows.append(int(rm.sum()))
+    empty = [k for k, r in zip(kernel, rows) if r == 0]
+    card_slab = S.init_slab(pipe.tcfg, dev)
+    for d in dets[:-1]:
+        card_slab, _ = pipe.step(card_slab, d)
+    log("deepsort step of the last frame on the card:")
+    step_ops = profile_ops(lambda: pipe.step(card_slab, dets[-1]))
+    rec = {"levels": len(problems), "rows_per_level": rows,
+           "step_profile": step_ops,
+           "kernel_ms_sum": float(sum(kernel)),
+           "kernel_ms_empty_level": float(np.mean(empty)) if empty else None,
+           "kernel_ms_max": float(max(kernel)),
+           "wrapper_ms_sum": float(sum(wrapper))}
+    log(f"deepsort cascade on {card_line()}: {len(problems)} levels, rows "
+        f"{rows}; K2 from a CUDA graph {sum(kernel):.4f} ms in all "
+        f"({rec['kernel_ms_empty_level']} ms an empty level, "
+        f"{max(kernel):.4f} the longest); through the wrapper "
+        f"{sum(wrapper):.3f} ms a frame")
+    return rec
+
+
+def trackers_phase(sd, dev):
+    """Phase 6, under PyTorch's default TF32 flags (main() turns TF32 off
+    for the earlier phases). Returns the trackers JSON record and K2's
+    launches by tracker."""
+    import torch
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    old = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    try:
+        return run_trackers(sd, dev)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = old
+
+
+def run_trackers(sd, dev):
+    frames = offline_frames()
+    pan = pan_frames(frames, dev)
+    out, launches = {}, {}
+    for name, tracker_kw, pipe_kw, per_frame in TRACKER_RUNS:
+        run_frames = pan if "gmc_method" in pipe_kw else frames
+        rec, pipe, dets = tracker_run(sd, dev, run_frames, name, tracker_kw,
+                                      pipe_kw, per_frame)
+        rec["frames"] = "pan" if run_frames is pan else "phase 3"
+        if pipe.reid_model is not None and pipe.pcfg.reid not in {
+                r.get("reid") for r in out.values()}:
+            rec["reid_card_vs_cpu"] = reid_check(pipe, frames[-1], dets[-1],
+                                                 dev)
+        if name == "strongsort":
+            rec["breakdown"] = strongsort_breakdown(pipe, run_frames, dets,
+                                                    dev)
+        if name == "deepsort":
+            rec["cascade"] = cascade_timing(pipe, dets, dev)
+        out[name] = rec
+        launches[name] = rec["k2_launches"]
+        del pipe, dets
+    out["ecc_8px_pair"] = ecc_check(pan, dev)
+    return out, launches
+
+
 def detector_reference_check(dev):
     """A small detector input on the card (float32, TF32 off) against the
     same computation on the CPU: preprocess + raw head levels."""
@@ -1363,6 +1885,7 @@ def main(argv=None):
     k3_launches, k2_serving, serve_last = serving_phase(sd, pipe, dev)
     k1_launches, step_last = step_frame_phase(pipe, dev)
     detector_reference_check(dev)
+    trackers, k2_by_tracker = trackers_phase(sd, dev)
 
     # K2 on the last frame's two solves, as the main path gave them, and on
     # the serving path's stages 2+3: one launch of B = 2 S problems
@@ -1383,6 +1906,7 @@ def main(argv=None):
     record = {"name": "auction_k2_private_dummy", "route": "cuda",
               "source": SOURCE, "replaces": REPLACES, "launches": launches,
               "launches_serving": k2_serving,
+              "launches_trackers": k2_by_tracker,
               "max_abs_err": float(worst), "library_ms": None, **t1,
               **{f"{k}_b2": v for k, v in t2.items()},
               **{f"{k}_serving": v for k, v in t16.items()}}
@@ -1405,6 +1929,7 @@ def main(argv=None):
               "library_ms": None, **on_tick,
               "seeded_batches": {str(b): t for b, t in t_k3.items()}}
     log(f"total {time.time() - t0:.1f} s")
+    print(json.dumps({"trackers": trackers}))
     print(json.dumps({"kernels": [rec_k1, record, rec_k3]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

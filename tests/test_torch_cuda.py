@@ -333,3 +333,160 @@ def test_square_wrapper_checks_its_inputs(card):
         square(cost, rm[:5], cm, 0.5)
     with pytest.raises(ValueError):
         square(cost, rm[None], cm[None], 0.5)   # batched masks, single cost
+
+
+# ---------------------------------------------------------------------------
+# ReID crops and models, ECC: torch ops on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def full_float32():
+    """TF32 off for the comparison, restored after."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.fixture
+def tf32_allowed():
+    """TF32 on for cuDNN and cuBLAS (beyond PyTorch's default, which
+    allows it for cuDNN only), restored after."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["osnet_x1_0", "deepsort_cnn"])
+def test_reid_crops_and_model_on_the_card(card, tf32_allowed, name):
+    """The model in float32 (reid.float32_exact, as the pipeline runs it)
+    even where the process allows TF32."""
+    from yolov7_tracker_tpu_torch.reid import (build_reid, extractor,
+                                               float32_exact)
+    from yolov7_tracker_tpu_torch.reid import random_reid_state_dict
+
+    rng = np.random.default_rng(5)
+    frame = torch.from_numpy(rng.integers(0, 255, (1080, 1920, 3), np.uint8))
+    xy = rng.uniform(-20, 1800, (16, 2))
+    tlbr = torch.from_numpy(np.c_[xy, xy + rng.uniform(8, 300, (16, 2))]
+                            .astype(np.float32))
+    model, hw = build_reid(name)
+    model.load_state_dict(random_reid_state_dict(model, seed=1))
+    outs = []
+    for dev in ("cpu", card):
+        crops = extractor.extract_crops(frame.to(dev), tlbr.to(dev), hw)
+        with torch.no_grad(), float32_exact():
+            feats = model.to(dev).eval()(crops.permute(0, 3, 1, 2))
+        outs.append((crops.cpu(), feats.cpu()))
+    (c_cpu, f_cpu), (c_card, f_card) = outs
+    assert float((c_cpu - c_card).abs().max()) < 1e-4
+    assert bool(torch.isfinite(f_card).all())
+    rel = float((f_cpu - f_card).abs().max() / f_cpu.abs().max())
+    assert rel <= 1e-3, rel
+
+
+@pytest.mark.cuda
+def test_ecc_on_the_card_recovers_a_translation(card, full_float32):
+    from yolov7_tracker_tpu_torch.trackers.gmc import GMC
+
+    rng = np.random.default_rng(0)
+    # smooth texture: on white noise at this size ECC's steps diverge
+    small = torch.from_numpy(rng.integers(0, 255, (135, 240, 3), np.uint8))
+    f0 = torch.nn.functional.interpolate(
+        small.permute(2, 0, 1)[None].float(), size=(1080, 1920),
+        mode="bilinear", align_corners=False)[0].permute(1, 2, 0)
+    f0 = f0.round().clamp(0, 255).to(torch.uint8).numpy()
+    f1 = np.roll(f0, 8, axis=1)           # the scene moves 8 px right
+    gmc = GMC("ecc")
+    gmc.apply(torch.from_numpy(f0).to(card))
+    warp = gmc.apply(torch.from_numpy(f1).to(card))
+    assert warp.is_cuda
+    assert abs(float(warp[0, 2]) - 8.0) < 0.5, warp
+    assert abs(float(warp[1, 2])) < 0.5, warp
+
+
+# ---------------------------------------------------------------------------
+# no host sync inside a tracker step
+# ---------------------------------------------------------------------------
+
+_SYNC_CASES = {
+    "sort": dict(tracker="sort"),
+    "c_bioutracker": dict(tracker="c_bioutracker"),
+    "uavmot": dict(tracker="uavmot"),
+    "botsort": dict(tracker="botsort"),
+    "deepsort": dict(tracker="deepsort", feature_dim=16),
+    "strongsort": dict(tracker="strongsort", feature_dim=16),
+    "bytetrack_features": dict(tracker="bytetrack", feature_dim=16),
+}
+
+
+def _card_dets(cfg, rng, t, card, warp=None):
+    """One frame of 12 jittered boxes moving on a grid, each with its own
+    basis vector (plus noise) as feature, made on the card by
+    make_det_slab."""
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    xy = np.stack(np.meshgrid(np.arange(4), np.arange(3)), -1).reshape(-1, 2)
+    xy = xy * 120.0 + 40.0 + t * 3.0 + rng.normal(0, 1.0, xy.shape)
+    tlbr = np.c_[xy, xy + 60.0].astype(np.float32)
+    feat = ((np.eye(12, cfg.feature_dim)
+             + rng.normal(0, 0.01, (12, cfg.feature_dim))).astype(np.float32)
+            if cfg.feature_dim else None)
+    return S.make_det_slab(cfg, tlbr, rng.uniform(0.3, 0.95, 12),
+                           np.zeros(12), np.ones(12, bool), card,
+                           feature=feat, warp=warp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_SYNC_CASES))
+def test_tracker_step_makes_no_host_sync(card, name):
+    """Every step, with no GMC (the identity warp make_det_slab builds on
+    the card), runs under torch.cuda.set_sync_debug_mode('error'): any
+    device-to-host wait inside it raises. The first step runs outside, as
+    it makes the solver's per-device constants."""
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+    from yolov7_tracker_tpu_torch.trackers.registry import build_tracker
+
+    step, cfg = build_tracker(S.TrackerConfig(
+        capacity=32, det_capacity=24, conf_thresh=0.5, **_SYNC_CASES[name]))
+    rng = np.random.default_rng(0)
+    dets = [_card_dets(cfg, rng, t, card) for t in range(12)]
+    assert all(d.warp.is_cuda for d in dets)
+    slab, _ = step(S.init_slab(cfg, card), dets[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for det in dets[1:]:
+            slab, out = step(slab, det)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(out.valid.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_ecc_estimate_makes_no_host_sync(card):
+    """GMC('ecc') on frames on the card: identity for the first frame and
+    an estimate for the second, both without a device-to-host wait."""
+    from yolov7_tracker_tpu_torch.trackers.gmc import GMC
+
+    rng = np.random.default_rng(1)
+    frames = torch.from_numpy(rng.integers(0, 255, (2, 64, 96, 3),
+                                           np.uint8)).to(card)
+    gmc = GMC("ecc")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        warps = [gmc.apply(f) for f in frames]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(w.is_cuda for w in warps)
+    assert torch.equal(warps[0].cpu(), torch.eye(2, 3))
+    assert bool(torch.isfinite(warps[1]).all())

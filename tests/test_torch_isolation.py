@@ -30,8 +30,13 @@ def test_port_imports_no_jax():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "yolov7_tracker_tpu"))
-        assert len(names) >= 23, names
-        for new in ("ops.auction_square", "ops.cuda_build", "cli.serve"):
+        assert len(names) >= 35, names
+        for new in ("ops.auction_square", "ops.cuda_build", "cli.serve",
+                    "trackers.sort", "trackers.appearance",
+                    "trackers.c_biou", "trackers.uavmot", "trackers.botsort",
+                    "trackers.deepsort", "trackers.strongsort",
+                    "trackers.gmc", "reid", "reid.osnet",
+                    "reid.deepsort_cnn", "reid.extractor"):
             assert "yolov7_tracker_tpu_torch." + new in names, new
         print("BAD", bad)
     """)

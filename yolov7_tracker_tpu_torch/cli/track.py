@@ -1,13 +1,17 @@
 """Dataset tracking CLI on the PyTorch port (port of
-yolov7_tracker_tpu/cli/track.py, image-dir sequences and ByteTrack).
+yolov7_tracker_tpu/cli/track.py, image-dir sequences).
 
 Usage:
     python -m yolov7_tracker_tpu_torch.cli.track --dataset mot17 \
-        --tracker bytetrack --track_eval false [--device cpu]
+        --tracker strongsort --reid_model_path osnet_x0_25.pth \
+        --gmc ecc --track_eval false [--device cpu]
 
-Per sequence: frames -> device letterbox -> YOLOv7 -> NMS -> ByteTrack
--> MOT txt. Runs on the GPU unless --device says otherwise. Scoring with
-TrackEval is not ported yet: --track_eval must be false.
+Per sequence: frames -> device letterbox -> YOLOv7 -> NMS (-> ReID crops
+and CNN, GMC warp) -> the tracker's slab step -> MOT txt. Runs on the GPU
+unless --device says otherwise. --gmc defaults to orb for botsort and ecc
+for strongsort, as in the JAX CLI; orb needs OpenCV on the host, so on a
+machine without it pass --gmc ecc or --gmc none. Scoring with TrackEval
+is not ported yet: --track_eval must be false.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ def parse_args(argv=None):
     p.add_argument("--dataset", type=str, default="visdrone")
     p.add_argument("--split", type=str, default="test")
     p.add_argument("--tracker", type=str, default="bytetrack",
-                   choices=["bytetrack"])
+                   choices=["sort", "bytetrack", "c_bioutracker", "uavmot",
+                            "botsort", "deepsort", "strongsort"])
     p.add_argument("--model", type=str, default="yolov7-w6",
                    help="zoo model name or reference cfg yaml path")
     p.add_argument("--model_path", type=str, default="",
@@ -33,9 +38,21 @@ def parse_args(argv=None):
                         "(default: seeded random weights)")
     p.add_argument("--nc", type=int, default=80)
     p.add_argument("--img_size", type=int, default=1280)
+    p.add_argument("--reid_model_path", type=str, default="",
+                   help="torch ReID checkpoint: the DeepSORT CNN's ckpt.t7 "
+                        "for deepsort, else a torchreid OSNet (width from "
+                        "the file name, default osnet_x0_25)")
+    p.add_argument("--reid_capacity", type=int, default=0,
+                   help="embed only the top-K score-ordered dets per frame "
+                        "(0 = all det_capacity)")
     p.add_argument("--conf_thresh", type=float, default=0.2)
     p.add_argument("--iou_thresh", type=float, default=0.5)
     p.add_argument("--track_buffer", type=int, default=30)
+    p.add_argument("--gamma", type=float, default=0.1)
+    p.add_argument("--gmc", type=str, default="",
+                   choices=["", "orb", "ecc", "none"],
+                   help="camera-motion compensation (defaults: botsort orb, "
+                        "strongsort ecc; orb needs OpenCV)")
     p.add_argument("--kalman_format", type=str, default="default")
     p.add_argument("--min_area", type=float, default=150)
     p.add_argument("--track_eval", type=lambda s: s.lower() != "false",
@@ -75,17 +92,26 @@ def main(argv=None):
     from ..models import zoo
     from ..models.spec import load_yaml_file
     from ..pipeline import PipelineConfig, TrackingPipeline
+    from ..reid import resolve_reid
     from ..trackers.slab import TrackerConfig
 
+    gmc = opts.gmc or {"botsort": "orb", "strongsort": "ecc"}.get(
+        opts.tracker, "none")
+    reid, reid_state_dict = resolve_reid(opts.tracker, opts.reid_model_path)
     pcfg = PipelineConfig(
         model=opts.model, nc=opts.nc, img_size=opts.img_size,
         conf_thres=0.01, iou_thres=0.45, detector_batch=opts.detector_batch,
-        dtype=opts.dtype)
+        dtype=opts.dtype, gmc_method=gmc, reid=reid,
+        reid_capacity=opts.reid_capacity)
     tcfg = TrackerConfig(
         tracker=opts.tracker, kalman_format=opts.kalman_format,
         conf_thresh=opts.conf_thresh, iou_thresh=opts.iou_thresh,
         track_buffer=opts.track_buffer, capacity=opts.capacity,
-        det_capacity=opts.det_capacity, min_area=opts.min_area)
+        det_capacity=opts.det_capacity, gamma=opts.gamma,
+        min_area=opts.min_area,
+        # a ReID model gives bytetrack and botsort 512-d features too;
+        # deepsort and strongsort resolve their own
+        feature_dim=512 if reid != "none" else 0)
     if opts.model.endswith((".yaml", ".yml")):
         spec = load_yaml_file(opts.model, nc=opts.nc)
     else:
@@ -93,7 +119,8 @@ def main(argv=None):
     state_dict = (torch.load(opts.model_path, map_location="cpu")
                   if opts.model_path else None)
     pipe = TrackingPipeline(pcfg, tcfg, state_dict=state_dict, spec=spec,
-                            device=opts.device)
+                            device=opts.device,
+                            reid_state_dict=reid_state_dict)
 
     seqs = seqmod.discover_sequences(
         cfgs.get("DATASET_ROOT", "."), split=opts.split,

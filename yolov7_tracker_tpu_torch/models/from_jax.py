@@ -10,6 +10,9 @@ itself (models/fuse.py), so both packages compute the same detector.
 ``slab_from_numpy`` / ``slab_to_numpy`` carry tracker state across: the
 two packages' TrackSlabs have the same fields, so a slab of numpy leaves
 (``jax.tree.map(np.asarray, jax_slab)``) becomes the port's and back.
+``osnet_variables_to_torch`` and ``deepsort_cnn_variables_to_torch`` map
+the Flax ReID models' variables onto the torchreid / reference parameter
+names of reid/osnet.py and reid/deepsort_cnn.py.
 Nothing here imports JAX: the caller hands in numpy arrays.
 """
 
@@ -79,3 +82,84 @@ def slab_to_numpy(slab: TrackSlab) -> TrackSlab:
     """The port's slab with numpy leaves, in the JAX TrackSlab's field
     order (``JaxTrackSlab(*slab_to_numpy(slab))`` on the JAX side)."""
     return TrackSlab(*(x.detach().cpu().numpy() for x in slab))
+
+
+def _reid_variables_to_torch(variables_np: Mapping, model, flax_path
+                             ) -> Dict[str, torch.Tensor]:
+    """Fill ``model``'s state_dict from Flax variables: ``flax_path(key)``
+    names the Flax module path of each torch parameter prefix."""
+    params = dict(_flatten(variables_np["params"]))
+    stats = dict(_flatten(variables_np.get("batch_stats", {})))
+    sd = {}
+    for key, want in model.state_dict().items():
+        prefix, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            sd[key] = torch.zeros((), dtype=torch.long)
+            continue
+        path = flax_path(prefix)
+        if leaf in ("running_mean", "running_var"):
+            arr = stats[path + (leaf[len("running_"):],)]
+        elif leaf == "bias":
+            arr = params[path + ("bias",)]
+        elif want.dim() == 1:                    # a norm's scale
+            arr = params[path + ("scale",)]
+        else:
+            arr = params[path + ("kernel",)]
+            arr = np.asarray(arr).transpose(
+                (3, 2, 0, 1) if want.dim() == 4 else (1, 0))
+        arr = np.asarray(arr, np.float32)
+        if tuple(arr.shape) != tuple(want.shape):
+            raise ValueError(f"{key}: shape {arr.shape} != "
+                             f"{tuple(want.shape)}")
+        sd[key] = torch.tensor(arr)
+    return sd
+
+
+def _osnet_flax_path(prefix: str) -> tuple:
+    """torchreid module path -> the JAX OSNet's: conv2.0.conv2b.1 ->
+    (conv2_0, conv2b_1), conv2.2.0 (transition) -> (conv2_t,),
+    fc.0 -> (fc_0,)."""
+    parts = prefix.split(".")
+    out = []
+    if parts[0] in ("conv2", "conv3", "conv4"):
+        if int(parts[1]) < 2:
+            out.append(f"{parts[0]}_{parts[1]}")
+            parts = parts[2:]
+        else:
+            out.append(f"{parts[0]}_t")
+            parts = parts[3:]
+    elif parts[0] == "fc":
+        return (f"fc_{parts[1]}",)
+    while parts:
+        if len(parts) > 1 and parts[1].isdigit():
+            out.append(f"{parts[0]}_{parts[1]}")
+            parts = parts[2:]
+        else:
+            out.append(parts.pop(0))
+    return tuple(out)
+
+
+def osnet_variables_to_torch(variables_np: Mapping, model
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX OSNet's variables (numpy) -> the state_dict of the port's
+    OSNet ``model`` of the same width."""
+    return _reid_variables_to_torch(variables_np, model, _osnet_flax_path)
+
+
+def _deepsort_flax_path(prefix: str) -> tuple:
+    """reference Net path -> the JAX DeepSortCNN's: conv.0 -> conv0,
+    conv.1 -> bn0, layer2.0.downsample.1 -> (block2, down_bn)."""
+    parts = prefix.split(".")
+    if parts[0] == "conv":
+        return ("conv0" if parts[1] == "0" else "bn0",)
+    block = f"block{(int(parts[0][len('layer'):]) - 1) * 2 + int(parts[1])}"
+    if parts[2] == "downsample":
+        return (block, "down_conv" if parts[3] == "0" else "down_bn")
+    return (block, parts[2])
+
+
+def deepsort_cnn_variables_to_torch(variables_np: Mapping, model
+                                    ) -> Dict[str, torch.Tensor]:
+    """The JAX DeepSortCNN's variables (numpy) -> the state_dict of the
+    port's DeepSortCNN."""
+    return _reid_variables_to_torch(variables_np, model, _deepsort_flax_path)

@@ -103,3 +103,12 @@ def iou_matrix_xyxy(a, b, eps: float = 1e-7):
 def iou_distance(a_tlbr, b_tlbr):
     """1 - IoU cost matrix (tracker/matching.py:64-82)."""
     return 1.0 - iou_matrix(a_tlbr, b_tlbr)
+
+
+def buffered_tlwh(tlwh, scale: float):
+    """Expand a tlwh box by ``scale`` on each side, keeping the center
+    (C-BIoU buffered boxes, tracker/c_biou_tracker.py:48-62):
+    [x - b*w, y - b*h, (1+2b)*w, (1+2b)*h]."""
+    xy = tlwh[..., :2] - scale * tlwh[..., 2:]
+    wh = (1.0 + 2.0 * scale) * tlwh[..., 2:]
+    return torch.cat([xy, wh], dim=-1)

@@ -163,8 +163,9 @@ def update(fmt: str, mean, cov, measurement, confidence=None):
 
 def gating_distance(fmt: str, mean, cov, measurements,
                     only_position: bool = False):
-    """Squared Mahalanobis distance, mean (T,8) x measurements (D,4) ->
-    (T,D), through the closed-form inverse of the projected covariance."""
+    """Squared Mahalanobis distance, mean (..., T, 8) x measurements
+    (..., D, 4) -> (..., T, D), through the closed-form inverse of the
+    projected covariance."""
     proj_mean, proj_cov = project(fmt, mean, cov)
     if only_position:
         proj_mean = proj_mean[..., :2]
@@ -172,8 +173,8 @@ def gating_distance(fmt: str, mean, cov, measurements,
         measurements = measurements[..., :2]
     else:
         inv = _inv_sym4(proj_cov)
-    d = measurements[None, :, :] - proj_mean[:, None, :]
-    return torch.einsum("tdi,tij,tdj->td", d, inv, d)
+    d = measurements[..., None, :, :] - proj_mean[..., :, None, :]
+    return torch.einsum("...tdi,...tij,...tdj->...td", d, inv, d)
 
 
 def zero_stale_velocity(fmt: str, mean, tracked):

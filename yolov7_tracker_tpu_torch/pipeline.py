@@ -2,7 +2,9 @@
 yolov7_tracker_tpu/pipeline.py).
 
   uint8 frames --> device_preprocess --> YoloV7 --> nms_from_raw
-      --> scale_coords --> DetSlab --> ByteTrack slab step --> FrameOutput
+      --> scale_coords --> DetSlab (+ ReID features: device crops and
+      the DeepSORT CNN or OSNet; + the GMC warp: ECC on the device or
+      ORB on the host) --> tracker slab step --> FrameOutput
 
 The detector runs on batches of ``detector_batch`` frames; the tracker
 then steps through the batch frame by frame (the JAX ``lax.scan`` as a
@@ -19,8 +21,10 @@ backend but a TPU: a wrong pairing in a crowded many-camera scene costs
 an id switch, and the same algorithm as the reference lets the two
 packages be held against each other through ties.
 
-Not in the port yet: GMC, ReID, int8, the width-packed front, spatial
-sharding and detect_per_frame skipping.
+The sequence modes take every ported tracker with ReID and GMC. Not in
+the port yet: ReID and GMC in the streaming modes (a pipeline with either
+refuses them), int8, the width-packed front, spatial sharding and
+detect_per_frame skipping.
 """
 
 from __future__ import annotations
@@ -39,7 +43,11 @@ from .models.fuse import fuse_state_dict
 from .models.yolo import YoloV7, random_state_dict
 from .ops import nms as nms_mod
 from .ops.assignment import masked_assignment
+from .reid import (build_reid, float32_exact, load_reid_state_dict,
+                   random_reid_state_dict)
+from .reid import extractor
 from .trackers import slab as S
+from .trackers.gmc import GMC
 from .trackers.registry import build_tracker
 
 
@@ -55,6 +63,15 @@ class PipelineConfig:
     detector_batch: int = 8
     dtype: str = "bfloat16"        # detector compute dtype
     fuse: bool = True              # fold BN (and ia/im) into the convs
+    gmc_method: str = "none"       # camera-motion warp: none | orb | ecc
+    reid: str = "none"             # appearance model for the feature
+                                   # trackers: "deepsort_cnn" (128h x 64w
+                                   # crops) or an OSNet name (128h x 256w);
+                                   # float32, on the device
+    reid_capacity: int = 0         # embed only the top-K score-ordered
+                                   # dets of a frame (0 = all
+                                   # det_capacity); the rest get zero
+                                   # features ("no appearance evidence")
 
 
 def pack_frame_output(outs: S.FrameOutput) -> torch.Tensor:
@@ -73,13 +90,17 @@ class TrackingPipeline:
     """Detector + tracker on one device.
 
     state_dict: the detector's UNFUSED weights (models/from_jax.py layout);
-    None means seeded random weights (``seed``). device: None = the GPU
-    (raises if there is none); pass "cpu" to run on the CPU.
+    None means seeded random weights (``seed``). reid_state_dict: the
+    ReID model's weights (a torchreid / reference checkpoint's state_dict,
+    loaded by reid.load_reid_state_dict); None means seeded random
+    weights. device: None = the GPU (raises if there is none); pass "cpu"
+    to run on the CPU.
     """
 
     def __init__(self, pcfg: PipelineConfig, tcfg: S.TrackerConfig,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 spec=None, device=None, seed: int = 0):
+                 spec=None, device=None, seed: int = 0,
+                 reid_state_dict: Optional[Dict[str, torch.Tensor]] = None):
         self.device = resolve_device(device)
         self.pcfg = pcfg
         self.spec = spec or zoo.get_spec(pcfg.model, nc=pcfg.nc)
@@ -105,6 +126,23 @@ class TrackingPipeline:
         self._anchors = torch.as_tensor(self.spec.anchors_per_level(),
                                         device=self.device)
         self._geometry_cache: Dict[Tuple[int, int], tuple] = {}
+        self.reid_model, self.reid_hw = None, None
+        if pcfg.reid != "none":
+            if self.tcfg.feature_dim <= 0:
+                raise ValueError(
+                    f"reid={pcfg.reid!r} but tracker {self.tcfg.tracker!r} "
+                    "resolves feature_dim=0; pass TrackerConfig("
+                    "feature_dim=512) to fuse appearance in this tracker")
+            reid_model, self.reid_hw = build_reid(pcfg.reid)
+            load_reid_state_dict(
+                reid_model, reid_state_dict if reid_state_dict is not None
+                else random_reid_state_dict(reid_model, seed))
+            reid_model = reid_model.to(self.device).eval()
+            if self.device.type == "cuda":
+                reid_model = reid_model.to(memory_format=torch.channels_last)
+            self.reid_model = reid_model
+        self.gmc = (GMC(pcfg.gmc_method) if pcfg.gmc_method != "none"
+                    else None)
 
     # ------------------------------------------------------------------
     # detector
@@ -154,17 +192,49 @@ class TrackingPipeline:
     def save_tracker_state(self, slab: S.TrackSlab, path: str,
                            tag: str = "") -> None:
         """Checkpoint mid-sequence tracker state to ``path`` (npz, the JAX
-        package's layout). ``tag`` (e.g. the stream source) guards against
-        resuming another stream's state."""
-        S.save_slab(path, slab, self.tcfg, tag=tag)
+        package's layout), with the GMC's previous-frame state under
+        ``gmc_*`` keys, so that a resumed sequence computes the same first
+        warp. ``tag`` (e.g. the stream source) guards against resuming
+        another stream's state."""
+        aux = None
+        if self.gmc is not None:
+            aux = {"gmc_" + k: v for k, v in self.gmc.get_state().items()}
+        S.save_slab(path, slab, self.tcfg, tag=tag, aux=aux)
 
     def load_tracker_state(self, path: str,
                            expect_tag: str = "") -> S.TrackSlab:
         """Resume state saved by :meth:`save_tracker_state` (or by the JAX
-        package); raises ValueError on a config- or tag-incompatible
-        checkpoint."""
-        return S.load_slab(path, self.tcfg, self.device,
-                           expect_tag=expect_tag)
+        package), the GMC's with it; raises ValueError on a config- or
+        tag-incompatible checkpoint."""
+        slab, aux = S.load_slab(path, self.tcfg, self.device,
+                                expect_tag=expect_tag, with_aux=True)
+        if self.gmc is not None:
+            self.gmc.set_state({k[len("gmc_"):]: v for k, v in aux.items()
+                                if k.startswith("gmc_")})
+        return slab
+
+    @torch.no_grad()
+    def embed_dets(self, frame_u8, tlbr):
+        """(H, W, 3) uint8 frame + (D, 4) det boxes, both on the device ->
+        (D, F) float32 ReID features: the top reid_capacity boxes (NMS
+        emits them in score order) are cropped and embedded, the rest get
+        zero features."""
+        d = tlbr.shape[0]
+        k = self.pcfg.reid_capacity
+        sub = tlbr[:k] if 0 < k < d else tlbr
+        feats = self.reid_forward(
+            extractor.extract_crops(frame_u8, sub, self.reid_hw))
+        if feats.shape[0] < d:
+            feats = torch.cat([feats, feats.new_zeros(
+                (d - feats.shape[0], feats.shape[1]))])
+        return feats
+
+    @torch.no_grad()
+    def reid_forward(self, crops):
+        """(N, h, w, 3) normalised crops -> (N, F) ReID features, in
+        float32 (TF32 off: reid.float32_exact)."""
+        with float32_exact():
+            return self.reid_model(crops.permute(0, 3, 1, 2)).float()
 
     def dets_to_slab(self, boxes, score, cls, count) -> S.DetSlab:
         """Detector outputs of one frame, or of S frames with a leading
@@ -177,7 +247,8 @@ class TrackingPipeline:
             valid=(torch.arange(d, device=boxes.device)
                    < torch.as_tensor(count, device=boxes.device)[..., None]),
             feature=torch.zeros(boxes.shape[:-1] + (self.tcfg.feature_dim,),
-                                device=boxes.device))
+                                device=boxes.device),
+            warp=S.identity_warp(boxes.device))
 
     def track_frames(self, slab: S.TrackSlab, det_slabs):
         """Step the tracker through a list of DetSlabs; returns (slab,
@@ -190,11 +261,25 @@ class TrackingPipeline:
 
     def process_batch(self, slab: S.TrackSlab, frames_u8):
         """Detect + track a batch of frames; returns (slab, FrameOutput
-        with a leading frame axis)."""
-        boxes, score, cls, counts = self.detect_batch(frames_u8)
-        return self.track_frames(slab, [
-            self.dets_to_slab(boxes[b], score[b], cls[b], counts[b])
-            for b in range(boxes.shape[0])])
+        with a leading frame axis). The frames' camera warps come from the
+        pipeline's GMC (identity without one). The frames cross to the
+        device once: the detector, the ReID crops and ECC all read that
+        copy (ORB reads the host's frames and its warp is sent after)."""
+        frames = self._frames(frames_u8)
+        boxes, score, cls, counts = self.detect_batch(frames)
+        d = self.tcfg.det_capacity
+        dets = []
+        for b in range(boxes.shape[0]):
+            det = self.dets_to_slab(boxes[b], score[b], cls[b], counts[b])
+            if self.gmc is not None:
+                det = det._replace(warp=self.gmc.apply(
+                    frames[b] if self.gmc.method == "ecc" else frames_u8[b]
+                ).to(self.device, non_blocking=True))
+            if self.reid_model is not None:
+                det = det._replace(
+                    feature=self.embed_dets(frames[b], boxes[b, :d]))
+            dets.append(det)
+        return self.track_frames(slab, dets)
 
     # ------------------------------------------------------------------
     # streaming: S independent streams advance one frame each per call,
@@ -208,14 +293,23 @@ class TrackingPipeline:
         return S.TrackSlab(*(
             x[None].repeat((n_streams,) + (1,) * x.dim()) for x in slab))
 
+    def _streaming(self):
+        if self.reid_model is not None or self.gmc is not None:
+            raise NotImplementedError(
+                "ReID features and GMC warps are not ported to the "
+                "streaming modes yet; use run_sequence*")
+
     def track_scan_multi(self, slabs: S.TrackSlab, det_streams: S.DetSlab):
         """slabs: stacked over S streams; det_streams: every field
-        (T, S, D, ...). Steps all streams together through the T frames;
-        returns (slabs, FrameOutput (T, S, ...))."""
+        (T, S, D, ...), the warp (T, S, 2, 3) or one (2, 3) for all. Steps
+        all streams together through the T frames; returns (slabs,
+        FrameOutput (T, S, ...))."""
         outs = []
+        warp = det_streams.warp
         for t in range(det_streams.valid.shape[0]):
             slabs, out = self.step(
-                slabs, S.DetSlab(*(x[t] for x in det_streams)),
+                slabs, S.DetSlab(*(x[t] for x in det_streams[:-1]),
+                                 warp[t] if warp.dim() > 2 else warp),
                 solve_stage1=masked_assignment)
             outs.append(out)
         return slabs, S.FrameOutput(*(torch.stack(f) for f in zip(*outs)))
@@ -225,6 +319,7 @@ class TrackingPipeline:
         over the streams' frames (S, H, W, 3), then one tracker step over
         the stacked slabs (no scan: the streams advance together, so the
         step's small launches are paid once for S frames)."""
+        self._streaming()
         boxes, score, cls, counts = self.detect_batch(frames_u8)
         return self.step(slabs, self.dets_to_slab(boxes, score, cls, counts),
                          solve_stage1=masked_assignment)
@@ -232,6 +327,7 @@ class TrackingPipeline:
     def step_frame(self, slab: S.TrackSlab, frame):
         """Detect + associate one (H, W, 3) frame of one stream: the
         latency-oriented streaming mode."""
+        self._streaming()
         if not isinstance(frame, torch.Tensor):
             frame = torch.from_numpy(np.ascontiguousarray(frame))
         boxes, score, cls, counts = self.detect_batch(frame[None])

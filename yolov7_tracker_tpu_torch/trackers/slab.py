@@ -28,6 +28,17 @@ from ..ops import kalman
 # TrackState (basetrack.py:14-18)
 NEW, TRACKED, LOST, REMOVED = 0, 1, 2, 3
 
+# the (2, 3) affine camera warp of a frame without GMC; a DetSlab built
+# positionally without a warp carries it on the CPU, and the package's own
+# builders make it on the detections' device (identity_warp)
+IDENTITY_WARP = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+
+
+def identity_warp(device=None) -> torch.Tensor:
+    """IDENTITY_WARP made on ``device``: a fill there, no host-to-device
+    copy (which would be a host sync inside the tracker step)."""
+    return torch.eye(2, 3, device=device)
+
 
 class TrackSlab(NamedTuple):
     mean: torch.Tensor              # (T, 8) KF mean
@@ -47,6 +58,9 @@ class TrackSlab(NamedTuple):
     feat_hist: torch.Tensor         # (T, H, F)
     feat_count: torch.Tensor        # (T,) int32
     extra: torch.Tensor             # (T, E)
+    # the reference's list-order keys (deepsort, strongsort and uavmot
+    # only; see pool_order_rank): ins_seq orders tracked_stracks, lost_seq
+    # lost_stracks
     ins_seq: torch.Tensor           # (T,) int32
     lost_seq: torch.Tensor          # (T,) int32
     next_id: torch.Tensor           # () int32
@@ -85,13 +99,15 @@ class TrackerConfig:
 
 
 class DetSlab(NamedTuple):
-    """Padded per-frame detections."""
+    """Padded per-frame detections, their ReID features and the frame's
+    camera-motion warp. A (2, 3) warp also serves stacked streams."""
 
     tlbr: torch.Tensor     # (D, 4)
     score: torch.Tensor    # (D,)
     cls: torch.Tensor      # (D,)
     valid: torch.Tensor    # (D,) bool
     feature: torch.Tensor  # (D, F)
+    warp: torch.Tensor = IDENTITY_WARP  # (2, 3) affine, identity = no GMC
 
     @property
     def tlwh(self):
@@ -128,8 +144,9 @@ def init_slab(cfg: TrackerConfig, device) -> TrackSlab:
 
 
 def make_det_slab(cfg: TrackerConfig, tlbr, score, cls, valid,
-                  device) -> DetSlab:
-    """Pad (or cut) per-frame detections to the slab's det_capacity."""
+                  device, feature=None, warp=None) -> DetSlab:
+    """Pad (or cut) per-frame detections (and features) to the slab's
+    det_capacity."""
     d = cfg.det_capacity
 
     def pad(x, dtype, fill=0):
@@ -144,8 +161,12 @@ def make_det_slab(cfg: TrackerConfig, tlbr, score, cls, valid,
         score=pad(score, torch.float32),
         cls=pad(cls, torch.float32),
         valid=pad(valid, torch.bool, False),
-        feature=torch.zeros((d, cfg.feature_dim), dtype=torch.float32,
-                            device=device),
+        feature=(torch.zeros((d, cfg.feature_dim), dtype=torch.float32,
+                             device=device) if feature is None
+                 else pad(np.asarray(feature, np.float32).reshape(
+                     -1, cfg.feature_dim), torch.float32)),
+        warp=(identity_warp(device) if warp is None else torch.as_tensor(
+            np.asarray(warp, np.float32), device=device)),
     )
 
 
@@ -175,6 +196,79 @@ def unconfirmed_mask(slab: TrackSlab):
 
 
 # ---------------------------------------------------------------------------
+# the reference's list order (deepsort, strongsort and uavmot only)
+#
+# Their step 4 marks lost ``strack_pool[idx]`` for idx in positions of the
+# filtered u_tracks0 list (deepsort.py:174-177, strongsort.py:198-201,
+# uavmot.py:227-230), so which tracks go lost depends on the ORDER of the
+# reference's tracked_stracks and lost_stracks lists. ins_seq and lost_seq
+# are those orders as keys.
+# ---------------------------------------------------------------------------
+
+def _rank(key):
+    """Dense ranks of key along the slot axis (stable: ties by slot)."""
+    order = torch.argsort(key, dim=-1, stable=True)
+    ranks = torch.arange(key.shape[-1], dtype=torch.int32,
+                         device=key.device).expand(key.shape)
+    return torch.empty(key.shape, dtype=torch.int32,
+                       device=key.device).scatter_(-1, order, ranks)
+
+
+def rebase_seq_keys(slab: TrackSlab) -> TrackSlab:
+    """Compress ins_seq/lost_seq to their ranks (order kept, values in
+    [0, T)), once per frame before any key is assigned, so that the keys
+    never grow with the frame counter (int32 would wrap after ~125k
+    frames and corrupt the order)."""
+    return slab._replace(ins_seq=_rank(slab.ins_seq),
+                         lost_seq=_rank(slab.lost_seq))
+
+
+def _seq_base(slab: TrackSlab) -> int:
+    """Base of this frame's keys: above every rebased key. Births take
+    base + det slot (< D), refinds base + D + level * T + pool rank, the
+    reference's append order."""
+    return slab.capacity
+
+
+def pool_order_rank(slab: TrackSlab, pmask):
+    """(T,) rank of each slot in the reference's strack_pool order:
+    tracked_stracks (ascending ins_seq), then lost_stracks (ascending
+    lost_seq); slots outside the pool rank after all pool members."""
+    is_lost = slab.state == LOST
+    key = torch.where(is_lost, slab.lost_seq, slab.ins_seq).long()
+    group = (~pmask).long() * 2 + is_lost.long()
+    return _rank((group << 32) + key)
+
+
+def misindexed_lost_mask(slab: TrackSlab, pool_rank, u0_mask,
+                         unmatched2_mask, pmask):
+    """The pool members the reference's step 4 marks lost: those at the
+    POOL positions equal to the u_tracks0 positions of the tracks left
+    unmatched by stage 2 (u0_mask: the u_tracks0 members; unmatched2_mask:
+    the ones stage 2 left unmatched)."""
+    t = slab.capacity
+    rank = pool_rank.long()
+    u0_by_rank = torch.zeros_like(u0_mask).scatter_(-1, rank, u0_mask)
+    u0_int = u0_by_rank.long()
+    pos = (torch.cumsum(u0_int, -1) - u0_int).gather(-1, rank)
+    tgt = torch.zeros(u0_mask.shape[:-1] + (t + 1,), dtype=torch.bool,
+                      device=u0_mask.device)
+    tgt.scatter_(-1, torch.where(unmatched2_mask, pos, t),
+                 torch.ones_like(u0_mask))
+    return pmask & tgt[..., :t].gather(-1, rank)
+
+
+def mark_lost_ordered(slab: TrackSlab, mask, pool_rank) -> TrackSlab:
+    """mark_lost, and the lost-list key: newly lost tracks append in
+    ascending pool position."""
+    base = _seq_base(slab)
+    return slab._replace(
+        state=torch.where(mask, torch.full_like(slab.state, LOST),
+                          slab.state),
+        lost_seq=torch.where(mask, base + pool_rank, slab.lost_seq))
+
+
+# ---------------------------------------------------------------------------
 # lifecycle ops (all masked)
 # ---------------------------------------------------------------------------
 
@@ -193,10 +287,28 @@ def predict_pool(slab: TrackSlab, fmt: str,
     )
 
 
+def l2norm(x, eps=1e-12):
+    """Rows normalised, in float64: a float32 sum over 512 features rounds
+    differently on the card and on the CPU, and near-equal appearance
+    costs (look-alike crops) would then pair differently; float64 sums
+    round to the same float32. The stored features and the embedding
+    distances (trackers/appearance.py) both use it."""
+    x = x.double()
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
+
+
 def apply_matches(slab: TrackSlab, dets: DetSlab, row_to_col, fmt: str,
-                  cfg: TrackerConfig) -> TrackSlab:
+                  cfg: TrackerConfig, pool_rank=None,
+                  cascade_refind_order: bool = False) -> TrackSlab:
     """Commit matched (track, det) pairs: STrack.update for Tracked rows,
-    STrack.re_activate for Lost rows (tracklet_len restarts at 0)."""
+    STrack.re_activate for Lost rows (tracklet_len restarts at 0).
+
+    Features: the det feature is L2-normalised, then EMA-smoothed (0.9 /
+    0.1, renormalised) with ``use_avg_of_feature`` or else taken as is,
+    and appended to the ring buffer of ``feature_hist`` entries.
+    ``pool_rank`` (list-order trackers only): refinds re-enter the tracked
+    list at its tail, after this frame's births; a matching cascade
+    (``cascade_refind_order``) appends them level by level."""
     upd = row_to_col >= 0
     det_idx = row_to_col.long().clamp(0, dets.tlbr.shape[-2] - 1)
     det_tlwh = torch.take_along_dim(dets.tlwh, det_idx[..., None], dim=-2)
@@ -204,16 +316,47 @@ def apply_matches(slab: TrackSlab, dets: DetSlab, row_to_col, fmt: str,
     meas = kalman.measurement_from_tlwh(fmt, det_tlwh)
     conf = None
     if kalman.SPECS[fmt].nsa:
+        # re_activate calls the NSA update without the det score
         conf = torch.where(slab.state == TRACKED, det_score,
                            torch.zeros_like(slab.score))
     new_mean, new_cov = kalman.update(fmt, slab.mean, slab.cov, meas, conf)
     was_tracked = slab.state == TRACKED
     one = torch.ones_like(slab.tracklet_len)
+    feature, feat_hist, feat_count = (slab.feature, slab.feat_hist,
+                                      slab.feat_count)
+    if cfg.feature_dim > 0:
+        det_feat = torch.take_along_dim(dets.feature, det_idx[..., None],
+                                        dim=-2)
+        fmask = upd & (det_feat.abs().sum(-1) > 0)
+        det_feat_n = l2norm(det_feat).float()
+        if cfg.use_avg_of_feature:
+            smooth = l2norm(0.9 * slab.feature + 0.1 * det_feat_n).float()
+        else:
+            smooth = det_feat_n
+        feature = torch.where(fmask[..., None], smooth, slab.feature)
+        if cfg.feature_hist > 0:
+            pos = slab.feat_count % cfg.feature_hist
+            at = (torch.arange(cfg.feature_hist, device=pos.device)
+                  == pos[..., None]) & fmask[..., None]
+            feat_hist = torch.where(at[..., None], det_feat_n[..., None, :],
+                                    slab.feat_hist)
+            feat_count = torch.where(fmask, slab.feat_count + one,
+                                     slab.feat_count)
+    ins_seq = slab.ins_seq
+    if pool_rank is not None:
+        d_cap = dets.tlbr.shape[-2]
+        level = (slab.time_since_update.clamp(0, cfg.max_time_lost + 1)
+                 if cascade_refind_order else 0)
+        ins_seq = torch.where(
+            upd & ~was_tracked,
+            _seq_base(slab) + d_cap + level * slab.capacity
+            + pool_rank, slab.ins_seq)
     return slab._replace(
         mean=torch.where(upd[..., None], new_mean, slab.mean),
         cov=torch.where(upd[..., None, None], new_cov, slab.cov),
         det_tlwh=torch.where(upd[..., None], det_tlwh, slab.det_tlwh),
         score=torch.where(upd, det_score, slab.score),
+        ins_seq=ins_seq,
         state=torch.where(upd, torch.full_like(slab.state, TRACKED),
                           slab.state),
         is_activated=slab.is_activated | upd,
@@ -223,6 +366,9 @@ def apply_matches(slab: TrackSlab, dets: DetSlab, row_to_col, fmt: str,
                              torch.zeros_like(one)), slab.tracklet_len),
         time_since_update=torch.where(upd, torch.zeros_like(one),
                                       slab.time_since_update),
+        feature=feature,
+        feat_hist=feat_hist,
+        feat_count=feat_count,
     )
 
 
@@ -290,7 +436,20 @@ def init_new_tracks(slab: TrackSlab, dets: DetSlab, new_mask, fmt: str,
     # is_activated only on the first frame
     frame1 = (slab.frame == 1)[..., None].expand(lead + (d,))
     frame = slab.frame[..., None].expand(lead + (d,))
+    born = {}
+    if cfg.feature_dim > 0:
+        # raw features enter the slab at birth
+        feat = dets.feature
+        born = dict(feature=scat(slab.feature, feat),
+                    feat_count=scat(slab.feat_count,
+                                    (feat.abs().sum(-1) > 0).int()))
+        if cfg.feature_hist > 0:
+            hist0 = torch.zeros(lead + (d, cfg.feature_hist,
+                                        cfg.feature_dim), device=dev)
+            hist0[..., 0, :] = feat
+            born["feat_hist"] = scat(slab.feat_hist, hist0)
     return slab._replace(
+        **born,
         mean=scat(slab.mean, mean0),
         cov=scat(slab.cov, cov0),
         det_tlwh=scat(slab.det_tlwh, det_tlwh),
@@ -306,7 +465,9 @@ def init_new_tracks(slab: TrackSlab, dets: DetSlab, new_mask, fmt: str,
         start_frame=scat(slab.start_frame, frame),
         tracklet_len=scat(slab.tracklet_len, full(0, torch.int32)),
         time_since_update=scat(slab.time_since_update, full(0, torch.int32)),
-        ins_seq=scat(slab.ins_seq, (t + torch.arange(
+        # tracked-list key: births append in det order, before this
+        # frame's refinds
+        ins_seq=scat(slab.ins_seq, (_seq_base(slab) + torch.arange(
             d, dtype=torch.int32, device=dev)).expand(lead + (d,))),
         next_id=slab.next_id + placeable.int().sum(-1).to(torch.int32),
     )
@@ -367,13 +528,16 @@ def _state_fingerprint(cfg: TrackerConfig) -> str:
 
 
 def save_slab(path: str, slab: TrackSlab, cfg: TrackerConfig,
-              tag: str = "") -> None:
+              tag: str = "", aux: Optional[dict] = None) -> None:
     """Write tracker state to ``path`` atomically (npz, same layout as the
-    JAX package's save_slab)."""
+    JAX package's save_slab). ``aux``: extra numpy arrays stored beside
+    the slab (the GMC's previous-frame state)."""
     arrays = {f: v.detach().cpu().numpy() for f, v in zip(slab._fields, slab)}
     arrays["_fingerprint"] = np.asarray(_state_fingerprint(cfg))
     if tag:
         arrays["_tag"] = np.asarray(tag)
+    for k, v in (aux or {}).items():
+        arrays["_aux_" + k] = np.asarray(v)
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as fh:
         np.savez(fh, **arrays)
@@ -381,9 +545,10 @@ def save_slab(path: str, slab: TrackSlab, cfg: TrackerConfig,
 
 
 def load_slab(path: str, cfg: TrackerConfig, device,
-              expect_tag: str = "") -> TrackSlab:
+              expect_tag: str = "", with_aux: bool = False):
     """Load state saved by :func:`save_slab`; raises ValueError on a
-    config- or tag-incompatible checkpoint."""
+    config- or tag-incompatible checkpoint. With ``with_aux`` returns
+    (slab, aux dict)."""
     with np.load(path) as z:
         got, want = str(z["_fingerprint"]), _state_fingerprint(cfg)
         if got != want:
@@ -401,5 +566,9 @@ def load_slab(path: str, cfg: TrackerConfig, device,
         if missing:
             raise ValueError(
                 f"tracker state {path} is missing fields {missing}")
-        return TrackSlab(**{f: torch.as_tensor(z[f], device=device)
+        slab = TrackSlab(**{f: torch.as_tensor(z[f], device=device)
                             for f in TrackSlab._fields})
+        if with_aux:
+            return slab, {k[len("_aux_"):]: np.asarray(z[k])
+                          for k in z.files if k.startswith("_aux_")}
+        return slab
