@@ -80,7 +80,32 @@ Phases, each of which must pass:
                 on two frames of the pan (the 8-px shift within 0.5 px),
                 strongsort's frame split into crops, ReID forward, ECC and
                 tracker step, and the deepsort cascade's K2 levels timed
-                from a CUDA graph.
+                from a CUDA graph. deepmot runs here twice at its
+                registered capacities (128 x 48): with the trained GRU
+                DHN (weights/dhn_h32.msgpack) and with the Sinkhorn DHN
+                (weights/dhn_sinkhorn.msgpack); its CPU replay takes the
+                card's DHN scores, and the CPU copy of the DHN runs on
+                each frame's compacted cost from the card, its scores
+                within DHN_SCORE_TOL of the card's (frames whose stage-1
+                pairs change on the CPU's scores are reported).
+  7. streaming -- strongsort with OSNet x1_0 (seeded, calibrated as in
+                phase 6, saved under OUT_DIR with osnet_x1_0 in its
+                name) through cli.serve.main on the 8 cameras of phase 4
+                with --reid_capacity 128: 16 ticks, then 8 resumed from
+                the state files, whose MOT files must equal those of one
+                uninterrupted 24-tick run byte for byte (one K3 and two K2
+                launches a tick); the same through step_frame for 8
+                frames (one K1 and two K2 a frame); deepmot with the GRU
+                DHN through process_multistream at S = 8 for 8 ticks (one
+                K3 and one K2 a tick, the DHN on the last tick's compacted
+                costs card against CPU). Each of these three keeps its
+                last tick's or frame's stage-1 and stage-2/3 problems
+                (path_solves) and re-solves them by the plain versions:
+                K1/K3 and K2 bit for bit. Then each DHN head alone on a 128 x 48
+                cost (GRU h32, GRU h256 seeded, Sinkhorn, GRU h32 at
+                S = 8; CUDA events; card against CPU within 1e-4); AFLink
+                with a seeded PostLinker and GSI on phase 6's strongsort
+                rows, the same on the card and the CPU.
 Then K2 on the offline path's last stage-1 and stage-2/3 problems and on
 the last tick's 2S problems, K1 on step_frame's last problem and K3 on the
 last tick's are timed (ms, us per sweep, bound) and profiled (where a
@@ -105,6 +130,9 @@ is its twin for work on K2.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -144,6 +172,12 @@ SERVE_TICKS = (16, 8)         # first call, resumed call
 # reference's semantics apply, and the NSA Kalman update on such states
 # turns float32 rounding into 1e-3 of relative box error between the card
 # and the CPU (same ids), beyond phase 3's replay tolerance.
+DHN_GRU = "weights/dhn_h32.msgpack"            # trained, GRU hidden 32
+DHN_SINKHORN = "weights/dhn_sinkhorn.msgpack"
+# card vs CPU DHN scores, float32: about nine times the most measured on
+# deepmot's 128 x 48 costs (1.11e-5, GRU h32 on phase 6's frames; NVIDIA
+# H100 80GB HBM3, 700.00 W)
+DHN_SCORE_TOL = 1e-4
 TRACKER_RUNS = (
     ("sort", dict(tracker="sort"), {}, 2),
     ("c_bioutracker", dict(tracker="c_bioutracker"), {}, 3),
@@ -154,6 +188,13 @@ TRACKER_RUNS = (
      dict(reid="osnet_x1_0", reid_capacity=0, gmc_method="ecc"), 3),
     ("bytetrack_osnet", dict(tracker="bytetrack", feature_dim=512),
      dict(reid="osnet_x1_0"), 2),
+    # deepmot at its registered capacities (128 x 48): the DHN on the
+    # compacted 128 x 48 cost, then K2 for stage 1 and for stages 2+3
+    ("deepmot_gru_h32", dict(tracker="deepmot", det_capacity=48,
+                             dhn_weights=DHN_GRU, dhn_hidden=32), {}, 2),
+    ("deepmot_sinkhorn", dict(tracker="deepmot", det_capacity=48,
+                              dhn_weights=DHN_SINKHORN, dhn_arch="sinkhorn"),
+     {}, 2),
 )
 PAN_PX = 8                    # the pan's shift a frame
 REID_REL_TOL = 1e-3           # card vs CPU, float32 (TF32 off)
@@ -1233,10 +1274,11 @@ def step_frame_phase(pipe, dev):
 # phase 6: the other trackers, ReID and GMC on the offline path
 # ---------------------------------------------------------------------------
 
-def tracker_pipeline(sd, dev, tracker_kw, pipe_kw):
+def tracker_pipeline(sd, dev, tracker_kw, pipe_kw, reid_state_dict=None):
     """A TrackingPipeline on phase 3's detector (yolov7-w6, nc=80, 1088 px,
     bf16, BN folded) with the given tracker and ReID / GMC settings; ReID
-    weights are the pipeline's seeded ones (random BN statistics)."""
+    weights are ``reid_state_dict`` or the pipeline's seeded ones (random
+    BN statistics)."""
     from yolov7_tracker_tpu_torch.models import zoo
     from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
                                                    TrackingPipeline)
@@ -1245,11 +1287,11 @@ def tracker_pipeline(sd, dev, tracker_kw, pipe_kw):
     pcfg = PipelineConfig(model="yolov7-w6", nc=80, img_size=1088,
                           detector_batch=8, dtype="bfloat16", fuse=True,
                           **pipe_kw)
-    tcfg = S.TrackerConfig(conf_thresh=0.5, capacity=128, det_capacity=300,
-                           **tracker_kw)
+    tcfg = S.TrackerConfig(**{**dict(conf_thresh=0.5, capacity=128,
+                                      det_capacity=300), **tracker_kw})
     return TrackingPipeline(pcfg, tcfg, state_dict=sd,
                             spec=zoo.get_spec("yolov7-w6", nc=80),
-                            device=dev)
+                            device=dev, reid_state_dict=reid_state_dict)
 
 
 def calibrate_reid(pipe, frame):
@@ -1287,20 +1329,106 @@ def calibrate_bn(model, crops):
             model.fc[1].bias.mul_(scale)
 
 
-def replay_on_cpu(pipe, dets, slabs, results, name):
+def recording_dhn(pipe):
+    """Make deepmot's step keep each DHN input and output (the compacted
+    cost and its scores, clones on the card, no sync); returns the list
+    they go to (None for another tracker)."""
+    dhn = pipe.step.keywords.get("dhn")
+    if dhn is None:
+        return None
+    kept = []
+
+    def record(comp):
+        out = dhn(comp)
+        kept.append((comp.clone(), out.clone()))
+        return out
+
+    pipe.step = functools.partial(pipe.step.func, **{**pipe.step.keywords,
+                                                     "dhn": record})
+    return kept
+
+
+def dhn_scores_check(cpu_dhn, comp, card):
+    """The CPU copy of a DHN on the compacted cost the card's step gave its
+    own DHN: the max |score difference|, which must be within
+    DHN_SCORE_TOL; returns it with the CPU's scores."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.reid import float32_exact
+
+    comp, card = comp.cpu(), card.cpu()
+    with torch.no_grad(), float32_exact():
+        cpu = cpu_dhn(comp)
+    diff = float((cpu - card).abs().max())
+    if not diff <= DHN_SCORE_TOL or not bool(torch.isfinite(card).all()):
+        raise AssertionError(f"DHN on the path's compacted cost, card vs "
+                             f"CPU: max |score difference| {diff}")
+    return diff, cpu
+
+
+def dhn_replay(step, kept):
+    """deepmot's CPU step (``step``, from build_tracker on the CPU, with
+    the CPU copy of the DHN) made to take the card's DHN scores frame by
+    frame in place of its own, so that the replay holds the rest of the
+    step to the card's; the DHN itself is held on the card's own inputs:
+    each frame, the CPU copy runs on the compacted cost the card's step
+    gave its DHN (``kept``, recording_dhn) through dhn_scores_check. 1 - DHN
+    is a dense cost, on which a score difference of 1e-7 can move K2's
+    matching: the frames where the compacted stage-1 problem pairs
+    otherwise on the CPU's scores than on the card's (K2's plain version,
+    valid rows and columns first, as compact_cost puts them) are reported,
+    not held. Returns (step, report)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops.assignment import solve_assignment
+
+    cpu_dhn = step.keywords["dhn"]
+    frames = iter(kept)
+    report = {"max_abs_diff": 0.0, "frames": 0, "pairing_differs": []}
+    scores = {}
+
+    def dhn(_):
+        comp, card = next(frames)
+        diff, cpu = dhn_scores_check(cpu_dhn, comp, card)
+        report["max_abs_diff"] = max(report["max_abs_diff"], diff)
+        scores.update(card=card.cpu(), cpu=cpu)
+        return scores["card"]
+
+    def solve_stage1(cost, rm, cm, th):
+        n, m = scores["card"].shape[-2:]
+        rows, cols = torch.arange(n) < rm.sum(), torch.arange(m) < cm.sum()
+        pairs = [solve_assignment(1.0 - s, rows, cols, th)[0]
+                 for s in (scores["card"], scores["cpu"])]
+        if not torch.equal(*pairs):
+            report["pairing_differs"].append(report["frames"])
+        report["frames"] += 1
+        return solve_assignment(cost, rm, cm, th)
+
+    return functools.partial(step, dhn=dhn, solve_stage1=solve_stage1), report
+
+
+def replay_on_cpu(pipe, dets, slabs, results, name, dhn_kept=None):
     """Step the tracker on the CPU (K2's plain version) through the
     detections, features and warps the card's run gave it; ids must equal
     the card's and boxes agree as in phase 3. ``slabs``: the card's slab
     before each step, compared field by field where the replay differs
-    (that frame's inputs are then saved under OUT_DIR)."""
+    (that frame's inputs are then saved under OUT_DIR). ``dhn_kept``:
+    deepmot's DHN inputs and outputs on the card, frame by frame, which the
+    replay takes in place of its own DHN, holding the DHN on them
+    (dhn_replay). Returns dhn_replay's report, or None."""
     import torch
 
     from yolov7_tracker_tpu_torch.trackers import slab as S
+    from yolov7_tracker_tpu_torch.trackers.registry import build_tracker
 
+    step, _ = build_tracker(pipe.tcfg, "cpu")
+    report = None
+    if dhn_kept is not None:
+        step, report = dhn_replay(step, dhn_kept)
     slab = S.init_slab(pipe.tcfg, "cpu")
     for k, det in enumerate(dets):
         before = slab
-        slab, out = pipe.step(slab, S.DetSlab(*(x.cpu() for x in det)))
+        slab, out = step(slab, S.DetSlab(*(x.cpu() for x in det)))
         _, ids, tlwhs, _ = results[k]
         v = out.valid.numpy()
         if out.track_id.numpy()[v].tolist() != ids or not np.allclose(
@@ -1321,12 +1449,13 @@ def replay_on_cpu(pipe, dets, slabs, results, name):
                         "card": results[k], "cfg": vars(pipe.tcfg)},
                        os.path.join(OUT_DIR, f"replay_{name}_{k}.pt"))
             raise AssertionError(f"{name}: CPU replay differs at frame {k}")
+    return report
 
 
 def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     """Drive one tracker through run_sequence_stateful (after a warm-up
     batch); check its K2 launches and its CPU replay. Returns (record,
-    pipe, the detections the step got)."""
+    pipe, the detections the step got, the results)."""
     import torch
 
     from yolov7_tracker_tpu_torch.ops import auction
@@ -1339,6 +1468,8 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     if pipe.gmc is not None:
         pipe.gmc.set_state({})                 # start as a new sequence
     dets, slabs = [], []
+    plain_step = pipe.step
+    dhn_kept = recording_dhn(pipe)
     step = pipe.step
 
     def recording_step(slab, det, **kw):
@@ -1354,7 +1485,7 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = auction.LAUNCHES
-    pipe.step = step
+    pipe.step = plain_step
     n = len(frames)
     if launches != per_frame * n:
         raise AssertionError(f"{name}: {launches} K2 launches in {n} frames, "
@@ -1365,7 +1496,7 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     if not all(bool(torch.isfinite(d.feature).all()) for d in dets):
         raise AssertionError(f"{name}: non-finite ReID features")
     t0 = time.time()
-    replay_on_cpu(pipe, dets, slabs, results, name)
+    dhn_report = replay_on_cpu(pipe, dets, slabs, results, name, dhn_kept)
     replay_s = time.time() - t0
     if pipe.gmc is not None:
         without_gmc(pipe, dets)
@@ -1379,11 +1510,20 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
            "gmc": pipe.pcfg.gmc_method,
            "warp_tx_range": [float(warps[:, 0, 2].min()),
                              float(warps[:, 0, 2].max())]}
+    if dhn_report is not None:
+        rec["cpu_replay"] += ", on the card's DHN scores"
+        rec["dhn_card_vs_cpu"] = dhn_report
+        log(f"{name}: the DHN on the CPU on each frame's compacted cost from "
+            f"the card: max |score difference| "
+            f"{dhn_report['max_abs_diff']:.2e} (tolerance {DHN_SCORE_TOL}); "
+            f"on the CPU's scores the compacted stage-1 problem pairs "
+            f"otherwise in {len(dhn_report['pairing_differs'])} of "
+            f"{dhn_report['frames']} frames {dhn_report['pairing_differs']}")
     log(f"{name} on {card_line()}: {wall / n * 1e3:.2f} ms/frame over {n} "
         f"frames, {launches} K2 launches ({per_frame} a frame), tracks/frame "
         f"mean {np.mean(tracks):.1f} max {max(tracks)}, {int(slab.next_id)} "
         f"ids; CPU replay ({replay_s:.1f} s): same ids, boxes within 1e-2")
-    return rec, pipe, dets
+    return rec, pipe, dets, results
 
 
 def no_sync_step(step, slab, det, **kw):
@@ -1658,8 +1798,8 @@ def cascade_timing(pipe, dets, dev):
 
 def trackers_phase(sd, dev):
     """Phase 6, under PyTorch's default TF32 flags (main() turns TF32 off
-    for the earlier phases). Returns the trackers JSON record and K2's
-    launches by tracker."""
+    for the earlier phases). Returns the trackers JSON record, K2's
+    launches by tracker and strongsort's results."""
     import torch
 
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
@@ -1677,8 +1817,8 @@ def run_trackers(sd, dev):
     out, launches = {}, {}
     for name, tracker_kw, pipe_kw, per_frame in TRACKER_RUNS:
         run_frames = pan if "gmc_method" in pipe_kw else frames
-        rec, pipe, dets = tracker_run(sd, dev, run_frames, name, tracker_kw,
-                                      pipe_kw, per_frame)
+        rec, pipe, dets, results = tracker_run(
+            sd, dev, run_frames, name, tracker_kw, pipe_kw, per_frame)
         rec["frames"] = "pan" if run_frames is pan else "phase 3"
         if pipe.reid_model is not None and pipe.pcfg.reid not in {
                 r.get("reid") for r in out.values()}:
@@ -1687,13 +1827,402 @@ def run_trackers(sd, dev):
         if name == "strongsort":
             rec["breakdown"] = strongsort_breakdown(pipe, run_frames, dets,
                                                     dev)
+            strongsort_rows = results
         if name == "deepsort":
             rec["cascade"] = cascade_timing(pipe, dets, dev)
         out[name] = rec
         launches[name] = rec["k2_launches"]
         del pipe, dets
     out["ecc_8px_pair"] = ecc_check(pan, dev)
-    return out, launches
+    return out, launches, strongsort_rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: ReID in the streaming modes, DeepMOT at S streams, the DHN
+# alone, AFLink + GSI
+# ---------------------------------------------------------------------------
+
+def seeded_osnet(sd, dev):
+    """OSNet x1_0 weights calibrated as phase 6 does (calibrate_bn on the
+    first serving camera's crops), saved under OUT_DIR with osnet_x1_0 in
+    the file name (the serve CLI reads the width from it). Returns the
+    path."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.data.sequence import SynthFrames
+
+    pipe = tracker_pipeline(sd, dev, dict(tracker="strongsort"),
+                            dict(reid="osnet_x1_0"))
+    calibrate_reid(pipe, next(iter(SynthFrames(serve_streams(1)[0]))))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "osnet_x1_0_seeded.pth")
+    torch.save({k: v.cpu() for k, v in pipe.reid_model.state_dict().items()},
+               path)
+    return path
+
+
+@contextlib.contextmanager
+def path_solves(k2_kept):
+    """Keep the newest problems the tracker steps hand K1/K3 (the last one)
+    and K2 (the last ``k2_kept``) while the block runs: clones on the card,
+    no host sync. Yields {"square": [...], "k2": [...]}, each entry
+    (cost, row_mask, col_mask, thresh, solver keywords)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import assignment
+
+    names = {"square": "masked_assignment_square",
+             "k2": "masked_assignment_auction"}
+    solvers = {k: getattr(assignment, v) for k, v in names.items()}
+    kept = {"square": collections.deque(maxlen=1),
+            "k2": collections.deque(maxlen=k2_kept)}
+
+    def keeping(key):
+        def solve(cost, rm, cm, th, **kw):
+            kept[key].append((cost.clone(), rm.clone(), cm.clone(),
+                              th.clone() if torch.is_tensor(th) else th, kw))
+            return solvers[key](cost, rm, cm, th, **kw)
+        return solve
+
+    for key, name in names.items():
+        setattr(assignment, name, keeping(key))
+    try:
+        yield kept
+    finally:
+        for key, name in names.items():
+            setattr(assignment, name, solvers[key])
+
+
+def path_solves_check(kept, name, dev):
+    """The problems path_solves kept, re-solved by the plain versions on the
+    card: K1/K3 by square_check, K2 by k2_both. Raises unless both are bit
+    for bit the kernel's; returns the max |difference| (0)."""
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.ops import auction_square as square
+
+    if not kept["square"] or not kept["k2"]:
+        raise AssertionError(f"{name}: no solve was kept")
+    sq = max(square_check(square, c, rm, cm, th, dev, **kw)[0]
+             for c, rm, cm, th, kw in kept["square"])
+    k2 = max(k2_both(auction, c, rm, cm, th, dev, **kw)[0]
+             for c, rm, cm, th, kw in kept["k2"])
+    shapes = [tuple(p[0].shape) for p in (*kept["square"], *kept["k2"])]
+    log(f"{name}: the last stage-1 and stage-2/3 problems {shapes} "
+        f"re-solved: max |K1/K3 - plain| (r2c, c2r, sweeps per phase, "
+        f"cells) = {sq}, max |K2 - plain| (r2c, c2r, sweeps) = {k2}")
+    if sq or k2:
+        raise AssertionError(f"{name}: a kernel differs from its plain "
+                             "version on the path's own problems")
+    return max(sq, k2)
+
+
+def serve_streams(total):
+    return [f"synth://{total}x1080x1920?seed={k + 1}&shift=8"
+            for k in range(N_STREAMS)]
+
+
+def serving_reid_phase(sd, dev, reid_path):
+    """strongsort with OSNet x1_0 through cli.serve.main on 8 cameras:
+    16 ticks with state files, then 8 resumed from them, and one
+    uninterrupted 24-tick run; the two runs' MOT files must be equal byte
+    for byte. One K3 (stage 1) and two K2 launches (stages 2 and 3) a
+    tick; the last tick's three problems re-solved by the plain versions.
+    Returns (record, K3 launches, K2 launches)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch import pipeline as pipeline_mod
+    from yolov7_tracker_tpu_torch.cli import serve
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.ops import auction_square as square
+
+    total = sum(SERVE_TICKS)
+    streams = serve_streams(total)
+    tick_fn = pipeline_mod.TrackingPipeline.process_multistream
+    stamps = []
+
+    def timed_tick(self, slabs, frames_u8, warps=None):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = tick_fn(self, slabs, frames_u8, warps)
+        torch.cuda.synchronize()
+        stamps.append(time.time() - t0)
+        return out
+
+    counts = []
+    pipeline_mod.TrackingPipeline.process_multistream = timed_tick
+    try:
+        # kept: the last tick's solves (K3, then K2 for stages 2 and 3)
+        with tempfile.TemporaryDirectory() as tmp, path_solves(2) as kept:
+            weights = os.path.join(tmp, "w6.pt")
+            torch.save(sd, weights)
+            state_dir = os.path.join(tmp, "state")
+            runs = [(t, "resumed", state_dir) for t in SERVE_TICKS] + \
+                [(total, "whole", "")]
+            for ticks, name, state in runs:
+                argv = ["--streams", *streams, "--tracker", "strongsort",
+                        "--reid_model_path", reid_path, "--reid_capacity",
+                        "128", "--model", "yolov7-w6", "--model_path",
+                        weights, "--nc", "80", "--img_size", "1088",
+                        "--conf_thresh", "0.5", "--capacity", "128",
+                        "--det_capacity", "300", "--max_frames", str(ticks),
+                        "--save_dir", os.path.join(OUT_DIR, "serve_reid",
+                                                   name)]
+                if state:
+                    argv += ["--state_dir", state]
+                auction.LAUNCHES = 0
+                square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
+                results, preempted = serve.main(argv)
+                torch.cuda.synchronize()
+                counts.append((square.LAUNCHES_K3, auction.LAUNCHES,
+                               square.LAUNCHES_K1))
+                if preempted or [len(r) for r in results] != \
+                        [ticks] * N_STREAMS:
+                    raise AssertionError(
+                        f"serve with ReID: {[len(r) for r in results]} "
+                        f"frames per stream for {ticks} ticks")
+            with np.load(os.path.join(state_dir, "stream_00.npz")) as z:
+                feat = z["feature"][z["occupied"]]
+    finally:
+        pipeline_mod.TrackingPipeline.process_multistream = tick_fn
+
+    for (k3, k2, k1), (ticks, _, _) in zip(counts, runs):
+        if (k3, k2, k1) != (ticks, 2 * ticks, 0):
+            raise AssertionError(f"serve with ReID: {k3} K3, {k2} K2, {k1} "
+                                 f"K1 launches in {ticks} ticks")
+    if feat.shape[-1] != 512 or not np.abs(feat).max() > 0:
+        raise AssertionError("serve with ReID: no features in the state")
+    resumed, whole = (os.path.join(OUT_DIR, "serve_reid", n)
+                      for n in ("resumed", "whole"))
+    files = sorted(os.listdir(whole))
+    rows = 0
+    for f in files:
+        with open(os.path.join(resumed, f)) as a, \
+                open(os.path.join(whole, f)) as b:
+            got, want = a.read(), b.read()
+        if got != want:
+            raise AssertionError(f"serve with ReID: {f} resumed != one run")
+        rows += want.count("\n")
+        frames = sorted(read_mot(os.path.join(whole, f)))
+        if frames != list(range(1, total + 1)):
+            raise AssertionError(f"serve with ReID: {f} frames {frames}")
+    if len(files) != N_STREAMS:
+        raise AssertionError(f"serve with ReID: files {files}")
+    worst = path_solves_check(kept, "serving with ReID", dev)
+    # ticks 3.. of each call (the first ones pay cuDNN's autotune)
+    first = SERVE_TICKS[0]
+    steady = stamps[2:first] + stamps[first + 2:total]
+    tick_ms = float(np.median(steady)) * 1e3
+    rec = {"ms_per_tick": tick_ms, "ms_per_frame": tick_ms / N_STREAMS,
+           "streams": N_STREAMS, "ticks": list(SERVE_TICKS),
+           "resume_equals_one_run": True, "mot_rows": rows,
+           "launches_k3_k2_k1": counts, "reid": "osnet_x1_0",
+           "reid_capacity": 128, "tracker": "strongsort",
+           "last_tick_kernels_vs_plain_max_abs_diff": worst}
+    log(f"serving with ReID on {card_line()}: strongsort + OSNet x1_0 "
+        f"(128 crops a camera), {N_STREAMS} streams x {SERVE_TICKS[0]} + "
+        f"{SERVE_TICKS[1]} ticks (resumed) == {total} ticks in one run, "
+        f"byte for byte ({rows} MOT rows); launches per call (K3, K2, K1) "
+        f"{counts}; process_multistream median {tick_ms:.2f} ms/tick = "
+        f"{tick_ms / N_STREAMS:.2f} ms/frame")
+    k3 = sum(c[0] for c in counts[:2])
+    k2 = sum(c[1] for c in counts[:2])
+    return rec, k3, k2
+
+
+def step_frame_reid_phase(sd, dev, reid_path):
+    """strongsort with OSNet x1_0 through step_frame, 8 frames of one
+    camera: one K1 and two K2 launches a frame, the last frame's three
+    problems re-solved by the plain versions. Returns (record, K1
+    launches, K2 launches)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.data.sequence import SynthFrames
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.ops import auction_square as square
+    from yolov7_tracker_tpu_torch.reid import resolve_reid
+
+    name, reid_sd = resolve_reid("strongsort", reid_path)
+    pipe = tracker_pipeline(sd, dev, dict(tracker="strongsort"),
+                            dict(reid=name, reid_capacity=128),
+                            reid_state_dict=reid_sd)
+    frames = list(SynthFrames("synth://8x1080x1920?seed=11&shift=8"))
+    pipe.step_frame(pipe.init_tracker(), frames[0])     # warm-up
+    torch.cuda.synchronize()
+    auction.LAUNCHES = 0
+    square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
+    slab, per_frame = pipe.init_tracker(), []
+    with path_solves(2) as kept:        # the last frame's K1, K2, K2
+        for f in frames:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            slab, out = pipe.step_frame(slab, f)
+            torch.cuda.synchronize()
+            per_frame.append((time.time() - t0) * 1e3)
+    k1, k2, k3 = square.LAUNCHES_K1, auction.LAUNCHES, square.LAUNCHES_K3
+    n = len(frames)
+    if (k1, k2, k3) != (n, 2 * n, 0):
+        raise AssertionError(f"step_frame with ReID: {k1} K1, {k2} K2, {k3} "
+                             f"K3 launches in {n} frames")
+    if not int(out.valid.sum()) or not bool(slab.feature.abs().max() > 0):
+        raise AssertionError("step_frame with ReID: no tracks or features")
+    worst = path_solves_check(kept, "step_frame with ReID", dev)
+    rec = {"ms_per_frame_median": float(np.median(per_frame)),
+           "ms_per_frame": per_frame, "k1_launches": k1, "k2_launches": k2,
+           "tracks_last_frame": int(out.valid.sum()),
+           "last_frame_kernels_vs_plain_max_abs_diff": worst}
+    log(f"step_frame with ReID on {card_line()}: strongsort + OSNet x1_0, "
+        f"{n} frames, {k1} K1 and {k2} K2 launches, ms/frame "
+        f"{[round(t, 2) for t in per_frame]}, median "
+        f"{rec['ms_per_frame_median']:.2f}")
+    return rec, k1, k2
+
+
+def deepmot_streams_phase(sd, dev):
+    """deepmot with the trained GRU h32 DHN through process_multistream on
+    the 8 serving cameras for 8 ticks: the DHN batched over the streams,
+    stage 1 by K3, stages 2+3 by one K2 launch. The last tick's two
+    problems are re-solved by the plain versions and its DHN run again on
+    the CPU on the same compacted costs. Returns (record, K3
+    launches, K2 launches)."""
+    import copy
+
+    import torch
+
+    from yolov7_tracker_tpu_torch.data.sequence import SynthFrames
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.ops import auction_square as square
+
+    pipe = tracker_pipeline(sd, dev, dict(
+        tracker="deepmot", det_capacity=48, dhn_weights=DHN_GRU,
+        dhn_hidden=32), {})
+    ticks = 8
+    cams = [list(SynthFrames(s)) for s in serve_streams(ticks)]
+    frames = [np.stack(f) for f in zip(*cams)]
+    pipe.process_multistream(pipe.init_multistream(N_STREAMS), frames[0])
+    torch.cuda.synchronize()
+    auction.LAUNCHES = 0
+    square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
+    cpu_dhn = copy.deepcopy(pipe.step.keywords["dhn"]).cpu()
+    dhn_kept = recording_dhn(pipe)
+    slabs, per_tick, tracks = pipe.init_multistream(N_STREAMS), [], []
+    with path_solves(1) as kept:        # the last tick's K3 and K2
+        for f in frames:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            slabs, outs = pipe.process_multistream(slabs, f)
+            torch.cuda.synchronize()
+            per_tick.append((time.time() - t0) * 1e3)
+            tracks.append(outs.valid.sum(dim=1).tolist())
+            if not bool(torch.isfinite(outs.tlwh[outs.valid]).all()):
+                raise AssertionError(f"deepmot at S = {N_STREAMS}: boxes")
+    k3, k2, k1 = square.LAUNCHES_K3, auction.LAUNCHES, square.LAUNCHES_K1
+    if (k3, k2, k1) != (ticks, ticks, 0):
+        raise AssertionError(f"deepmot at S = {N_STREAMS}: {k3} K3, {k2} K2, "
+                             f"{k1} K1 launches in {ticks} ticks")
+    if min(map(sum, zip(*tracks))) < 1:        # every stream tracked
+        raise AssertionError(f"deepmot at S = {N_STREAMS}: tracks {tracks}")
+    worst = path_solves_check(kept, f"deepmot at S = {N_STREAMS}", dev)
+    # the batched DHN on the last tick's S compacted costs, card vs CPU
+    diff, _ = dhn_scores_check(cpu_dhn, *dhn_kept[-1])
+    log(f"deepmot at S = {N_STREAMS}: the DHN on the last tick's "
+        f"{tuple(dhn_kept[-1][0].shape)} compacted costs, card vs CPU: max "
+        f"|score difference| {diff:.2e} (tolerance {DHN_SCORE_TOL})")
+    rec = {"ms_per_tick_median": float(np.median(per_tick[1:])),
+           "ms_per_tick": per_tick, "k3_launches": k3, "k2_launches": k2,
+           "tracks_per_tick": tracks, "dhn": "gru h32",
+           "last_tick_kernels_vs_plain_max_abs_diff": worst,
+           "last_tick_dhn_card_vs_cpu_max_abs_diff": diff}
+    log(f"deepmot (GRU h32) at S = {N_STREAMS} on {card_line()}: {ticks} "
+        f"ticks, {k3} K3 and {k2} K2 launches, ms/tick "
+        f"{[round(t, 2) for t in per_tick]}, median of ticks 2.. "
+        f"{rec['ms_per_tick_median']:.2f}; tracks a tick by stream {tracks}")
+    return rec, k3, k2
+
+
+def dhn_timings(dev):
+    """Each DHN head alone on one 128 x 48 compacted cost (deepmot's
+    registered capacities; valid cells U[0, 1] in the top-left 40 x 30, pad
+    cells 1.0), CUDA events, float32 (reid.float32_exact): GRU hidden 32
+    (the trained file), GRU hidden 256 (the reference's width, seeded),
+    Sinkhorn (the trained file), and GRU h32 over S = 8 such costs; each
+    against the same head on the CPU."""
+    import copy
+
+    import torch
+
+    from yolov7_tracker_tpu_torch.reid import float32_exact
+    from yolov7_tracker_tpu_torch.reid import random_reid_state_dict
+    from yolov7_tracker_tpu_torch.reid import dhn as dhn_mod
+
+    rng = np.random.default_rng(7)
+    cost = np.ones((N_STREAMS, 128, 48), np.float32)
+    cost[:, :40, :30] = rng.uniform(0, 1, (N_STREAMS, 40, 30))
+    cost = torch.from_numpy(cost)
+    h256 = dhn_mod.build_dhn("gru", 256)
+    h256.load_state_dict(random_reid_state_dict(h256, seed=3))
+    heads = [("gru_h32", dhn_mod.load_dhn(DHN_GRU, "gru", 32, dev), 1),
+             ("gru_h256", h256.to(dev).eval(), 1),
+             ("sinkhorn", dhn_mod.load_dhn(DHN_SINKHORN, "sinkhorn",
+                                           device=dev), 1),
+             ("gru_h32_s8", dhn_mod.load_dhn(DHN_GRU, "gru", 32, dev),
+              N_STREAMS)]
+    out = {}
+    for name, model, s in heads:
+        x = cost[0] if s == 1 else cost
+        with torch.no_grad(), float32_exact():
+            ms = cuda_ms(lambda: model(x.to(dev)), 5)
+            card = model(x.to(dev)).cpu()
+            cpu = copy.deepcopy(model).cpu()(x)
+        diff = float((card - cpu).abs().max())
+        if not diff <= 1e-4 or not bool(torch.isfinite(card).all()):
+            raise AssertionError(f"DHN {name}: card vs CPU {diff}")
+        out[name] = {"ms": ms, "card_vs_cpu_max_abs_diff": diff,
+                     "streams": s, "cost": [128, 48],
+                     "recurrent_steps": (4 * 128 * 48 if "gru" in name
+                                         else None)}
+    log(f"DHN alone on {card_line()} (128 x 48, float32): " + ", ".join(
+        f"{k} {v['ms']:.2f} ms (card vs CPU "
+        f"{v['card_vs_cpu_max_abs_diff']:.2e})" for k, v in out.items()))
+    return out
+
+
+def aflink_phase(results, dev):
+    """AFLink (a seeded PostLinker) and GSI on phase 6's strongsort rows,
+    the linker on the card and on the CPU: the same linked ids, the same
+    smoothed rows."""
+    import copy
+
+    from yolov7_tracker_tpu_torch.reid import random_reid_state_dict
+    from yolov7_tracker_tpu_torch.reid.aflink import PostLinker
+    from yolov7_tracker_tpu_torch.trackers.aflink_post import (
+        gsi_interpolation, link_tracks,
+    )
+
+    rows = np.asarray([[fid, tid, *t] for fid, ids, tlwhs, _ in results
+                       for tid, t in zip(ids, tlwhs)], float)
+    linker = PostLinker()
+    linker.load_state_dict(random_reid_state_dict(linker, seed=0))
+    card = linker.to(dev).eval()
+    cpu = copy.deepcopy(card).cpu()
+    out = {}
+    for thr in (0.5, 0.95):
+        t0 = time.time()
+        on_card = link_tracks(rows, card, thr=thr)
+        card_s = time.time() - t0
+        on_cpu = link_tracks(rows, cpu, thr=thr)
+        if not np.array_equal(on_card, on_cpu):
+            raise AssertionError(f"AFLink at {thr}: card ids != CPU ids")
+        smooth = gsi_interpolation(on_card)
+        if not np.array_equal(smooth, gsi_interpolation(on_cpu)) or \
+                not np.isfinite(smooth).all():
+            raise AssertionError(f"GSI after AFLink at {thr}: card != CPU")
+        out[str(thr)] = {"ids_before": int(len(np.unique(rows[:, 1]))),
+                         "ids_after": int(len(np.unique(on_card[:, 1]))),
+                         "rows": int(len(rows)), "gsi_rows": int(len(smooth)),
+                         "link_s_card": card_s}
+    log(f"AFLink + GSI on strongsort's {len(rows)} rows, seeded PostLinker: "
+        f"card == CPU; {out}")
+    return out
 
 
 def detector_reference_check(dev):
@@ -1885,7 +2414,16 @@ def main(argv=None):
     k3_launches, k2_serving, serve_last = serving_phase(sd, pipe, dev)
     k1_launches, step_last = step_frame_phase(pipe, dev)
     detector_reference_check(dev)
-    trackers, k2_by_tracker = trackers_phase(sd, dev)
+    trackers, k2_by_tracker, strongsort_rows = trackers_phase(sd, dev)
+    reid_path = seeded_osnet(sd, dev)
+    trackers["serving_reid"], k3_serve_reid, k2_serve_reid = \
+        serving_reid_phase(sd, dev, reid_path)
+    trackers["step_frame_reid"], k1_step_reid, k2_step_reid = \
+        step_frame_reid_phase(sd, dev, reid_path)
+    trackers["deepmot_s8"], k3_deepmot, k2_deepmot = \
+        deepmot_streams_phase(sd, dev)
+    trackers["dhn"] = dhn_timings(dev)
+    trackers["aflink_gsi"] = aflink_phase(strongsort_rows, dev)
 
     # K2 on the last frame's two solves, as the main path gave them, and on
     # the serving path's stages 2+3: one launch of B = 2 S problems
@@ -1907,6 +2445,9 @@ def main(argv=None):
               "source": SOURCE, "replaces": REPLACES, "launches": launches,
               "launches_serving": k2_serving,
               "launches_trackers": k2_by_tracker,
+              "launches_serving_reid": k2_serve_reid,
+              "launches_step_frame_reid": k2_step_reid,
+              "launches_deepmot_s8": k2_deepmot,
               "max_abs_err": float(worst), "library_ms": None, **t1,
               **{f"{k}_b2": v for k, v in t2.items()},
               **{f"{k}_serving": v for k, v in t16.items()}}
@@ -1920,12 +2461,17 @@ def main(argv=None):
                os.path.join(OUT_DIR, "square_problems.pt"))
     rec_k1 = {"name": "auction_k1_square", "route": "cuda",
               "source": SOURCE_SQUARE, "replaces": REPLACES_K1,
-              "launches": k1_launches, "max_abs_err": float(worst_sq),
+              "launches": k1_launches,
+              "launches_step_frame_reid": k1_step_reid,
+              "max_abs_err": float(worst_sq),
               "library_ms": None, **on_step,
               "seeded_problem": t_k1}
     rec_k3 = {"name": "auction_k3_square_batched", "route": "cuda",
               "source": SOURCE_SQUARE, "replaces": REPLACES_K3,
-              "launches": k3_launches, "max_abs_err": float(worst_sq),
+              "launches": k3_launches,
+              "launches_serving_reid": k3_serve_reid,
+              "launches_deepmot_s8": k3_deepmot,
+              "max_abs_err": float(worst_sq),
               "library_ms": None, **on_tick,
               "seeded_batches": {str(b): t for b, t in t_k3.items()}}
     log(f"total {time.time() - t0:.1f} s")

@@ -425,6 +425,11 @@ _SYNC_CASES = {
     "deepsort": dict(tracker="deepsort", feature_dim=16),
     "strongsort": dict(tracker="strongsort", feature_dim=16),
     "bytetrack_features": dict(tracker="bytetrack", feature_dim=16),
+    "deepmot": dict(tracker="deepmot"),
+    "deepmot_gru": dict(tracker="deepmot",
+                        dhn_weights="weights/dhn_h32.msgpack", dhn_hidden=32),
+    "deepmot_sinkhorn": dict(tracker="deepmot", dhn_arch="sinkhorn",
+                             dhn_weights="weights/dhn_sinkhorn.msgpack"),
 }
 
 
@@ -456,7 +461,8 @@ def test_tracker_step_makes_no_host_sync(card, name):
     from yolov7_tracker_tpu_torch.trackers.registry import build_tracker
 
     step, cfg = build_tracker(S.TrackerConfig(
-        capacity=32, det_capacity=24, conf_thresh=0.5, **_SYNC_CASES[name]))
+        capacity=32, det_capacity=24, conf_thresh=0.5, **_SYNC_CASES[name]),
+        card)
     rng = np.random.default_rng(0)
     dets = [_card_dets(cfg, rng, t, card) for t in range(12)]
     assert all(d.warp.is_cuda for d in dets)
@@ -490,3 +496,84 @@ def test_ecc_estimate_makes_no_host_sync(card):
     assert all(w.is_cuda for w in warps)
     assert torch.equal(warps[0].cpu(), torch.eye(2, 3))
     assert bool(torch.isfinite(warps[1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["strongsort", "deepmot_gru"])
+def test_streaming_step_makes_no_host_sync(card, name):
+    """The tracker step of process_multistream: three streams stacked,
+    stage 1 by the square auction (K3); strongsort with 512-d features as
+    ReID gives them, deepmot with the DHN batched over the streams."""
+    from yolov7_tracker_tpu_torch.ops.assignment import masked_assignment
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+    from yolov7_tracker_tpu_torch.trackers.registry import build_tracker
+
+    kw = dict(_SYNC_CASES[name])
+    if name == "strongsort":
+        kw["feature_dim"] = 512
+    step, cfg = build_tracker(S.TrackerConfig(
+        capacity=32, det_capacity=24, conf_thresh=0.5, **kw), card)
+    rngs = [np.random.default_rng(s) for s in range(3)]
+    dets = []
+    for t in range(8):
+        lanes = [_card_dets(cfg, r, t, card) for r in rngs]
+        dets.append(S.DetSlab(*(torch.stack(x) for x in zip(*lanes))))
+    slabs = S.TrackSlab(*(x[None].repeat((3,) + (1,) * x.dim())
+                          for x in S.init_slab(cfg, card)))
+    slabs, _ = step(slabs, dets[0], solve_stage1=masked_assignment)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for det in dets[1:]:
+            slabs, out = step(slabs, det, solve_stage1=masked_assignment)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(out.valid.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,hidden", [("gru", 32), ("gru", 256),
+                                         ("sinkhorn", 0)])
+def test_dhn_on_the_card_equals_the_cpu(card, tf32_allowed, arch, hidden):
+    """The DHN on a 128 x 48 compacted cost (deepmot's registered
+    capacities) and on two stacked, in float32 (deepmot runs it under
+    reid.float32_exact) even where the process allows TF32: card against
+    CPU within 1e-4. hidden 256 (the reference's width) has seeded
+    weights, the others the repo's trained files."""
+    from yolov7_tracker_tpu_torch.reid import dhn as dhn_mod
+    from yolov7_tracker_tpu_torch.reid import float32_exact
+
+    if hidden == 256:
+        torch.manual_seed(0)
+        model = dhn_mod.build_dhn(arch, hidden).eval()
+    else:
+        path = ("weights/dhn_h32.msgpack" if arch == "gru"
+                else "weights/dhn_sinkhorn.msgpack")
+        model = dhn_mod.load_dhn(path, arch, hidden or dhn_mod.HIDDEN)
+    cost = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (2, 128, 48)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", card):
+        model = model.to(dev)
+        with torch.no_grad(), float32_exact():
+            outs.append([model(cost[0].to(dev)).cpu(),
+                         model(cost.to(dev)).cpu()])
+    for cpu, dev in zip(*outs):
+        assert bool(torch.isfinite(dev).all())
+        assert float((cpu - dev).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(541, 961), (1081, 1921), (1080, 1920),
+                                (7, 11)])
+def test_downscale_on_the_card_equals_the_cpu(card, hw):
+    """GMC's gray -> half-size downscale (cv2's INTER_LINEAR in integer
+    arithmetic; tests/test_torch_gmc.py holds the CPU against OpenCV),
+    bit for bit on the card."""
+    from yolov7_tracker_tpu_torch.trackers.gmc import downscale2, to_gray
+
+    frame = torch.from_numpy(np.random.default_rng(hw[0]).integers(
+        0, 256, hw + (3,), np.uint8))
+    want = downscale2(to_gray(frame))
+    got = downscale2(to_gray(frame.to(card)))
+    assert got.is_cuda and torch.equal(got.cpu(), want)

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing every module of
-yolov7_tracker_tpu_torch (and chip_smoke.py) pulls in neither JAX, Flax
-nor the JAX package, and its entry points refuse to run without a device
-on a machine without a GPU instead of falling back to the CPU."""
+yolov7_tracker_tpu_torch (and chip_smoke.py) pulls in neither JAX, Flax,
+msgpack nor the JAX package, and its entry points refuse to run without a
+device on a machine without a GPU instead of falling back to the CPU."""
 
 import os
 import subprocess
@@ -29,14 +29,16 @@ def test_port_imports_no_jax():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                            "yolov7_tracker_tpu"))
+                                            "msgpack", "yolov7_tracker_tpu"))
         assert len(names) >= 35, names
         for new in ("ops.auction_square", "ops.cuda_build", "cli.serve",
                     "trackers.sort", "trackers.appearance",
                     "trackers.c_biou", "trackers.uavmot", "trackers.botsort",
                     "trackers.deepsort", "trackers.strongsort",
                     "trackers.gmc", "reid", "reid.osnet",
-                    "reid.deepsort_cnn", "reid.extractor"):
+                    "reid.deepsort_cnn", "reid.extractor", "reid.dhn",
+                    "reid.aflink", "trackers.deepmot",
+                    "trackers.aflink_post", "utils.flax_msgpack"):
             assert "yolov7_tracker_tpu_torch." + new in names, new
         print("BAD", bad)
     """)
@@ -57,6 +59,9 @@ def test_entry_points_need_a_device():
             track.main(["--dataset", "mot17", "--config_dir",
                         "yolov7_tracker_tpu/configs", "--track_eval",
                         "false"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            # the package's own configs/ by default, mot.yaml among them
+            track.main(["--dataset", "mot", "--track_eval", "false"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--streams", "synth://2x64x64"])
         print("OK")

@@ -2,7 +2,8 @@
 (sharpened heads, float32) -> NMS -> ByteTrack -> MOT rows, the PyTorch
 port's TrackingPipeline against the JAX TrackingPipeline (wpack off) on
 the same weights and frames: ids exact, boxes within 1e-3. Also the
-port's track CLI on an image-dir sequence."""
+port's track CLI on an image-dir sequence, its defaults against the JAX
+CLI's, and run_sequence_detections' det_capacity cut on tied scores."""
 
 import os
 
@@ -144,3 +145,61 @@ def test_track_cli_writes_mot_rows(weights, tmp_path):
     assert all(r[6:] == ["1.0", "-1", "-1", "-1"] for r in rows)
     with pytest.raises(SystemExit):
         track.main(["--dataset", "synth", "--config_dir", str(cfg_dir)])
+
+
+def test_track_cli_defaults_match_jax():
+    """Every option the two track CLIs share has the same default
+    (--tracker sort); the port reads its package's copy of the JAX
+    package's configs/, so each dataset name (mot among them) resolves to
+    the same config."""
+    from yolov7_tracker_tpu.cli import track as jtrack
+    from yolov7_tracker_tpu_torch.cli import track as ttrack
+
+    j, t = vars(jtrack.parse_args([])), vars(ttrack.parse_args([]))
+    shared = sorted(set(j) & set(t) - {"config_dir"})
+    assert len(shared) >= 20
+    assert {k: t[k] for k in shared} == {k: j[k] for k in shared}
+    assert t["tracker"] == "sort"
+    for name in ("mot", "mot17", "uavdt", "visdrone"):
+        argv = ["--dataset", name]
+        assert ttrack.load_dataset_config(ttrack.parse_args(argv)) == \
+            jtrack.load_dataset_config(jtrack.parse_args(argv)), name
+
+
+def test_detections_cut_keeps_the_jax_rows_on_tied_scores():
+    """300 rows a frame (NMS's max_det) for 64 det slots, with 225 tied
+    scores across the cut: the port keeps the rows the JAX package keeps,
+    in its order (numpy's default sort, which here is not the stable
+    one), and tracks them alike."""
+    from yolov7_tracker_tpu.trackers import slab as JS
+    from yolov7_tracker_tpu.trackers.registry import build_tracker as jbuild
+    from yolov7_tracker_tpu_torch.trackers.registry import (
+        build_tracker as tbuild,
+    )
+
+    n, d = 300, 64
+    kw = dict(tracker="sort", conf_thresh=0.3, capacity=128, det_capacity=d)
+    rng = np.random.default_rng(0)
+    dets, differs = {}, False
+    for f in range(1, 6):
+        xy = np.stack([np.arange(n) % 30 * 40.0 + f,
+                       np.arange(n) // 30 * 40.0 + f], 1)
+        score = np.where(np.arange(n) < 225, 0.8, rng.uniform(0.35, 0.7, n))
+        rows = np.c_[xy, xy + 20.0, score, np.zeros(n)].astype(np.float32)
+        dets[f] = rows[rng.permutation(n)]
+        s = -dets[f][:, 4]
+        differs |= set(np.argsort(s)[:d]) != set(
+            np.argsort(s, kind="stable")[:d])
+    assert differs
+    jpipe = JPipeline.__new__(JPipeline)
+    jpipe.step, jpipe.tcfg = jbuild(JS.TrackerConfig(**kw))
+    port = TrackingPipeline.__new__(TrackingPipeline)
+    port.step, port.tcfg = tbuild(TrackerConfig(**kw))
+    port.device = torch.device("cpu")
+    want = jpipe.run_sequence_detections(dets, 5)
+    got = port.run_sequence_detections(dets, 5)
+    assert sum(len(r[1]) for r in want) >= 2 * d
+    for g, w in zip(got, want):
+        assert g[:2] == w[:2] and g[3] == w[3]
+        np.testing.assert_allclose(np.reshape(g[2], (-1, 4)),
+                                   np.reshape(w[2], (-1, 4)), atol=1e-4)

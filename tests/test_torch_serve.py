@@ -1,9 +1,11 @@
 """The port's multi-stream serving CLI (yolov7_tracker_tpu_torch/cli/serve.py)
 on the CPU: the counterparts of tests/test_serve.py (lockstep ticks,
 state checkpoints and auto-resume, stream tags, dead and stalled streams,
-SIGTERM, append-only results), and tracker-state files exchanged with the
-JAX package in both directions. yolov7-tiny nc 1 at 160 px, float32,
-seeded weights with sharpened heads so that the streams carry tracks."""
+SIGTERM, append-only results), ReID (strongsort with a seeded OSNet,
+resumed from the port's state files and from the JAX package's), and
+tracker-state files exchanged with the JAX package in both directions.
+yolov7-tiny nc 1 at 160 px, float32, seeded weights with sharpened heads
+so that the streams carry tracks."""
 
 import os
 import signal
@@ -172,6 +174,90 @@ def test_jax_package_resumes_a_state_file_of_the_port(model_path, tmp_path):
     assert int(slab.frame) == 5
     with pytest.raises(ValueError, match="different stream"):
         JS.load_slab(path, cfg, expect_tag="synth://4x120x200?seed=5")
+
+
+@pytest.fixture(scope="module")
+def reid_path(tmp_path_factory):
+    """A seeded OSNet x0_25 checkpoint (the width read from its name)."""
+    from yolov7_tracker_tpu_torch.reid import (build_reid,
+                                               random_reid_state_dict)
+
+    path = tmp_path_factory.mktemp("reid") / "osnet_x0_25_seeded.pth"
+    torch.save(random_reid_state_dict(build_reid("osnet_x0_25")[0], seed=5),
+               path)
+    return str(path)
+
+
+def _reid_flags(model_path, reid_path):
+    return ["--model_path", model_path, "--conf_thresh", "0.5", "--tracker",
+            "strongsort", "--reid_model_path", reid_path, "--reid_capacity",
+            "8"]
+
+
+def test_serve_with_reid_resume_equals_one_run(model_path, reid_path,
+                                               tmp_path):
+    """The counterpart of tests/test_serve.py::test_serve_with_reid:
+    strongsort with a seeded OSNet on two cameras. The state files carry
+    the track features, and a run resumed from them equals one
+    uninterrupted run."""
+    streams = ["--streams", "synth://6x120x200?seed=1",
+               "synth://6x120x200?seed=2"]
+    common = _common(tmp_path) + _reid_flags(model_path, reid_path)
+    whole, _ = serve.main(streams + common + [
+        "--save_dir", str(tmp_path / "whole")])
+    state = str(tmp_path / "state")
+    resumable = common + ["--state_dir", state, "--max_frames", "3"]
+    r1, _ = serve.main(streams + resumable)
+    with np.load(os.path.join(state, "stream_00.npz")) as z:
+        feature, occupied = z["feature"], z["occupied"]
+    assert feature.shape == (32, 512) and occupied.any()
+    assert np.abs(feature[occupied]).max() > 0
+    r2, _ = serve.main(streams + resumable)
+    rows = 0
+    for i in range(2):
+        assert _fids(r1[i]) == [1, 2, 3] and _fids(r2[i]) == [4, 5, 6]
+        for (wf, wids, wtlwh, _), (f, ids, tlwh, _) in zip(whole[i],
+                                                           r1[i] + r2[i]):
+            assert (wf, wids) == (f, ids)
+            np.testing.assert_allclose(np.reshape(tlwh, (-1, 4)),
+                                       np.reshape(wtlwh, (-1, 4)), atol=1e-4)
+            rows += len(ids)
+    assert rows >= 12
+
+
+def test_serve_with_reid_resumes_a_state_file_of_the_jax_package(
+        model_path, reid_path, tmp_path):
+    """A strongsort state with 512-d features written by the JAX package's
+    save_slab resumes in the port's serve CLI with ReID: the features come
+    back as saved, and frames and ids go on from it."""
+    cfg = JS.TrackerConfig(tracker="strongsort", conf_thresh=0.5,
+                           capacity=32, det_capacity=16, feature_dim=512)
+    step, cfg = j_build(cfg)
+    slab = JS.init_slab(cfg)
+    boxes = np.array([[10, 10, 60, 80], [100, 20, 160, 90]], np.float32)
+    feats = np.random.default_rng(0).standard_normal((2, 512)).astype(
+        np.float32)
+    for _ in range(3):
+        slab, _ = step(slab, JS.make_det_slab(
+            cfg, boxes, np.array([0.9, 0.8]), np.zeros(2), np.ones(2, bool),
+            feature=feats))
+    stream = "synth://5x120x200?seed=3"
+    state = tmp_path / "state"
+    state.mkdir()
+    path = str(state / "stream_00.npz")
+    JS.save_slab(path, slab, cfg, tag=stream)
+    mine = TS.load_slab(path, TS.TrackerConfig(**vars(cfg)), "cpu",
+                        expect_tag=stream)
+    np.testing.assert_array_equal(mine.feature.numpy(),
+                                  np.asarray(slab.feature))
+    assert np.abs(np.asarray(slab.feature)).max() > 0
+    results, _ = serve.main(
+        ["--streams", stream, "--state_dir", str(state)]
+        + _common(tmp_path) + _reid_flags(model_path, reid_path))
+    assert _fids(results[0]) == [4, 5]
+    ids = [i for _, ids, *_ in results[0] for i in ids]
+    assert any(i > int(slab.next_id) for i in ids)
+    assert _state_frame(str(state), 0) == 5
 
 
 def test_serve_reordered_streams_rejected(stream_dirs, tmp_path):

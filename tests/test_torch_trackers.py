@@ -1,9 +1,10 @@
 """The port's slab trackers against the JAX package on the CPU: every step
 (sort, c_bioutracker, uavmot, botsort with and without features and with
 a moving camera warp, deepsort, strongsort, bytetrack with appearance
-fusion) over 64-frame synthetic streams with per-detection features,
-the list-order helpers and appearance costs one by one, the resolved
-configs, and track_scan_multi with two streams. Ids and integer state
+fusion; deepmot in tests/test_torch_dhn.py) over 64-frame synthetic
+streams with per-detection features, the list-order helpers and
+appearance costs one by one, the resolved configs, and track_scan_multi
+with two streams. Ids and integer state
 must be identical, boxes and features within 1e-4."""
 
 import numpy as np
@@ -81,9 +82,10 @@ def feature_stream(seed, n_frames=64, n_obj=8, d=24, feat=FEAT, warps=False):
     return frames
 
 
-def run_both(cfg_kw, frames, check_features=True):
+def run_both(cfg_kw, frames, check_features=True, solve_stage1=None):
     """Step both packages through the frames; compare every frame's
-    output and slab. Returns (rows emitted, the port's last slab)."""
+    output and slab. ``solve_stage1``: the port's stage-1 solver (default:
+    the step's own). Returns (rows emitted, the port's last slab)."""
     cfg = JS.TrackerConfig(**cfg_kw)
     j_step, j_cfg = j_build(cfg)
     t_step, t_cfg = t_build(TS.TrackerConfig(**cfg_kw))
@@ -96,7 +98,8 @@ def run_both(cfg_kw, frames, check_features=True):
         j_slab, j_out = j_step(j_slab, JS.make_det_slab(
             j_cfg, tlbr, score, cls, valid, feature=feat, warp=warp))
         t_slab, t_out = t_step(t_slab, TS.make_det_slab(
-            t_cfg, tlbr, score, cls, valid, "cpu", feature=feat, warp=warp))
+            t_cfg, tlbr, score, cls, valid, "cpu", feature=feat, warp=warp),
+            solve_stage1=solve_stage1)
         where = f"frame {k}"
         jv, tv = np.asarray(j_out.valid), t_out.valid.numpy()
         np.testing.assert_array_equal(tv, jv, err_msg=where)
@@ -162,14 +165,14 @@ def test_list_order_steps_match_jax_on_crowded_stream(tracker):
 
 def test_resolved_configs_match_jax():
     for tracker in ("sort", "c_bioutracker", "uavmot", "botsort", "deepsort",
-                    "strongsort", "bytetrack"):
+                    "strongsort", "bytetrack", "deepmot"):
         for extra in ({}, {"feature_dim": 512}, {"kalman_format": "naive"}):
             kw = dict(tracker=tracker, **extra)
             _, j_cfg = j_build(JS.TrackerConfig(**kw))
             _, t_cfg = t_build(TS.TrackerConfig(**kw))
             assert vars(t_cfg) == vars(j_cfg), kw
-    with pytest.raises(KeyError, match="not ported yet"):
-        t_build(TS.TrackerConfig(tracker="deepmot"))
+    with pytest.raises(KeyError, match="unknown tracker"):
+        t_build(TS.TrackerConfig(tracker="nope"))
 
 
 def _random_slab(rng, t=12, f=6, h=3):

@@ -1,9 +1,11 @@
 """Multi-camera serving CLI on the PyTorch port (port of
-yolov7_tracker_tpu/cli/serve.py, less ReID): S independent streams advance
-in lockstep, one detector batch and one stacked tracker step per tick
-(``TrackingPipeline.process_multistream``). Result D2H keeps one packed
-batch in flight -- a non-blocking copy into a pinned buffer with a CUDA
-event -- so the transfer overlaps the next tick's compute.
+yolov7_tracker_tpu/cli/serve.py): S independent streams advance in
+lockstep, one detector batch (with --reid_model_path, one ReID crop gather
+and forward over the streams' top --reid_capacity dets) and one stacked
+tracker step per tick (``TrackingPipeline.process_multistream``). Result
+D2H keeps one packed batch in flight -- a non-blocking copy into a pinned
+buffer with a CUDA event -- so the transfer overlaps the next tick's
+compute.
 
 Frame acquisition is per-stream prefetch threads feeding bounded queues,
 so one stalled-but-alive camera cannot head-of-line-block the other
@@ -61,7 +63,8 @@ def parse_args(argv=None):
                    help="N sources: image directories or synth:// specs "
                         "(same resolution)")
     p.add_argument("--tracker", type=str, default="bytetrack",
-                   choices=["bytetrack"])
+                   choices=["sort", "bytetrack", "c_bioutracker", "uavmot",
+                            "botsort", "deepsort", "strongsort", "deepmot"])
     p.add_argument("--model", type=str, default="yolov7-tiny",
                    help="zoo model name or reference cfg yaml path")
     p.add_argument("--model_path", type=str, default="",
@@ -71,6 +74,15 @@ def parse_args(argv=None):
     p.add_argument("--img_size", type=int, default=640)
     p.add_argument("--conf_thresh", type=float, default=0.2)
     p.add_argument("--kalman_format", type=str, default="default")
+    p.add_argument("--reid_model_path", type=str, default="",
+                   help="torch ReID checkpoint for the feature trackers: "
+                        "the DeepSORT CNN's ckpt.t7 for deepsort, else a "
+                        "torchreid OSNet (width from the file name, default "
+                        "osnet_x0_25)")
+    p.add_argument("--reid_capacity", type=int, default=128,
+                   help="embed only the top-K score-ordered dets per frame "
+                        "(0 = all det_capacity; the serving default 128 "
+                        "bounds the ReID stage at the slab capacity)")
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--capacity", type=int, default=128)
@@ -201,17 +213,21 @@ def main(argv=None):
     from ..models import zoo
     from ..models.spec import load_yaml_file
     from ..pipeline import PipelineConfig, TrackingPipeline
+    from ..reid import resolve_reid
     from ..trackers import slab as S
 
     n = len(opts.streams)
+    reid, reid_state_dict = resolve_reid(opts.tracker, opts.reid_model_path)
     pcfg = PipelineConfig(model=opts.model, nc=opts.nc,
                           img_size=opts.img_size, conf_thres=0.001,
-                          dtype=opts.dtype)
+                          dtype=opts.dtype, reid=reid,
+                          reid_capacity=opts.reid_capacity)
     tcfg = S.TrackerConfig(tracker=opts.tracker,
                            kalman_format=opts.kalman_format,
                            conf_thresh=opts.conf_thresh,
                            capacity=opts.capacity,
-                           det_capacity=opts.det_capacity)
+                           det_capacity=opts.det_capacity,
+                           feature_dim=512 if reid != "none" else 0)
     if opts.model.endswith((".yaml", ".yml")):
         spec = load_yaml_file(opts.model, nc=opts.nc)
     else:
@@ -219,7 +235,8 @@ def main(argv=None):
     state_dict = (torch.load(opts.model_path, map_location="cpu")
                   if opts.model_path else None)
     pipe = TrackingPipeline(pcfg, tcfg, state_dict=state_dict, spec=spec,
-                            device=opts.device)
+                            device=opts.device,
+                            reid_state_dict=reid_state_dict)
     on_card = pipe.device.type == "cuda"
 
     def state_path(i):

@@ -4,11 +4,18 @@ yolov7_tracker_tpu/cli/track.py, image-dir sequences).
 Usage:
     python -m yolov7_tracker_tpu_torch.cli.track --dataset mot17 \
         --tracker strongsort --reid_model_path osnet_x0_25.pth \
-        --gmc ecc --track_eval false [--device cpu]
+        --gmc ecc --track_eval false [--aflink linker.msgpack] [--gsi] \
+        [--device cpu]
+    python -m yolov7_tracker_tpu_torch.cli.track --dataset mot17 \
+        --tracker deepmot --dhn_path weights/dhn_h32.msgpack \
+        --dhn_hidden 32 --track_eval false
 
 Per sequence: frames -> device letterbox -> YOLOv7 -> NMS (-> ReID crops
-and CNN, GMC warp) -> the tracker's slab step -> MOT txt. Runs on the GPU
-unless --device says otherwise. --gmc defaults to orb for botsort and ecc
+and CNN, GMC warp) -> the tracker's slab step (deepmot: the DHN on the
+device) -> (AFLink, GSI on the result rows) -> MOT txt. Runs on the GPU
+unless --device says otherwise. Dataset configs come from the package's
+configs/ (the JAX package's copies), then ./config_files and
+./tracker/config_files. --gmc defaults to orb for botsort and ecc
 for strongsort, as in the JAX CLI; orb needs OpenCV on the host, so on a
 machine without it pass --gmc ecc or --gmc none. Scoring with TrackEval
 is not ported yet: --track_eval must be false.
@@ -28,9 +35,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser("torch tracker")
     p.add_argument("--dataset", type=str, default="visdrone")
     p.add_argument("--split", type=str, default="test")
-    p.add_argument("--tracker", type=str, default="bytetrack",
+    p.add_argument("--tracker", type=str, default="sort",
                    choices=["sort", "bytetrack", "c_bioutracker", "uavmot",
-                            "botsort", "deepsort", "strongsort"])
+                            "botsort", "deepsort", "strongsort", "deepmot"])
     p.add_argument("--model", type=str, default="yolov7-w6",
                    help="zoo model name or reference cfg yaml path")
     p.add_argument("--model_path", type=str, default="",
@@ -45,10 +52,19 @@ def parse_args(argv=None):
     p.add_argument("--reid_capacity", type=int, default=0,
                    help="embed only the top-K score-ordered dets per frame "
                         "(0 = all det_capacity)")
+    p.add_argument("--dhn_path", type=str, default="",
+                   help="DeepMOT: trained DHN weights (Flax msgpack, e.g. "
+                        "weights/dhn_h32.msgpack); without them deepmot "
+                        "matches on the raw centre + IoU cost")
     p.add_argument("--conf_thresh", type=float, default=0.2)
     p.add_argument("--iou_thresh", type=float, default=0.5)
     p.add_argument("--track_buffer", type=int, default=30)
     p.add_argument("--gamma", type=float, default=0.1)
+    p.add_argument("--dhn_hidden", type=int, default=256)
+    p.add_argument("--dhn_arch", type=str, default="gru",
+                   choices=["gru", "sinkhorn"],
+                   help="DHN architecture: 'gru' (the reference's Munkrs) "
+                        "or 'sinkhorn' (reid/dhn.py SinkhornDHN)")
     p.add_argument("--gmc", type=str, default="",
                    choices=["", "orb", "ecc", "none"],
                    help="camera-motion compensation (defaults: botsort orb, "
@@ -62,20 +78,58 @@ def parse_args(argv=None):
                    choices=["bfloat16", "float32"])
     p.add_argument("--capacity", type=int, default=256)
     p.add_argument("--det_capacity", type=int, default=300)
-    p.add_argument("--config_dir", type=str, default="./config_files")
+    p.add_argument("--config_dir", type=str,
+                   default=os.path.join(os.path.dirname(__file__), "..",
+                                        "configs"))
     p.add_argument("--output_dir", type=str, default="./results")
+    p.add_argument("--aflink", type=str, default="",
+                   help="PostLinker weights (Flax msgpack): AFLink offline "
+                        "fragment linking on the result rows")
+    p.add_argument("--gsi", action="store_true",
+                   help="Gaussian-smoothed interpolation of the result "
+                        "rows (StrongSORT++ GSI)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda, which must exist)")
     return p.parse_args(argv)
 
 
 def load_dataset_config(opts):
-    for base in (opts.config_dir, "./config_files"):
+    """The dataset's yaml from --config_dir, else a reference-format config
+    in ./config_files or ./tracker/config_files."""
+    for base in (opts.config_dir, "./config_files",
+                 "./tracker/config_files"):
         path = os.path.join(base, f"{opts.dataset}.yaml")
         if os.path.isfile(path):
             with open(path) as f:
                 return yaml.safe_load(f)
     raise FileNotFoundError(f"no dataset config for {opts.dataset!r}")
+
+
+def post_process(results, linker, gsi: bool):
+    """AFLink (``linker``: a PostLinker) and / or GSI on one sequence's
+    results [(frame, ids, tlwhs, clses)], as the JAX CLI applies them:
+    the rows are relinked and smoothed, then regrouped onto the original
+    frames; a frame keeps its own classes, cut to its new row count."""
+    from ..trackers.aflink_post import gsi_interpolation, link_tracks
+
+    rows = [[fid, tid, t[0], t[1], t[2], t[3]]
+            for fid, ids, tlwhs, _ in results
+            for tid, t in zip(ids, tlwhs)]
+    if not rows:
+        return results
+    rows = np.asarray(rows, float)
+    if linker is not None:
+        rows = link_tracks(rows, linker)
+    if gsi:
+        rows = gsi_interpolation(rows)
+    by_frame = {}
+    for r in rows:
+        by_frame.setdefault(int(r[0]), []).append(r)
+    return [(fid,
+             [int(r[1]) for r in by_frame.get(fid, [])],
+             [r[2:6] for r in by_frame.get(fid, [])],
+             [c for c, _ in zip(clses, by_frame.get(fid, []))])
+            for fid, ids, tlwhs, clses in results]
 
 
 def main(argv=None):
@@ -108,7 +162,8 @@ def main(argv=None):
         conf_thresh=opts.conf_thresh, iou_thresh=opts.iou_thresh,
         track_buffer=opts.track_buffer, capacity=opts.capacity,
         det_capacity=opts.det_capacity, gamma=opts.gamma,
-        min_area=opts.min_area,
+        min_area=opts.min_area, dhn_weights=opts.dhn_path,
+        dhn_hidden=opts.dhn_hidden, dhn_arch=opts.dhn_arch,
         # a ReID model gives bytetrack and botsort 512-d features too;
         # deepsort and strongsort resolve their own
         feature_dim=512 if reid != "none" else 0)
@@ -121,6 +176,11 @@ def main(argv=None):
     pipe = TrackingPipeline(pcfg, tcfg, state_dict=state_dict, spec=spec,
                             device=opts.device,
                             reid_state_dict=reid_state_dict)
+    linker = None
+    if opts.aflink:
+        from ..reid.aflink import load_postlinker
+
+        linker = load_postlinker(opts.aflink, pipe.device)
 
     seqs = seqmod.discover_sequences(
         cfgs.get("DATASET_ROOT", "."), split=opts.split,
@@ -136,6 +196,8 @@ def main(argv=None):
         seq_fps.append(fps)
         print(f"{seq.name}: {len(seq)} frames, {fps:.1f} fps "
               f"on {pipe.device}")
+        if linker is not None or opts.gsi:
+            results = post_process(results, linker, opts.gsi)
         writer.save_results(folder, seq.name, results)
     if seq_fps:
         print(f"mean fps: {np.mean(seq_fps):.2f}")

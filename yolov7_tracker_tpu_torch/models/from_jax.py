@@ -12,7 +12,9 @@ two packages' TrackSlabs have the same fields, so a slab of numpy leaves
 (``jax.tree.map(np.asarray, jax_slab)``) becomes the port's and back.
 ``osnet_variables_to_torch`` and ``deepsort_cnn_variables_to_torch`` map
 the Flax ReID models' variables onto the torchreid / reference parameter
-names of reid/osnet.py and reid/deepsort_cnn.py.
+names of reid/osnet.py and reid/deepsort_cnn.py; ``dhn_state_dict`` and
+``postlinker_state_dict`` do the same for the DHN (reid/dhn.py) and the
+AFLink PostLinker (reid/aflink.py).
 Nothing here imports JAX: the caller hands in numpy arrays.
 """
 
@@ -163,3 +165,70 @@ def deepsort_cnn_variables_to_torch(variables_np: Mapping, model
     """The JAX DeepSortCNN's variables (numpy) -> the state_dict of the
     port's DeepSortCNN."""
     return _reid_variables_to_torch(variables_np, model, _deepsort_flax_path)
+
+
+def _linear(sd, name, leaf):
+    sd[f"{name}.weight"] = torch.tensor(
+        np.asarray(leaf["kernel"], np.float32).T.copy())
+    sd[f"{name}.bias"] = torch.tensor(np.asarray(leaf["bias"], np.float32))
+
+
+def _gru_cell(sd, cell, gru, suffix):
+    """One Flax GRUCell -> one layer and direction of nn.GRU. Flax gates
+    r = s(x W_ir + b_ir + h W_hr), z likewise, n = tanh(x W_in + b_in +
+    r * (h W_hn + b_hn)); torch's gates in the order (r, z, n) with b_hr =
+    b_hz = 0."""
+    f32 = lambda x: np.asarray(x, np.float32)            # noqa: E731
+    w_ih = np.concatenate([f32(cell[f"i{g}"]["kernel"]) for g in "rzn"], 1)
+    w_hh = np.concatenate([f32(cell[f"h{g}"]["kernel"]) for g in "rzn"], 1)
+    b_hn = f32(cell["hn"]["bias"])
+    sd[f"{gru}.weight_ih{suffix}"] = torch.tensor(w_ih.T.copy())
+    sd[f"{gru}.weight_hh{suffix}"] = torch.tensor(w_hh.T.copy())
+    sd[f"{gru}.bias_ih{suffix}"] = torch.tensor(np.concatenate(
+        [f32(cell[f"i{g}"]["bias"]) for g in "rzn"]))
+    sd[f"{gru}.bias_hh{suffix}"] = torch.tensor(np.concatenate(
+        [np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn]))
+
+
+def dhn_state_dict(variables_np: Mapping, arch: str
+                   ) -> Dict[str, torch.Tensor]:
+    """The JAX DHN's variables (numpy) -> the state_dict of the port's
+    ``reid.dhn.build_dhn(arch)``: 'gru' (each BiGRU's four GRUCells,
+    l{layer}_{fwd,bwd}, as the layers and directions of one nn.GRU) or
+    'sinkhorn'."""
+    params = variables_np["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    if arch == "sinkhorn":
+        sd["log_tau"] = torch.tensor(np.asarray(params["log_tau"],
+                                                np.float32))
+        for name in ("cell_1", "cell_2", "cell_out"):
+            _linear(sd, name, params[name])
+        return sd
+    if arch != "gru":
+        raise ValueError(f"unknown dhn arch {arch!r}; have gru|sinkhorn")
+    for name in ("hidden2tag_1", "hidden2tag_2", "hidden2tag_3"):
+        _linear(sd, name, params[name])
+    for gru in ("lstm_row", "lstm_col"):
+        for layer in (0, 1):
+            for way, tail in (("fwd", ""), ("bwd", "_reverse")):
+                _gru_cell(sd, params[gru][f"l{layer}_{way}"], gru,
+                          f"_l{layer}{tail}")
+    return sd
+
+
+def _postlinker_flax_path(prefix: str) -> tuple:
+    """reid/aflink.py module path -> the JAX PostLinker's: m1.t0.bnf ->
+    (m1_t0, bnf), m2.fuse.conv -> (m2_fuse, conv), fc1 -> (fc1,)."""
+    parts = prefix.split(".")
+    if len(parts) == 1:
+        return (parts[0],)
+    return (f"{parts[0]}_{parts[1]}", parts[2])
+
+
+def postlinker_state_dict(variables_np: Mapping, model
+                          ) -> Dict[str, torch.Tensor]:
+    """The JAX PostLinker's variables (params and batch_stats, numpy) ->
+    the state_dict of the port's PostLinker: Flax's NHWC conv kernels
+    become NCHW ones here, once."""
+    return _reid_variables_to_torch(variables_np, model,
+                                    _postlinker_flax_path)

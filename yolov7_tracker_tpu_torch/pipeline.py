@@ -21,9 +21,13 @@ backend but a TPU: a wrong pairing in a crowded many-camera scene costs
 an id switch, and the same algorithm as the reference lets the two
 packages be held against each other through ties.
 
-The sequence modes take every ported tracker with ReID and GMC. Not in
-the port yet: ReID and GMC in the streaming modes (a pipeline with either
-refuses them), int8, the width-packed front, spatial sharding and
+Every tracker runs in every mode, deepmot with its DHN, and ReID too: in
+the streaming modes one crop gather and one ReID forward serve the S
+frames of a tick. GMC differs between the modes: the sequence modes take
+the warps from the pipeline's own estimator (ECC or ORB); the streaming
+modes take the caller's warps (identity by default) and refuse a pipeline
+with its own GMC, which the JAX package would ignore there. Not in the
+port yet: int8, the width-packed front, spatial sharding and
 detect_per_frame skipping.
 """
 
@@ -116,7 +120,7 @@ class TrackingPipeline:
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         self.model = model
-        self.step, self.tcfg = build_tracker(tcfg)
+        self.step, self.tcfg = build_tracker(tcfg, self.device)
         if self.tcfg.det_capacity < pcfg.max_det:
             warnings.warn(
                 f"det_capacity={self.tcfg.det_capacity} < max_det="
@@ -218,15 +222,19 @@ class TrackingPipeline:
         """(H, W, 3) uint8 frame + (D, 4) det boxes, both on the device ->
         (D, F) float32 ReID features: the top reid_capacity boxes (NMS
         emits them in score order) are cropped and embedded, the rest get
-        zero features."""
-        d = tlbr.shape[0]
+        zero features. With a leading stream axis, (S, H, W, 3) frames and
+        (S, D, 4) boxes -> (S, D, F): one crop gather and one ReID forward
+        over the S frames' boxes."""
+        d = tlbr.shape[-2]
         k = self.pcfg.reid_capacity
-        sub = tlbr[:k] if 0 < k < d else tlbr
-        feats = self.reid_forward(
-            extractor.extract_crops(frame_u8, sub, self.reid_hw))
-        if feats.shape[0] < d:
+        sub = tlbr[..., :k, :] if 0 < k < d else tlbr
+        crops = extractor.extract_crops(frame_u8, sub, self.reid_hw)
+        feats = self.reid_forward(crops.reshape((-1,) + crops.shape[-3:]))
+        feats = feats.reshape(sub.shape[:-1] + feats.shape[-1:])
+        if feats.shape[-2] < d:
             feats = torch.cat([feats, feats.new_zeros(
-                (d - feats.shape[0], feats.shape[1]))])
+                feats.shape[:-2] + (d - feats.shape[-2], feats.shape[-1]))],
+                dim=-2)
         return feats
 
     @torch.no_grad()
@@ -294,10 +302,18 @@ class TrackingPipeline:
             x[None].repeat((n_streams,) + (1,) * x.dim()) for x in slab))
 
     def _streaming(self):
-        if self.reid_model is not None or self.gmc is not None:
+        if self.gmc is not None:
             raise NotImplementedError(
-                "ReID features and GMC warps are not ported to the "
-                "streaming modes yet; use run_sequence*")
+                "the pipeline's own GMC does not run in the streaming modes; "
+                "pass the frames' warps (warps= / warp=) or use run_sequence*")
+
+    def _warps(self, warps, dets: S.DetSlab) -> S.DetSlab:
+        """The caller's camera warps ((2, 3) or (S, 2, 3)) on the dets,
+        identity when None."""
+        if warps is None:
+            return dets
+        return dets._replace(warp=torch.as_tensor(
+            warps, dtype=torch.float32).to(self.device, non_blocking=True))
 
     def track_scan_multi(self, slabs: S.TrackSlab, det_streams: S.DetSlab):
         """slabs: stacked over S streams; det_streams: every field
@@ -314,26 +330,42 @@ class TrackingPipeline:
             outs.append(out)
         return slabs, S.FrameOutput(*(torch.stack(f) for f in zip(*outs)))
 
-    def process_multistream(self, slabs: S.TrackSlab, frames_u8):
+    def process_multistream(self, slabs: S.TrackSlab, frames_u8,
+                            warps=None):
         """One frame for each of S independent streams: ONE detector batch
-        over the streams' frames (S, H, W, 3), then one tracker step over
-        the stacked slabs (no scan: the streams advance together, so the
-        step's small launches are paid once for S frames)."""
+        over the streams' frames (S, H, W, 3), with ReID one crop gather
+        and one forward over the S frames' boxes, then one tracker step
+        over the stacked slabs (no scan: the streams advance together, so
+        the step's small launches are paid once for S frames). ``warps``:
+        the frames' camera warps (S, 2, 3), identity when None; the
+        pipeline's own GMC does not run here (the JAX package ignores it
+        in this mode; the port refuses a pipeline with one)."""
         self._streaming()
-        boxes, score, cls, counts = self.detect_batch(frames_u8)
-        return self.step(slabs, self.dets_to_slab(boxes, score, cls, counts),
-                         solve_stage1=masked_assignment)
+        frames = self._frames(frames_u8)
+        boxes, score, cls, counts = self.detect_batch(frames)
+        dets = self._warps(warps, self.dets_to_slab(boxes, score, cls,
+                                                    counts))
+        if self.reid_model is not None:
+            d = self.tcfg.det_capacity
+            dets = dets._replace(feature=self.embed_dets(
+                frames, boxes[:, :d]))
+        return self.step(slabs, dets, solve_stage1=masked_assignment)
 
-    def step_frame(self, slab: S.TrackSlab, frame):
+    def step_frame(self, slab: S.TrackSlab, frame, warp=None):
         """Detect + associate one (H, W, 3) frame of one stream: the
-        latency-oriented streaming mode."""
+        latency-oriented streaming mode. ``warp``: the frame's (2, 3)
+        camera warp, identity when None (the pipeline's own GMC does not
+        run here, as in process_multistream)."""
         self._streaming()
-        if not isinstance(frame, torch.Tensor):
-            frame = torch.from_numpy(np.ascontiguousarray(frame))
-        boxes, score, cls, counts = self.detect_batch(frame[None])
-        return self.step(
-            slab, self.dets_to_slab(boxes[0], score[0], cls[0], counts[0]),
-            solve_stage1=masked_assignment)
+        frames = self._frames(frame[None])
+        boxes, score, cls, counts = self.detect_batch(frames)
+        det = self._warps(warp, self.dets_to_slab(boxes[0], score[0], cls[0],
+                                                  counts[0]))
+        if self.reid_model is not None:
+            d = self.tcfg.det_capacity
+            det = det._replace(feature=self.embed_dets(frames[0],
+                                                       boxes[0, :d]))
+        return self.step(slab, det, solve_stage1=masked_assignment)
 
     # ------------------------------------------------------------------
     # output packing: one D2H transfer per batch
@@ -376,7 +408,9 @@ class TrackingPipeline:
             rows = np.asarray(dets_by_frame.get(f, np.zeros((0, 6))),
                               np.float32).reshape(-1, 6)
             if rows.shape[0] > d:
-                rows = rows[np.argsort(-rows[:, 4], kind="stable")[:d]]
+                # numpy's default sort, as the JAX package cuts: with tied
+                # scores across the cut it keeps the same rows
+                rows = rows[np.argsort(-rows[:, 4])[:d]]
             det = S.make_det_slab(self.tcfg, rows[:, :4], rows[:, 4],
                                   rows[:, 5], np.ones(len(rows), bool),
                                   self.device)

@@ -6,12 +6,13 @@ Each estimator gives a 2x3 affine warp from the previous frame to this
 one:
 
 - 'ecc'  : on the frame's device. Grayscale and the 2x downscale are
-           torch integer arithmetic equal to OpenCV's bit for bit
-           (``to_gray``, ``downscale2``), then ``ecc_affine``: 50
-           forward-additive Gauss-Newton steps on the ECC objective, the
-           JAX package's replacement of cv2.findTransformECC. A warp that
-           is not finite becomes identity (the reference's failure
-           semantics), decided on the device: no host sync.
+           torch integer arithmetic equal to OpenCV's bit for bit at
+           every frame size (``to_gray``, ``downscale2``), then
+           ``ecc_affine``: 50 forward-additive Gauss-Newton steps on the
+           ECC objective, the JAX package's replacement of
+           cv2.findTransformECC. A warp that is not finite becomes
+           identity (the reference's failure semantics), decided on the
+           device: no host sync.
 - 'orb'  : OpenCV FAST + ORB keypoints, ratio + spatial filtered matches
            and a RANSAC partial affine, on the host. OpenCV is imported
            when the estimator first runs, and its absence is an error
@@ -34,6 +35,8 @@ ECC_STEPS = 50
 
 # cv2.cvtColor(BGR2GRAY) for uint8: R, G, B weights in 15-bit fixed point
 _GRAY_R, _GRAY_G, _GRAY_B = 9798, 19235, 3735
+# cv2.resize's fixed-point weight of 1 for uint8 (INTER_RESIZE_COEF_SCALE)
+_COEF_ONE = 2048
 
 
 def to_gray(frame_bgr: torch.Tensor) -> torch.Tensor:
@@ -45,17 +48,46 @@ def to_gray(frame_bgr: torch.Tensor) -> torch.Tensor:
     return gray.to(torch.uint8)
 
 
+def _linear_taps(n: int, m: int, device):
+    """cv2.resize's INTER_LINEAR taps for uint8 along one axis of n source
+    and m destination pixels: (first source index, second source index,
+    weight of the first, weight of the second), the weights in 11-bit fixed
+    point. The position (d + 0.5) * scale - 0.5 is taken in float64 and
+    rounded to float32, as OpenCV does, then clamped to the image."""
+    scale = 1.0 / (m / n)
+    fx = ((torch.arange(m, dtype=torch.float64, device=device) + 0.5)
+          * scale - 0.5).float()
+    sx = torch.floor(fx)
+    f = fx - sx
+    sx = sx.long()
+    edge = (sx < 0) | (sx >= n - 1)
+    f = torch.where(edge, torch.zeros_like(f), f)
+    sx = sx.clamp(0, n - 1)
+    a0 = torch.round((1.0 - f) * _COEF_ONE).to(torch.int32)
+    a1 = torch.round(f * _COEF_ONE).to(torch.int32)
+    return sx, (sx + 1).clamp(max=n - 1), a0, a1
+
+
 def downscale2(gray: torch.Tensor) -> torch.Tensor:
-    """(H, W) uint8 -> (H // 2, W // 2) uint8: the rounded mean of each
-    2x2 block, (a + b + c + d + 2) >> 2, which is what cv2.resize with
-    INTER_LINEAR computes at exactly half size. For an odd H or W the last
-    row or column is dropped; cv2 then samples at a scale a little above
-    2, so the two differ (tests/test_torch_gmc.py measures by how much)."""
-    h, w = gray.shape[-2] // 2 * 2, gray.shape[-1] // 2 * 2
-    g = gray[..., :h, :w].to(torch.int32)
-    s = g[..., 0::2, 0::2] + g[..., 0::2, 1::2] + g[..., 1::2, 0::2] \
-        + g[..., 1::2, 1::2]
-    return ((s + 2) >> 2).to(torch.uint8)
+    """(H, W) uint8 -> (H // 2, W // 2) uint8, equal to cv2.resize(gray,
+    (W // 2, H // 2)) with INTER_LINEAR. At exactly half size (H and W
+    even) OpenCV takes its area path, the rounded mean of each 2x2 block,
+    (a + b + c + d + 2) >> 2. Otherwise it samples bilinearly at a scale a
+    little above 2 in fixed point: 11-bit weights, a horizontal pass in
+    int32, and a vertical pass rounded as its vector code rounds,
+    (((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2) >> 2."""
+    hgt, wid = gray.shape[-2], gray.shape[-1]
+    g = gray.to(torch.int32)
+    if hgt % 2 == 0 and wid % 2 == 0:
+        s = g[..., 0::2, 0::2] + g[..., 0::2, 1::2] + g[..., 1::2, 0::2] \
+            + g[..., 1::2, 1::2]
+        return ((s + 2) >> 2).to(torch.uint8)
+    x0, x1, a0, a1 = _linear_taps(wid, wid // 2, gray.device)
+    y0, y1, b0, b1 = _linear_taps(hgt, hgt // 2, gray.device)
+    rows = g[..., x0] * a0 + g[..., x1] * a1            # (H, W // 2)
+    r0, r1 = rows[..., y0, :] >> 4, rows[..., y1, :] >> 4
+    out = (((b0[:, None] * r0) >> 16) + ((b1[:, None] * r1) >> 16) + 2) >> 2
+    return out.to(torch.uint8)
 
 
 def _sample(img, x, y):

@@ -4,7 +4,8 @@ yolov7_tracker_tpu/trackers/registry.py).
 botsort and strongsort force their own Kalman format (the reference's
 track.py:67-71), and a tracker's overrides (deepsort's feature ring
 buffer, C-BIoU's Kalman-free state, ...) apply only where the caller left
-the field at its default.
+the field at its default. deepmot's DHN weights are loaded when the step
+is built.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from . import slab as S
 
 _STEPS: Dict[str, Tuple[Callable, dict]] = {}
 _MODULES = ("sort", "bytetrack", "c_biou", "deepsort", "botsort", "uavmot",
-            "strongsort")
+            "strongsort", "deepmot")
 _FORCED_KALMAN = {"botsort": "botsort", "strongsort": "strongsort"}
 
 
@@ -34,9 +35,6 @@ def resolve_config(cfg: S.TrackerConfig) -> S.TrackerConfig:
     """cfg with the tracker's forced Kalman format and its overrides."""
     for m in _MODULES:
         importlib.import_module(f".{m}", __package__)
-    if cfg.tracker == "deepmot":
-        raise KeyError("tracker 'deepmot' (the DHN) is not ported yet; the "
-                       f"port has {sorted(_STEPS)}")
     if cfg.tracker not in _STEPS:
         raise KeyError(
             f"unknown tracker {cfg.tracker!r}; have {sorted(_STEPS)}")
@@ -50,9 +48,19 @@ def resolve_config(cfg: S.TrackerConfig) -> S.TrackerConfig:
     return cfg
 
 
-def build_tracker(cfg: S.TrackerConfig) -> Tuple[Callable, S.TrackerConfig]:
+def build_tracker(cfg: S.TrackerConfig, device="cpu"
+                  ) -> Tuple[Callable, S.TrackerConfig]:
     """Return (step fn ``(slab, det_slab) -> (slab, FrameOutput)``, the
     resolved config). Every step also takes ``solve_stage1``: the solver
-    of its first association stage (deepsort: of every cascade level)."""
+    of its first association stage (deepsort: of every cascade level).
+    deepmot with ``cfg.dhn_weights`` loads its DHN here, once, onto
+    ``device`` (the pipeline passes its own); without them it matches on
+    the raw cost, as the JAX package does."""
     cfg = resolve_config(cfg)
-    return functools.partial(_STEPS[cfg.tracker][0], cfg=cfg), cfg
+    kw = {}
+    if cfg.tracker == "deepmot" and cfg.dhn_weights:
+        from ..reid.dhn import load_dhn
+
+        kw["dhn"] = load_dhn(cfg.dhn_weights, cfg.dhn_arch, cfg.dhn_hidden,
+                             device)
+    return functools.partial(_STEPS[cfg.tracker][0], cfg=cfg, **kw), cfg
