@@ -106,6 +106,26 @@ Phases, each of which must pass:
                 S = 8; CUDA events; card against CPU within 1e-4); AFLink
                 with a seeded PostLinker and GSI on phase 6's strongsort
                 rows, the same on the card and the CPU.
+  8. scoring -- (a) a seeded MOT17-layout dataset (3 sequences of 200
+                frames at 1920x1080, 40-60 constant-velocity pedestrians
+                each, crossing pairs, class 2 / 7 distractor rows;
+                placeholder frame files) with detection files made from
+                its gt (jitter, misses, low-score false positives) is
+                tracked and scored through cli.track.main (--detections,
+                --track_eval true, the CLI's capacity 256 / det_capacity
+                300) for bytetrack and sort, on the card and with --device
+                cpu: MOT txts and CSVs byte for byte and every number of
+                the score tables equal, 2 K2 launches a frame on the card,
+                every step but a run's first (it makes the solver's
+                constants) with no host sync; cli.evaluate.main on the
+                card's folder writes the table track printed (HOTA, MOTA,
+                IDF1, ms/frame and a frame's parts, scoring seconds).
+                (b) --detect_per_frame k = 1, 2, 3 on phase 3's path and
+                frames: K2 only on detected frames, no host sync in any
+                step (the predict-only ones too), a run resumed from the
+                state saved after frame 7 equal to one run, the
+                predict-only step timed alone, a CPU replay with the same
+                ids.
 Then K2 on the offline path's last stage-1 and stage-2/3 problems and on
 the last tick's 2S problems, K1 on step_frame's last problem and K3 on the
 last tick's are timed (ms, us per sweep, bound) and profiled (where a
@@ -135,6 +155,7 @@ import contextlib
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -200,6 +221,12 @@ PAN_PX = 8                    # the pan's shift a frame
 REID_REL_TOL = 1e-3           # card vs CPU, float32 (TF32 off)
 ECC_SHIFT_TOL = 0.5           # px
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
+# phase 8a: the seeded MOT17-layout dataset scored through cli.track
+SCORE_DATASET = "smoke_mot17"
+SCORE_SEQS = 3
+SCORE_FRAMES = 200
+SCORE_HW = (1080, 1920)
+DETECT_EVERY = (2, 3)         # phase 8b: --detect_per_frame k
 
 
 def log(msg):
@@ -1526,14 +1553,15 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     return rec, pipe, dets, results
 
 
-def no_sync_step(step, slab, det, **kw):
-    """One tracker step with torch.cuda.set_sync_debug_mode("error"): a
-    device-to-host wait inside the step raises."""
+def no_sync_step(step, *args, **kw):
+    """One tracker step (or predict-only step) with
+    torch.cuda.set_sync_debug_mode("error"): a device-to-host wait inside
+    the step raises."""
     import torch
 
     torch.cuda.set_sync_debug_mode("error")
     try:
-        return step(slab, det, **kw)
+        return step(*args, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
 
@@ -2261,6 +2289,458 @@ def detector_reference_check(dev):
         f"{worst:.2e} (tolerance 1e-3)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: scoring and the detection-file seam through cli.track.main, and
+# --detect_per_frame on the full-width path
+# ---------------------------------------------------------------------------
+
+def pedestrian_tracks(rng, n_frames, hw, n_peds=(40, 60), crossings=5):
+    """Constant-velocity pedestrians in a (h, w) frame: rows of (x0, y0,
+    vx, vy, w, h, first frame, last frame, class), x0/y0 the box's top
+    left at its first frame. Widths 30-90 px at aspect 0.41, velocities up
+    to 3 px a frame; pairs of pedestrians 2k, 2k+1 (k < crossings) walk
+    through one point at one frame from opposite sides. Then the MOT17
+    distractors: two people on a vehicle (class 2) and a static person
+    (class 7)."""
+    h_img, w_img = hw
+    n = int(rng.integers(n_peds[0], n_peds[1] + 1))
+    tracks = []
+    for _ in range(n):
+        w = rng.uniform(30, 90)
+        h = w / 0.41
+        first = int(rng.integers(1, n_frames // 2))
+        last = int(rng.integers(first + n_frames // 4, n_frames + 1))
+        vx, vy = rng.uniform(-3, 3, 2)
+        tracks.append([rng.uniform(0, w_img - w), rng.uniform(0, h_img - h),
+                       vx, vy, w, h, first, last, 1])
+    for k in range(crossings):
+        a, b = tracks[2 * k], tracks[2 * k + 1]
+        b[6:8] = a[6:8]
+        meet = int(rng.integers(a[6], a[7] + 1))
+        mx, my = rng.uniform(100, w_img - 200), rng.uniform(100, h_img - 300)
+        b[2], b[3] = -a[2], a[3] * 0.5
+        for t in (a, b):
+            t[0] = mx - t[2] * (meet - t[6])
+            t[1] = my - t[3] * (meet - t[6])
+    for cls, v in ((2, 2.5), (2, -2.0), (7, 0.0)):
+        w = rng.uniform(40, 80)
+        tracks.append([rng.uniform(200, w_img - 300),
+                       rng.uniform(100, h_img - 300), v, 0.0, w, w / 0.41,
+                       1, n_frames, cls])
+    return tracks
+
+
+def write_mot_dataset(root, n_seqs=3, n_frames=200, hw=(1080, 1920),
+                      seed=0, n_peds=(40, 60)):
+    """A seeded MOT17-layout dataset under ``root``: train/<seq>/ with
+    seqinfo.ini, gt/gt.txt (frame,id,x,y,w,h,1,class,visibility 1; a row
+    while the box's centre is in the frame) and img1/ of empty
+    NNNNNN.jpg placeholders (never decoded: they give the frame count);
+    dets/<seq>.txt, a detector's output made from the gt (every row,
+    distractors too, 10% missed, 2 px jitter, scores U(0.5, 0.95), plus 5
+    false positives a frame at U(0.1, 0.45) for ByteTrack's low-score
+    stage); configs/smoke_mot17.yaml pointing TRACK_EVAL at the gt.
+    Returns (config dir, detections dir, {seq: frames})."""
+    import configparser
+
+    import yaml
+
+    from yolov7_tracker_tpu_torch.data.detections import save_mot_detections
+
+    rng = np.random.default_rng(seed)
+    h_img, w_img = hw
+    seqs = {}
+    for s in range(n_seqs):
+        seq = f"SMOKE-{s + 1:02d}"
+        seq_dir = os.path.join(root, "train", seq)
+        os.makedirs(os.path.join(seq_dir, "img1"), exist_ok=True)
+        os.makedirs(os.path.join(seq_dir, "gt"), exist_ok=True)
+        for f in range(1, n_frames + 1):
+            open(os.path.join(seq_dir, "img1", f"{f:06d}.jpg"), "w").close()
+        gt_rows, dets = [], {}
+        for tid, (x0, y0, vx, vy, w, h, first, last, cls) in enumerate(
+                pedestrian_tracks(rng, n_frames, hw, n_peds), start=1):
+            for f in range(int(first), int(last) + 1):
+                x, y = x0 + vx * (f - first), y0 + vy * (f - first)
+                if not (0 <= x + w / 2 < w_img and 0 <= y + h / 2 < h_img):
+                    continue
+                gt_rows.append((f, f"{f},{tid},{x:.2f},{y:.2f},{w:.2f},"
+                                   f"{h:.2f},1,{cls},1.0"))
+                if rng.uniform() < 0.1:
+                    continue
+                jx, jy, jw, jh = rng.normal(0, 2.0, 4)
+                dets.setdefault(f, []).append(
+                    [x + jx, y + jy, x + jx + w + jw, y + jy + h + jh,
+                     rng.uniform(0.5, 0.95), 0])
+        for f in range(1, n_frames + 1):
+            for _ in range(5):
+                w = rng.uniform(30, 90)
+                x, y = rng.uniform(0, w_img - w), rng.uniform(0, h_img - 220)
+                dets.setdefault(f, []).append(
+                    [x, y, x + w, y + w / 0.41, rng.uniform(0.1, 0.45), 0])
+        with open(os.path.join(seq_dir, "gt", "gt.txt"), "w") as fh:
+            fh.write("\n".join(r for _, r in sorted(
+                gt_rows, key=lambda r: r[0])) + "\n")
+        save_mot_detections(os.path.join(root, "dets", f"{seq}.txt"),
+                            {f: np.asarray(v) for f, v in dets.items()})
+        ini = configparser.ConfigParser()
+        ini["Sequence"] = {"name": seq, "imDir": "img1", "frameRate": "30",
+                           "seqLength": str(n_frames), "imWidth": str(w_img),
+                           "imHeight": str(h_img), "imExt": ".jpg"}
+        with open(os.path.join(seq_dir, "seqinfo.ini"), "w") as fh:
+            ini.write(fh)
+        seqs[seq] = n_frames
+    cfg_dir = os.path.join(root, "configs")
+    os.makedirs(cfg_dir, exist_ok=True)
+    with open(os.path.join(cfg_dir, f"{SCORE_DATASET}.yaml"), "w") as fh:
+        yaml.safe_dump({
+            "DATASET_ROOT": root,
+            "CATEGORY_NAMES": ["pedestrian"],
+            "TRACK_EVAL": {
+                "GT_FOLDER": os.path.join(root, "train"),
+                "GT_LOC_FORMAT": "{gt_folder}/{seq}/gt/gt.txt",
+                # lengths from each sequence's seqinfo.ini
+                "SEQ_INFO": {seq: None for seq in seqs}}}, fh)
+    return cfg_dir, os.path.join(root, "dets"), seqs
+
+
+def no_sync_after_first(step):
+    """``step`` with every call but the first under no_sync_step; the
+    first makes the solver's per-device constants (a host-to-device copy,
+    which waits)."""
+    calls = []
+
+    def checked(*args, **kw):
+        if not calls:
+            calls.append(1)
+            return step(*args, **kw)
+        return no_sync_step(step, *args, **kw)
+
+    return checked
+
+
+@contextlib.contextmanager
+def steps_without_sync():
+    """Every tracker step and predict-only step of a TrackingPipeline
+    built inside the block, but the first of each, runs under
+    torch.cuda.set_sync_debug_mode("error") (no_sync_after_first): a host
+    sync inside a step raises."""
+    from yolov7_tracker_tpu_torch import pipeline
+
+    build, build_predict = pipeline.build_tracker, pipeline.build_predict_only
+
+    def no_sync_build(cfg, device="cpu"):
+        step, cfg = build(cfg, device)
+        return no_sync_after_first(step), cfg
+
+    pipeline.build_tracker = no_sync_build
+    pipeline.build_predict_only = lambda cfg: no_sync_after_first(
+        build_predict(cfg))
+    try:
+        yield
+    finally:
+        pipeline.build_tracker, pipeline.build_predict_only = (
+            build, build_predict)
+
+
+@contextlib.contextmanager
+def recording(obj, name, kept, sync=False):
+    """obj.name wrapped for the block: each call's (seconds, result,
+    positional arguments) is appended to ``kept``; with ``sync`` the clock
+    waits for the card."""
+    import torch
+
+    fn = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.time()
+        out = fn(*args, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        kept.append((time.time() - t0, out, args))
+        return out
+
+    setattr(obj, name, timed)
+    try:
+        yield
+    finally:
+        setattr(obj, name, fn)
+
+
+def tables_equal(a, b):
+    """Two score tables ({class: {seq: {metric: value}}}) equal in every
+    number."""
+    if a.keys() != b.keys():
+        return False
+    for c in a:
+        if a[c].keys() != b[c].keys():
+            return False
+        for seq in a[c]:
+            ra, rb = a[c][seq], b[c][seq]
+            if not isinstance(ra, dict):       # the class-averaged row
+                ra, rb = {seq: ra}, {seq: rb}
+            if ra.keys() != rb.keys() or not all(
+                    np.array_equal(np.asarray(ra[k], np.float64),
+                                   np.asarray(rb[k], np.float64),
+                                   equal_nan=True) for k in ra):
+                return False
+    return True
+
+
+def read_tree(folder, ext=(".txt", ".csv")):
+    """{file name: bytes} of a results folder."""
+    out = {}
+    for name in sorted(os.listdir(folder)):
+        if name.endswith(ext):
+            with open(os.path.join(folder, name), "rb") as fh:
+                out[name] = fh.read()
+    return out
+
+
+def scoring_phase(dev):
+    """Phase 8a: the seeded MOT17-layout dataset tracked from its
+    detection files and scored, through cli.track.main (--detections,
+    --track_eval true, the CLI's capacity 256 / det_capacity 300), for
+    bytetrack and sort, once on the card and once with --device cpu: the
+    MOT txts and CSVs byte for byte and the score tables number for number
+    equal; cli.evaluate.main on the card's folder writes the table track
+    printed. Returns {tracker: record} and {tracker: K2 launches}."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.cli import evaluate, track
+    from yolov7_tracker_tpu_torch.eval import evaluator
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.pipeline import TrackingPipeline
+
+    root = os.path.join(OUT_DIR, "mot17_smoke")
+    shutil.rmtree(root, ignore_errors=True)    # a dataset of an older run
+    cfg_dir, det_dir, seqs = write_mot_dataset(
+        root, SCORE_SEQS, SCORE_FRAMES, SCORE_HW)
+    n_frames = sum(seqs.values())
+    with open(os.path.join(root, "train", next(iter(seqs)), "gt",
+                           "gt.txt")) as fh:
+        gt_rows = sum(1 for _ in fh)
+    log(f"phase 8a: {len(seqs)} MOT17-layout sequences of {SCORE_FRAMES} "
+        f"frames at {SCORE_HW[1]}x{SCORE_HW[0]} under {root} "
+        f"({gt_rows} gt rows in the first)")
+    records, launches = {}, {}
+    for tracker in ("bytetrack", "sort"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            argv = ["--dataset", SCORE_DATASET, "--config_dir", cfg_dir,
+                    "--split", "train", "--tracker", tracker,
+                    "--model", "yolov7-tiny", "--detections", det_dir,
+                    "--track_eval", "true", "--device", device,
+                    "--output_dir", os.path.join(root, f"{tracker}_{device}")]
+            seq_runs, scored = [], []
+            torch.cuda.synchronize()
+            auction.LAUNCHES = 0
+            with steps_without_sync(), \
+                    recording(TrackingPipeline, "run_sequence_detections",
+                              seq_runs, sync=True), \
+                    recording(track, "evaluate_run", scored):
+                folder = track.main(argv)
+            runs[device] = {
+                "folder": folder, "launches": auction.LAUNCHES,
+                "track_s": sum(t for t, _, _ in seq_runs),
+                "score_s": scored[0][0], "table": scored[0][1],
+                "files": read_tree(folder), "pipe": seq_runs[0][2][0],
+                "dets": seq_runs[0][2][1]}
+        card, cpu = runs["cuda"], runs["cpu"]
+        if card["launches"] != 2 * n_frames or cpu["launches"] != 0:
+            raise AssertionError(
+                f"{tracker}: K2 launches {card['launches']} on the card, "
+                f"{cpu['launches']} on the CPU, for {n_frames} frames")
+        differ = sorted(k for k in card["files"].keys() | cpu["files"]
+                        if card["files"].get(k) != cpu["files"].get(k))
+        if differ or len(card["files"]) != len(seqs) + 1:
+            raise AssertionError(
+                f"{tracker}: files of the card's run {sorted(card['files'])}"
+                f", differing from the CPU's: {differ}")
+        if not tables_equal(card["table"], cpu["table"]):
+            raise AssertionError(f"{tracker}: card and CPU score tables "
+                                 "differ")
+        eval_out = os.path.join(root, f"{tracker}_evaluate")
+        rc = evaluate.main(["--benchmark", "MOT17", "--gt_folder",
+                            os.path.join(root, "train"), "--trackers_folder",
+                            card["folder"], "--output_folder", eval_out])
+        with open(os.path.join(eval_out, "summary.json")) as fh:
+            summary = json.load(fh)
+        want = {"pedestrian": evaluator.summarize(
+            card["table"]["pedestrian"]["COMBINED_SEQ"])}
+        if rc != 0 or summary != want:
+            raise AssertionError(f"{tracker}: cli.evaluate's summary.json "
+                                 f"{summary} != track's table {want}")
+        head = want["pedestrian"]
+        rows = sum(v.count(b"\n") for k, v in card["files"].items()
+                   if k.endswith(".txt"))
+        parts = detections_breakdown(card["pipe"], card["dets"])
+        records[tracker] = {
+            "HOTA": head["HOTA"], "MOTA": head["MOTA"], "IDF1": head["IDF1"],
+            "IDSW": head["IDSW"], "frames": n_frames, "mot_rows": rows,
+            "ms_per_frame": card["track_s"] / n_frames * 1e3,
+            "cpu_ms_per_frame": cpu["track_s"] / n_frames * 1e3,
+            "scoring_s": card["score_s"], "cpu_scoring_s": cpu["score_s"],
+            "k2_launches": card["launches"], "frame_parts_ms": parts,
+            "card_vs_cpu": "MOT txts and CSV byte-equal, tables equal",
+            "evaluate_cli": "summary.json == track's table"}
+        launches[tracker] = card["launches"]
+        log(f"{tracker} from detection files on {card_line()}: HOTA "
+            f"{head['HOTA'] * 100:.3f} MOTA {head['MOTA'] * 100:.3f} IDF1 "
+            f"{head['IDF1'] * 100:.3f} IDSW {head['IDSW']:.0f}; tracking "
+            f"{records[tracker]['ms_per_frame']:.3f} ms/frame on the card "
+            f"({records[tracker]['cpu_ms_per_frame']:.3f} on the CPU) over "
+            f"{n_frames} frames, {card['launches']} K2 launches; scoring "
+            f"{card['score_s']:.2f} s; {rows} MOT rows, card == CPU byte "
+            "for byte, cli.evaluate == track's table")
+    return records, launches
+
+
+def detections_breakdown(pipe, dets):
+    """One frame of the detections path on the card, each part timed alone
+    with CUDA events on the slab halfway through the sequence: the rows'
+    H2D (make_det_slab), the tracker step, and the packed D2H."""
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    def det_of(f):
+        rows = dets.get(f, np.zeros((0, 6), np.float32))
+        return S.make_det_slab(pipe.tcfg, rows[:, :4], rows[:, 4],
+                               rows[:, 5], np.ones(len(rows), bool),
+                               pipe.device)
+
+    half = max(dets) // 2
+    slab = pipe.init_tracker()
+    for f in range(1, half):
+        slab, out = pipe.step(slab, det_of(f))
+    det = det_of(half)
+    packed = S.FrameOutput(*(x[None] for x in out))
+    parts = {
+        "rows_h2d": cuda_ms(lambda: det_of(half), 20),
+        "step": cuda_ms(lambda: pipe.step(slab, det), 20),
+        "pack_d2h": cuda_ms(lambda: pipe.unpack_output(
+            pipe.pack_output(packed)), 20)}
+    log(f"{pipe.tcfg.tracker}, a frame of the detections path on "
+        f"{card_line()} ({int(det.valid.sum())} rows, "
+        f"{int(out.valid.sum())} tracks out): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in parts.items()))
+    return parts
+
+
+def detect_every_phase(sd, dev):
+    """Phase 8b: --detect_per_frame on phase 3's path (yolov7-w6 @1088,
+    batch 8, ByteTrack 128 / 300) over phase 3's 16 frames at k = 1 (the
+    reference for the times), 2 and 3: every step, the predict-only ones
+    too, but each first, with no host sync; K2 launches on detected
+    frames only (2 each); at k > 1 a run resumed from the state saved
+    after frame 7 (mid-cadence) equal to the uninterrupted run, and the
+    predict-only step timed alone; a CPU replay of the card's detections
+    and cadence with the same ids and boxes within 1e-2. Returns
+    ({k: record}, {k: K2 launches})."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.data import writer
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+    from yolov7_tracker_tpu_torch.trackers.registry import (
+        build_predict_only, build_tracker)
+
+    frames = offline_frames()
+    n = len(frames)
+    records, launches = {}, {}
+    for k in (1,) + DETECT_EVERY:
+        with steps_without_sync():
+            pipe = tracker_pipeline(sd, dev, dict(tracker="bytetrack"),
+                                    dict(detect_per_frame=k))
+        pipe.run_sequence(iter(frames[:8]))         # warm-up, not counted
+        kept = []                # the detected frames' inputs, in order
+        step = pipe.step
+
+        def recording_step(slab, det, **kw):
+            kept.append(S.DetSlab(*(x.clone() for x in det)))  # no sync
+            return step(slab, det, **kw)
+
+        pipe.step = recording_step
+        torch.cuda.synchronize()
+        auction.LAUNCHES = 0
+        t0 = time.time()
+        results, _ = pipe.run_sequence_stateful(iter(frames))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launched = auction.LAUNCHES
+        pipe.step = step
+        detected = list(range(0, n, k))
+        if len(kept) != len(detected) or launched != 2 * len(detected):
+            raise AssertionError(
+                f"detect_per_frame={k}: {len(kept)} detected frames, "
+                f"{launched} K2 launches, for {len(detected)} frames of "
+                "the cadence")
+        dets = dict(zip(detected, kept))
+        if [r[0] for r in results] != list(range(1, n + 1)):
+            raise AssertionError(f"detect_per_frame={k}: frame ids "
+                                 f"{[r[0] for r in results]}")
+        if k > 1:
+            # resumed from the state saved after frame 7 (mid-cadence;
+            # each detector batch is one frame here, as in one run)
+            path = os.path.join(OUT_DIR, f"detect_every_{k}_state.npz")
+            first, mid = pipe.run_sequence_stateful(iter(frames[:7]))
+            pipe.save_tracker_state(mid, path)
+            second, _ = pipe.run_sequence_stateful(
+                iter(frames[7:]), initial_slab=pipe.load_tracker_state(path))
+            whole = writer.save_results(OUT_DIR, f"detect_every_{k}",
+                                        results)
+            resumed = writer.save_results(
+                OUT_DIR, f"detect_every_{k}_resumed", first + second)
+            if read_file(whole) != read_file(resumed):
+                raise AssertionError(f"detect_per_frame={k}: the resumed "
+                                     "run's MOT txt differs from one run's")
+        # CPU replay: the card's detections on detected frames, the
+        # predict-only step between
+        cpu_step, cfg = build_tracker(pipe.tcfg, "cpu")
+        predict = build_predict_only(cfg)
+        slab = S.init_slab(cfg, "cpu")
+        for f in range(n):
+            if f in dets:
+                slab, out = cpu_step(slab, S.DetSlab(*(x.cpu()
+                                                       for x in dets[f])))
+            else:
+                slab, out = predict(slab)
+            _, ids, tlwhs, _ = results[f]
+            v = out.valid.numpy()
+            if out.track_id.numpy()[v].tolist() != ids or not np.allclose(
+                    out.tlwh.numpy()[v], np.asarray(tlwhs).reshape(-1, 4),
+                    atol=1e-2):
+                raise AssertionError(f"detect_per_frame={k}: CPU replay "
+                                     f"differs at frame {f}")
+        tracks = [len(r[1]) for r in results]
+        if k > 1:
+            predict_ms = cuda_ms(lambda: pipe.predict_only(mid), 20)
+        records[str(k)] = {
+            "ms_per_frame": wall / n * 1e3, "frames": n,
+            "detected_frames": len(detected), "k2_launches": launched,
+            "tracks_per_frame_mean": float(np.mean(tracks)),
+            "cpu_replay": "same ids, boxes 1e-2"}
+        if k > 1:
+            records[str(k)]["resumed_after_frame_7"] = \
+                "MOT txt equal to one run"
+            records[str(k)]["predict_only_ms"] = predict_ms
+            log(f"detect_per_frame={k}: the predict-only step alone on the "
+                f"slab after frame 7 ({int(mid.occupied.sum())} tracks): "
+                f"{predict_ms:.3f} ms (CUDA events)")
+        launches[str(k)] = launched
+        log(f"detect_per_frame={k} on {card_line()}: {wall / n * 1e3:.2f} "
+            f"ms/frame over {n} frames ({len(detected)} detected), "
+            f"{launched} K2 launches, tracks/frame mean "
+            f"{np.mean(tracks):.1f}; no host sync in any step; "
+            f"{'resumed after frame 7 == one run; ' if k > 1 else ''}"
+            "CPU replay: same ids, boxes 1e-2")
+    return records, launches
+
+
+def read_file(path):
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
 def path_timings(square, step_last, tick_last, dev):
     """K1 on step_frame's last problem and K3 on a serving tick's, as their
     paths gave them: time, sweeps, cells and bound of the timed build, then
@@ -2424,6 +2904,12 @@ def main(argv=None):
         deepmot_streams_phase(sd, dev)
     trackers["dhn"] = dhn_timings(dev)
     trackers["aflink_gsi"] = aflink_phase(strongsort_rows, dev)
+    t8 = time.time()
+    trackers["scoring"], k2_scoring = scoring_phase(dev)
+    t8b = time.time()
+    trackers["detect_per_frame"], k2_detect_every = detect_every_phase(sd,
+                                                                       dev)
+    log(f"phase 8a {t8b - t8:.1f} s, phase 8b {time.time() - t8b:.1f} s")
 
     # K2 on the last frame's two solves, as the main path gave them, and on
     # the serving path's stages 2+3: one launch of B = 2 S problems
@@ -2448,6 +2934,8 @@ def main(argv=None):
               "launches_serving_reid": k2_serve_reid,
               "launches_step_frame_reid": k2_step_reid,
               "launches_deepmot_s8": k2_deepmot,
+              "launches_scoring": k2_scoring,
+              "launches_detect_per_frame": k2_detect_every,
               "max_abs_err": float(worst), "library_ms": None, **t1,
               **{f"{k}_b2": v for k, v in t2.items()},
               **{f"{k}_serving": v for k, v in t16.items()}}

@@ -577,3 +577,97 @@ def test_downscale_on_the_card_equals_the_cpu(card, hw):
     want = downscale2(to_gray(frame))
     got = downscale2(to_gray(frame.to(card)))
     assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracker", ["bytetrack", "c_bioutracker"])
+def test_predict_only_step_on_the_card_equals_the_cpu(card, tracker):
+    """Full steps on every third frame and the predict-only step between
+    (--detect_per_frame 3), on the card with no host sync in any step:
+    the same tracks as the CPU, boxes within 1e-3."""
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+    from yolov7_tracker_tpu_torch.trackers.registry import (
+        build_predict_only, build_tracker)
+
+    cfg = S.TrackerConfig(tracker=tracker, capacity=32, det_capacity=24,
+                          conf_thresh=0.5)
+    outs = {}
+    for dev in ("cpu", card):
+        step, rcfg = build_tracker(cfg, dev)
+        predict = build_predict_only(rcfg)
+        rng = np.random.default_rng(0)
+        dets = [_card_dets(rcfg, rng, t, dev) for t in range(12)]
+        slab, out = step(S.init_slab(rcfg, dev), dets[0])   # constants
+        got = [out]
+        if dev == card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(1, 12):
+                slab, out = (step(slab, dets[t]) if t % 3 == 0
+                             else predict(slab))
+                got.append(out)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs[str(dev)] = got
+    coasted = 0
+    for t, (a, b) in enumerate(zip(outs["cpu"], outs[str(card)])):
+        v = a.valid
+        assert torch.equal(v, b.valid.cpu()), t
+        assert torch.equal(a.track_id[v], b.track_id.cpu()[v]), t
+        assert torch.allclose(a.tlwh[v], b.tlwh.cpu()[v], atol=1e-3), t
+        coasted += int(v.sum()) if t % 3 else 0
+    assert coasted > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracker", ["bytetrack", "sort"])
+def test_detections_path_on_the_card_equals_the_cpu(card, tracker):
+    """run_sequence_detections (the --detections seam) at the CLI's
+    capacity 256 / det_capacity 300, every step on the card after the
+    first (which makes the solver's per-device constants) with no host
+    sync: the same rows as the CPU."""
+    from yolov7_tracker_tpu_torch.pipeline import TrackingPipeline
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+    from yolov7_tracker_tpu_torch.trackers.registry import build_tracker
+
+    rng = np.random.default_rng(2)
+    pos = rng.uniform(0, 1700, (40, 2))
+    vel = rng.uniform(-3, 3, (40, 2))
+    dets = {}
+    for f in range(1, 31):
+        xy = pos + vel * f + rng.normal(0, 2.0, pos.shape)
+        keep = rng.uniform(size=40) > 0.1
+        rows = np.c_[xy, xy + [40.0, 97.0], rng.uniform(0.5, 0.95, 40),
+                     np.zeros(40)][keep]
+        fp = rng.uniform(0, 1700, (5, 2))
+        dets[f] = np.r_[rows, np.c_[fp, fp + [40.0, 97.0],
+                                    rng.uniform(0.1, 0.45, 5), np.zeros(5)]]
+    cfg = S.TrackerConfig(tracker=tracker, capacity=256, det_capacity=300)
+    results = {}
+    for dev in ("cpu", card):
+        pipe = TrackingPipeline.__new__(TrackingPipeline)
+        pipe.device = torch.device(dev)
+        step, pipe.tcfg = build_tracker(cfg, dev)
+
+        calls = []
+
+        def no_sync(slab, det, **kw):
+            calls.append(1)
+            if pipe.device.type != "cuda" or len(calls) == 1:
+                return step(slab, det, **kw)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(slab, det, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        pipe.step = no_sync
+        results[str(dev)] = pipe.run_sequence_detections(dets, 30)
+    rows = 0
+    for a, b in zip(results["cpu"], results[str(card)]):
+        assert a[0] == b[0] and a[1] == b[1]
+        np.testing.assert_allclose(np.reshape(a[2], (-1, 4)),
+                                   np.reshape(b[2], (-1, 4)), atol=1e-3)
+        rows += len(a[1])
+    assert rows > 300

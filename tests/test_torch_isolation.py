@@ -30,7 +30,7 @@ def test_port_imports_no_jax():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "msgpack", "yolov7_tracker_tpu"))
-        assert len(names) >= 35, names
+        assert len(names) >= 50, names
         for new in ("ops.auction_square", "ops.cuda_build", "cli.serve",
                     "trackers.sort", "trackers.appearance",
                     "trackers.c_biou", "trackers.uavmot", "trackers.botsort",
@@ -38,7 +38,11 @@ def test_port_imports_no_jax():
                     "trackers.gmc", "reid", "reid.osnet",
                     "reid.deepsort_cnn", "reid.extractor", "reid.dhn",
                     "reid.aflink", "trackers.deepmot",
-                    "trackers.aflink_post", "utils.flax_msgpack"):
+                    "trackers.aflink_post", "utils.flax_msgpack",
+                    "eval", "eval.rle", "eval.data", "eval.metrics",
+                    "eval.readers", "eval.evaluator", "eval.motmetrics_lite",
+                    "eval.cocoeval_lite", "eval.baselines", "eval.plotting",
+                    "cli.evaluate", "cli.track_demo", "data.detections"):
             assert "yolov7_tracker_tpu_torch." + new in names, new
         print("BAD", bad)
     """)
@@ -64,6 +68,9 @@ def test_entry_points_need_a_device():
             track.main(["--dataset", "mot", "--track_eval", "false"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--streams", "synth://2x64x64"])
+        from yolov7_tracker_tpu_torch.cli import track_demo
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            track_demo.main(["--obj", "0"])
         print("OK")
     """)
     assert proc.returncode == 0, proc.stderr

@@ -301,9 +301,9 @@ def test_serve_sigterm_checkpoints_and_flags(stream_dirs, tmp_path,
     restored."""
     orig = serve._open_source
 
-    def wrapped(obj):
+    def wrapped(obj, max_frames):
         def gen():
-            for k, f in enumerate(orig(obj)):
+            for k, f in enumerate(orig(obj, max_frames)):
                 if k == 2 and obj == stream_dirs[0]:
                     os.kill(os.getpid(), signal.SIGTERM)
                 yield f
@@ -371,8 +371,8 @@ def _hiccup(monkeypatch, slow, pause):
     """Make source ``slow`` wait on ``pause`` before its 2nd frame."""
     orig = serve._open_source
 
-    def wrapped(obj):
-        src = orig(obj)
+    def wrapped(obj, max_frames):
+        src = orig(obj, max_frames)
         if obj != slow:
             return src
 
@@ -435,10 +435,30 @@ def test_serve_stalled_stream_rejoins_without_corruption(tmp_path,
         assert "rejoined after stall" in out  # ...then must rejoin
 
 
-def test_unsupported_sources_name_the_gap(tmp_path):
-    for src in ("rtsp://cam/1", "0", str(tmp_path / "clip.mp4")):
-        with pytest.raises(NotImplementedError, match="not ported"):
+def test_unsupported_sources_name_the_gap(tmp_path, monkeypatch):
+    """Video files, webcams and RTSP/HTTP URLs open through
+    cv2.VideoCapture, as in the JAX package (a live source with
+    --max_frames, and no resume fast-forward); a source that does not
+    open names itself, and a bad synth spec says what it wants."""
+    opened = []
+
+    class Closed:
+        def __init__(self, src):
+            opened.append(src)
+
+        def isOpened(self):
+            return False
+
+    monkeypatch.setattr(cv2, "VideoCapture", Closed)
+    for src, want in (("rtsp://cam/1", "rtsp://cam/1"), ("0", 0),
+                      (str(tmp_path / "clip.mp4"), str(tmp_path /
+                                                        "clip.mp4"))):
+        with pytest.raises(OSError, match="cannot open"):
             serve.main(["--streams", src] + _common(tmp_path))
+        assert opened[-1] == want
+    assert serve._is_live("0") and serve._is_live("http://cam/x")
+    assert not serve._is_live("synth://2x8x8") and not serve._is_live(
+        str(tmp_path))
     with pytest.raises(ValueError, match="synth spec"):
         SynthFrames("synth://nonsense")
 

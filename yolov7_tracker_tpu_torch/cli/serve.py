@@ -28,10 +28,11 @@ resumes the other's files. Results flush to the per-stream MOT txt
 incrementally (append mode), so a crash loses at most one checkpoint
 interval and a relaunch never clobbers rows already written.
 
-Sources: image directories and ``synth://`` specs (data/sequence.py).
-Both replay from their first frame, so a resumed stream fast-forwards to
-its checkpointed frame. Video files, webcams and RTSP/HTTP streams are
-not ported yet and raise NotImplementedError.
+Sources (data/sequence.py): image directories, video files, ``synth://``
+specs, and webcams (a digit id) or RTSP/HTTP URLs. The first three replay
+from their first frame, so a resumed stream fast-forwards to its
+checkpointed frame; a live source resumes at its live point. Video files
+and live sources are read through cv2.VideoCapture (OpenCV on the host).
 
     python -m yolov7_tracker_tpu_torch.cli.serve \\
         --streams cam1_frames/ cam2_frames/ "synth://600x1080x1920?seed=3" \\
@@ -60,7 +61,8 @@ MAX_RETURN_ROWS = 100_000
 def parse_args(argv=None):
     p = argparse.ArgumentParser("torch multi-stream tracking server")
     p.add_argument("--streams", type=str, nargs="+", required=True,
-                   help="N sources: image directories or synth:// specs "
+                   help="N sources: image directories, video files, "
+                        "synth:// specs, webcam ids or rtsp/http URLs "
                         "(same resolution)")
     p.add_argument("--tracker", type=str, default="bytetrack",
                    choices=["sort", "bytetrack", "c_bioutracker", "uavmot",
@@ -189,19 +191,28 @@ def _stream_name(i, obj):
     return f"{i:02d}_{safe}"
 
 
-def _open_source(obj):
-    """Frame iterator over one source: a synth:// spec or an image
-    directory (an unreadable image is skipped with a warning: one
-    truncated camera dump must not end the stream)."""
+def _is_live(obj):
+    """Webcam/RTSP sources cannot be replayed; files, dirs and synth specs
+    can (synth regenerates deterministically from its spec)."""
+    if obj.startswith("synth://"):
+        return False
+    return obj.isdigit() or "://" in obj
+
+
+def _open_source(obj, max_frames):
+    """Frame iterator over one source: a synth:// spec, a live webcam or
+    URL (at most ``max_frames`` frames when > 0), an image directory (an
+    unreadable image is skipped with a warning: one truncated camera dump
+    must not end the stream) or a video file."""
     from ..data import sequence as seqmod
 
     if obj.startswith("synth://"):
         return iter(seqmod.SynthFrames(obj))
+    if _is_live(obj):
+        return iter(seqmod.StreamFrames(obj, max_frames=max_frames))
     if os.path.isdir(obj):
         return seqmod.image_dir_frames(obj, on_error="skip")
-    raise NotImplementedError(
-        f"source {obj!r}: video files, webcams and RTSP/HTTP streams are "
-        "not ported yet; serve an image directory or a synth:// spec")
+    return iter(seqmod.VideoFrames(obj))
 
 
 def main(argv=None):
@@ -387,11 +398,14 @@ def main(argv=None):
     t0 = time.time()
     tick = 0
     try:
-        # sources replay from their first frame: a resumed stream skips
-        # to its checkpointed frame, inside its reader thread
+        # replayable sources resume at the checkpointed frame (a live
+        # stream resumes at its live point by nature); the fast-forward
+        # skip runs inside each reader thread
         for i, s in enumerate(opts.streams):
             readers.append(_StreamReader(
-                _open_source(s), skip=bases[i], depth=opts.prefetch_depth))
+                _open_source(s, opts.max_frames),
+                skip=0 if _is_live(s) else bases[i],
+                depth=opts.prefetch_depth))
         while not stop["requested"]:
             if opts.max_frames and tick >= opts.max_frames:
                 break

@@ -1,24 +1,33 @@
 """Dataset tracking CLI on the PyTorch port (port of
-yolov7_tracker_tpu/cli/track.py, image-dir sequences).
+yolov7_tracker_tpu/cli/track.py).
 
 Usage:
     python -m yolov7_tracker_tpu_torch.cli.track --dataset mot17 \
         --tracker strongsort --reid_model_path osnet_x0_25.pth \
-        --gmc ecc --track_eval false [--aflink linker.msgpack] [--gsi] \
-        [--device cpu]
+        --gmc ecc [--aflink linker.msgpack] [--gsi] [--device cpu]
+    python -m yolov7_tracker_tpu_torch.cli.track --dataset mot17 \
+        --tracker bytetrack --detections dets/   # MOT det txts, no detector
     python -m yolov7_tracker_tpu_torch.cli.track --dataset mot17 \
         --tracker deepmot --dhn_path weights/dhn_h32.msgpack \
-        --dhn_hidden 32 --track_eval false
+        --dhn_hidden 32
 
 Per sequence: frames -> device letterbox -> YOLOv7 -> NMS (-> ReID crops
 and CNN, GMC warp) -> the tracker's slab step (deepmot: the DHN on the
-device) -> (AFLink, GSI on the result rows) -> MOT txt. Runs on the GPU
+device) -> (AFLink, GSI on the result rows) -> MOT txt. With
+--detections <dir> the tracker reads <dir>/<seq>.txt (MOT det rows,
+data/detections.py) instead of running the detector; with
+--detect_per_frame k it detects on every k-th frame and runs the
+predict-only step between. Then, when the dataset's config has a
+TRACK_EVAL section and --track_eval is true (the default), the run is
+scored (eval/, HOTA, CLEAR, Identity and Count) and the table printed;
+``cli.evaluate`` scores a results folder on its own. Runs on the GPU
 unless --device says otherwise. Dataset configs come from the package's
 configs/ (the JAX package's copies), then ./config_files and
-./tracker/config_files. --gmc defaults to orb for botsort and ecc
-for strongsort, as in the JAX CLI; orb needs OpenCV on the host, so on a
-machine without it pass --gmc ecc or --gmc none. Scoring with TrackEval
-is not ported yet: --track_eval must be false.
+./tracker/config_files. --model_path is a Flax variables file (.msgpack
+or .npz, the JAX CLI's checkpoints) or a torch state_dict in the port's
+module names. --gmc defaults to orb for botsort and ecc for strongsort,
+as in the JAX CLI; orb needs OpenCV on the host, so on a machine without
+it pass --gmc ecc or --gmc none.
 """
 
 from __future__ import annotations
@@ -34,15 +43,20 @@ import yaml
 def parse_args(argv=None):
     p = argparse.ArgumentParser("torch tracker")
     p.add_argument("--dataset", type=str, default="visdrone")
+    p.add_argument("--data_format", type=str, default="origin",
+                   choices=["origin", "yolo"])
     p.add_argument("--split", type=str, default="test")
+    p.add_argument("--split_txt", type=str, default="",
+                   help="image-list txt for --data_format yolo")
     p.add_argument("--tracker", type=str, default="sort",
                    choices=["sort", "bytetrack", "c_bioutracker", "uavmot",
                             "botsort", "deepsort", "strongsort", "deepmot"])
     p.add_argument("--model", type=str, default="yolov7-w6",
                    help="zoo model name or reference cfg yaml path")
     p.add_argument("--model_path", type=str, default="",
-                   help="unfused detector state_dict saved with torch.save "
-                        "(default: seeded random weights)")
+                   help="detector weights: a Flax variables file "
+                        "(.msgpack/.npz) or an unfused torch state_dict in "
+                        "the port's names (default: seeded random weights)")
     p.add_argument("--nc", type=int, default=80)
     p.add_argument("--img_size", type=int, default=1280)
     p.add_argument("--reid_model_path", type=str, default="",
@@ -57,6 +71,9 @@ def parse_args(argv=None):
                         "weights/dhn_h32.msgpack); without them deepmot "
                         "matches on the raw centre + IoU cost")
     p.add_argument("--conf_thresh", type=float, default=0.2)
+    p.add_argument("--nms_thresh", type=float, default=0.7,
+                   help="accepted for the reference's surface; unused, as "
+                        "in the JAX CLI")
     p.add_argument("--iou_thresh", type=float, default=0.5)
     p.add_argument("--track_buffer", type=int, default=30)
     p.add_argument("--gamma", type=float, default=0.1)
@@ -69,10 +86,20 @@ def parse_args(argv=None):
                    choices=["", "orb", "ecc", "none"],
                    help="camera-motion compensation (defaults: botsort orb, "
                         "strongsort ecc; orb needs OpenCV)")
+    p.add_argument("--detect_per_frame", type=int, default=1,
+                   help="detect on every k-th frame; the others run the "
+                        "tracker's predict-only step")
     p.add_argument("--kalman_format", type=str, default="default")
     p.add_argument("--min_area", type=float, default=150)
+    p.add_argument("--save_images", action="store_true",
+                   help="accepted for the reference's surface; unused, as "
+                        "in the JAX CLI (cli.track_demo saves overlays)")
+    p.add_argument("--save_videos", action="store_true",
+                   help="accepted for the reference's surface; unused, as "
+                        "in the JAX CLI")
     p.add_argument("--track_eval", type=lambda s: s.lower() != "false",
-                   default=True)
+                   default=True,
+                   help="score the run against the config's TRACK_EVAL gt")
     p.add_argument("--detector_batch", type=int, default=8)
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
@@ -88,6 +115,10 @@ def parse_args(argv=None):
     p.add_argument("--gsi", action="store_true",
                    help="Gaussian-smoothed interpolation of the result "
                         "rows (StrongSORT++ GSI)")
+    p.add_argument("--detections", type=str, default="",
+                   help="directory of per-sequence MOT-format detection "
+                        "txts (<seq>.txt: frame,id,x,y,w,h,score[,cls]); "
+                        "tracks from these instead of running the detector")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda, which must exist)")
     return p.parse_args(argv)
@@ -132,14 +163,48 @@ def post_process(results, linker, gsi: bool):
             for fid, ids, tlwhs, clses in results]
 
 
+def load_detector_weights(path, spec):
+    """--model_path as an unfused state_dict in the port's names: a Flax
+    variables file (.msgpack / .npz, what the JAX CLI loads) is converted,
+    anything else is read with torch.load."""
+    if path.endswith((".msgpack", ".npz")):
+        from ..models.from_jax import jax_variables_to_torch
+        from ..utils.flax_msgpack import load_variables
+
+        return jax_variables_to_torch(load_variables(path), spec)
+    import torch
+
+    return torch.load(path, map_location="cpu")
+
+
+def evaluate_run(dataset, track_eval_cfg, folder):
+    """Score a results folder as the JAX CLI does: the config's
+    TRACK_EVAL gt (SEQ_INFO lengths, missing ones from seqinfo.ini),
+    VisDrone or MOT17 preprocessing by the dataset's name; the CSVs go
+    into ``folder``. Prints the table and returns it."""
+    from ..eval import evaluator
+    from ..eval.data import seq_length_from_seqinfo
+
+    te = track_eval_cfg
+    seq_lengths = {}
+    for s, n in (te.get("SEQ_INFO") or {}).items():
+        if n is None:
+            n = seq_length_from_seqinfo(
+                os.path.join(te["GT_FOLDER"], s)) or 0
+        seq_lengths[s] = int(n)
+    benchmark = "VisDrone" if "visdrone" in dataset.lower() else "MOT17"
+    table = evaluator.evaluate_benchmark(
+        te["GT_FOLDER"], folder, seq_lengths, benchmark=benchmark,
+        gt_loc_format=te.get("GT_LOC_FORMAT", "{gt_folder}/{seq}/gt/gt.txt"),
+        output_folder=folder)
+    print(evaluator.render_table(
+        table, [c for c in table if c != "cls_comb_cls_av"]))
+    return table
+
+
 def main(argv=None):
     opts = parse_args(argv)
-    if opts.track_eval:
-        raise SystemExit(
-            "TrackEval scoring is not ported yet; pass --track_eval false")
     cfgs = load_dataset_config(opts)
-
-    import torch
 
     from ..data import sequence as seqmod
     from ..data import writer
@@ -156,7 +221,8 @@ def main(argv=None):
         model=opts.model, nc=opts.nc, img_size=opts.img_size,
         conf_thres=0.01, iou_thres=0.45, detector_batch=opts.detector_batch,
         dtype=opts.dtype, gmc_method=gmc, reid=reid,
-        reid_capacity=opts.reid_capacity)
+        reid_capacity=opts.reid_capacity,
+        detect_per_frame=opts.detect_per_frame)
     tcfg = TrackerConfig(
         tracker=opts.tracker, kalman_format=opts.kalman_format,
         conf_thresh=opts.conf_thresh, iou_thresh=opts.iou_thresh,
@@ -171,7 +237,7 @@ def main(argv=None):
         spec = load_yaml_file(opts.model, nc=opts.nc)
     else:
         spec = zoo.get_spec(opts.model, nc=opts.nc)
-    state_dict = (torch.load(opts.model_path, map_location="cpu")
+    state_dict = (load_detector_weights(opts.model_path, spec)
                   if opts.model_path else None)
     pipe = TrackingPipeline(pcfg, tcfg, state_dict=state_dict, spec=spec,
                             device=opts.device,
@@ -185,13 +251,24 @@ def main(argv=None):
     seqs = seqmod.discover_sequences(
         cfgs.get("DATASET_ROOT", "."), split=opts.split,
         seqs=[s for s in (cfgs.get("CERTAIN_SEQS") or []) if s] or None,
-        ignore_seqs=[s for s in (cfgs.get("IGNORE_SEQS") or []) if s])
+        ignore_seqs=[s for s in (cfgs.get("IGNORE_SEQS") or []) if s],
+        data_format=opts.data_format, split_txt=opts.split_txt or None)
     folder = os.path.join(
         opts.output_dir, f"{opts.tracker}_{time.strftime('%Y%m%d_%H%M%S')}")
     seq_fps = []
     for seq in seqs:
         t0 = time.time()
-        results = pipe.run_sequence(seqmod.iter_frames(seq))
+        if opts.detections:
+            from ..data.detections import load_mot_detections
+
+            det_path = os.path.join(opts.detections, f"{seq.name}.txt")
+            if not os.path.isfile(det_path):
+                print(f"{seq.name}: no detections at {det_path}, skipping")
+                continue
+            results = pipe.run_sequence_detections(
+                load_mot_detections(det_path), len(seq))
+        else:
+            results = pipe.run_sequence(seqmod.iter_frames(seq))
         fps = len(seq) / max(time.time() - t0, 1e-9)
         seq_fps.append(fps)
         print(f"{seq.name}: {len(seq)} frames, {fps:.1f} fps "
@@ -201,6 +278,8 @@ def main(argv=None):
         writer.save_results(folder, seq.name, results)
     if seq_fps:
         print(f"mean fps: {np.mean(seq_fps):.2f}")
+    if opts.track_eval and cfgs.get("TRACK_EVAL"):
+        evaluate_run(opts.dataset, cfgs["TRACK_EVAL"], folder)
     return folder
 
 

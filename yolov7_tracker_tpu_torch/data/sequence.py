@@ -1,12 +1,14 @@
-"""Frame sources (the image-directory and synthetic parts of
-yolov7_tracker_tpu/data/sequence.py).
+"""Frame sources (port of yolov7_tracker_tpu/data/sequence.py).
 
 'origin' layout: data_root/images/<split>/<seq>/(img1/)frames, or the
-VisDrone layouts. Frames decode on the host with cv2 (BGR uint8), in
-order; the letterbox and normalisation happen on the device.
-``SynthFrames`` is a deterministic synthetic camera (``synth://`` specs)
-that needs neither cv2 nor files. Video files, webcams and RTSP/HTTP
-streams are not ported yet.
+VisDrone layouts; 'yolo' layout: a split txt of image paths, grouped by
+their directory's name (the reference's tracker_dataloader.py:39-53).
+Frames decode on the host with cv2 (BGR uint8), in order; the letterbox
+and normalisation happen on the device. ``VideoFrames`` reads a video
+file and ``StreamFrames`` a webcam or an RTSP/HTTP stream, both through
+cv2.VideoCapture; cv2 is imported only when a frame source needs it, so
+importing the port needs no OpenCV. ``SynthFrames`` is a deterministic
+synthetic camera (``synth://`` specs) that needs neither cv2 nor files.
 """
 
 from __future__ import annotations
@@ -36,8 +38,34 @@ IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
 def discover_sequences(data_root: str, split: str = "test",
                        seqs: Optional[Sequence[str]] = None,
-                       ignore_seqs: Sequence[str] = ()) -> List[SequenceSpec]:
-    """Find image-directory sequences like tracker/track.py:95-111."""
+                       ignore_seqs: Sequence[str] = (), *,
+                       data_format: str = "origin",
+                       split_txt: Optional[str] = None
+                       ) -> List[SequenceSpec]:
+    """Find sequences like tracker/track.py:95-111.
+
+    'origin': image directories (see the module docstring).
+    'yolo'  : the image paths listed in ``split_txt`` (relative ones under
+              ``data_root``), grouped by the name of their directory.
+    """
+    if data_format == "yolo":
+        if not split_txt:
+            raise ValueError("data_format 'yolo' needs the split txt path")
+        by_seq = {}
+        with open(split_txt) as f:
+            for line in f:
+                p = line.strip()
+                if not p:
+                    continue
+                seq = os.path.basename(os.path.dirname(p))
+                if seq in ignore_seqs or (seqs and seq not in seqs):
+                    continue
+                by_seq.setdefault(seq, []).append(
+                    p if os.path.isabs(p) else os.path.join(data_root, p))
+        return [SequenceSpec(name, sorted(by_seq[name]))
+                for name in sorted(by_seq)]
+    if data_format != "origin":
+        raise ValueError(f"unknown data_format {data_format!r}")
     candidates = [
         os.path.join(data_root, "images", split),
         os.path.join(data_root, split, "sequences"),
@@ -89,6 +117,61 @@ def image_dir_frames(folder: str, on_error: str = "raise"):
                    if f.lower().endswith(IMG_EXTS))
     return iter_frames(SequenceSpec(os.path.basename(folder), paths),
                        on_error=on_error)
+
+
+def _capture(source, what):
+    import cv2
+
+    cap = cv2.VideoCapture(source)
+    if not cap.isOpened():
+        raise OSError(f"cannot open {what} {source!r}")
+    return cap, cap.get(cv2.CAP_PROP_FPS) or 30
+
+
+class VideoFrames:
+    """Video-file frame source (the reference's track_demo.py:95-106): the
+    file's frames in order, HWC uint8 BGR."""
+
+    def __init__(self, path: str):
+        self.cap, self.fps = _capture(path, "video")
+
+    def __iter__(self):
+        while True:
+            ok, frame = self.cap.read()
+            if not ok:
+                return
+            yield frame
+
+
+class StreamFrames:
+    """Live webcam / RTSP / HTTP stream source (the reference's
+    LoadWebcam/LoadStreams, utils/datasets.py:140-356): an unbounded frame
+    iterator over cv2.VideoCapture (a source of digits is a webcam id).
+    ``skip`` frames are grabbed and dropped before each one read, for
+    real-time pacing; ``max_frames`` > 0 stops after that many. Pair it
+    with TrackingPipeline.step_frame; ``release`` frees the capture."""
+
+    def __init__(self, source, skip: int = 0, max_frames: int = 0):
+        src = int(source) if str(source).isdigit() else source
+        self.cap, self.fps = _capture(src, "stream")
+        self.skip = skip
+        self.max_frames = max_frames
+
+    def __iter__(self):
+        n = 0
+        while True:
+            for _ in range(self.skip):
+                self.cap.grab()
+            ok, frame = self.cap.read()
+            if not ok:
+                return
+            yield frame
+            n += 1
+            if self.max_frames and n >= self.max_frames:
+                return
+
+    def release(self):
+        self.cap.release()
 
 
 class SynthFrames:

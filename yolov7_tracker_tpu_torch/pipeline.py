@@ -21,14 +21,18 @@ backend but a TPU: a wrong pairing in a crowded many-camera scene costs
 an id switch, and the same algorithm as the reference lets the two
 packages be held against each other through ties.
 
+With ``detect_per_frame`` = k > 1 the sequence modes detect on every
+k-th frame of the slab's global frame counter and step the others with
+the predict-only step (``registry.build_predict_only``), as the JAX
+package does.
+
 Every tracker runs in every mode, deepmot with its DHN, and ReID too: in
 the streaming modes one crop gather and one ReID forward serve the S
 frames of a tick. GMC differs between the modes: the sequence modes take
 the warps from the pipeline's own estimator (ECC or ORB); the streaming
 modes take the caller's warps (identity by default) and refuse a pipeline
 with its own GMC, which the JAX package would ignore there. Not in the
-port yet: int8, the width-packed front, spatial sharding and
-detect_per_frame skipping.
+port yet: int8, the width-packed front and spatial sharding.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from .reid import (build_reid, float32_exact, load_reid_state_dict,
 from .reid import extractor
 from .trackers import slab as S
 from .trackers.gmc import GMC
-from .trackers.registry import build_tracker
+from .trackers.registry import build_predict_only, build_tracker
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +80,9 @@ class PipelineConfig:
                                    # dets of a frame (0 = all
                                    # det_capacity); the rest get zero
                                    # features ("no appearance evidence")
+    detect_per_frame: int = 1      # detect on every k-th frame of the
+                                   # sequence modes; the others run the
+                                   # predict-only step
 
 
 def pack_frame_output(outs: S.FrameOutput) -> torch.Tensor:
@@ -121,6 +128,7 @@ class TrackingPipeline:
             model = model.to(memory_format=torch.channels_last)
         self.model = model
         self.step, self.tcfg = build_tracker(tcfg, self.device)
+        self.predict_only = build_predict_only(self.tcfg)
         if self.tcfg.det_capacity < pcfg.max_det:
             warnings.warn(
                 f"det_capacity={self.tcfg.det_capacity} < max_det="
@@ -429,10 +437,18 @@ class TrackingPipeline:
     def run_sequence_stateful(self, frames: Iterable[np.ndarray],
                               initial_slab: Optional[S.TrackSlab] = None):
         """:meth:`run_sequence` from ``initial_slab`` (frame numbering
-        continues from its counter); returns (results, final slab)."""
+        continues from its counter); returns (results, final slab).
+
+        With ``detect_per_frame`` = k > 1 only the frames whose global
+        index (the slab's counter, so a resumed stream detects on the same
+        frames as one run) is a multiple of k are detected; the others run
+        the predict-only step, after the pending detector batch has been
+        flushed so that rows come out in frame order. The GMC estimates
+        on detected frames only."""
         slab = initial_slab if initial_slab is not None \
             else self.init_tracker()
         frame_id = int(slab.frame)
+        k_det = max(1, self.pcfg.detect_per_frame)
         results = []
         batch = []
 
@@ -445,7 +461,16 @@ class TrackingPipeline:
             batch.clear()
             return slab
 
-        for f in frames:
+        phase0 = frame_id
+        for i, f in enumerate(frames):
+            if k_det > 1 and (phase0 + i) % k_det != 0:
+                if batch:
+                    slab = flush(slab)
+                slab, out = self.predict_only(slab)
+                frame_id += 1
+                self._emit(results, self.unpack_output(self.pack_output(
+                    S.FrameOutput(*(x[None] for x in out)))), frame_id)
+                continue
             batch.append(f)
             if len(batch) == self.pcfg.detector_batch:
                 slab = flush(slab)

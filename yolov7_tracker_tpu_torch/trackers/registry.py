@@ -64,3 +64,22 @@ def build_tracker(cfg: S.TrackerConfig, device="cpu"
         kw["dhn"] = load_dhn(cfg.dhn_weights, cfg.dhn_arch, cfg.dhn_hidden,
                              device)
     return functools.partial(_STEPS[cfg.tracker][0], cfg=cfg, **kw), cfg
+
+
+def build_predict_only(cfg: S.TrackerConfig) -> Callable:
+    """The step of a frame without detections, for --detect_per_frame's
+    skipped frames (update_without_detection, the reference's
+    basetrack.py:489-537): bump the frame counter, Kalman-predict the pool
+    (C-BIoU has no Kalman state: no prediction), drop tracked/lost
+    duplicates, emit. ``cfg``: the resolved config. The step is
+    ``slab -> (slab, FrameOutput)`` and makes no host sync."""
+    fmt = cfg.kalman_format
+
+    def step(slab: S.TrackSlab):
+        slab = slab._replace(frame=slab.frame + 1)
+        if fmt != "none":
+            slab = S.predict_pool(slab, fmt)
+        slab = S.remove_duplicates(slab, fmt)
+        return slab, S.frame_output(slab, fmt, cfg)
+
+    return step
