@@ -126,6 +126,24 @@ Phases, each of which must pass:
                 state saved after frame 7 equal to one run, the
                 predict-only step timed alone, a CPU replay with the same
                 ids.
+  9. zoo     -- one model of each other detector family, at full width
+                (nc=80, the published depth and width multiples): yolov7
+                (RepConv, IDetect), yolov7-e6e (DownC, Shortcut, four levels),
+                yolov5l (C3, SPPF, Detect), yolov8l (C2f, DetectV8 through
+                the decoded-path NMS), yolov4-csp (Bottleneck, CSP B/C,
+                SPPCSPC) and yolov3-spp (SPP, Bottleneck n > 1); seeded
+                weights, BN statistics set from the frames and the head
+                outputs standardised to a per-model spread and boost
+                (ZOO_RUNS), 1280 px (the CLI's default), batch 8, bf16, BN
+                and RepConv folded, through offline ByteTrack (128 / 300,
+                conf_thresh 0.5) on phase 3's 16 frames: K2 twice a frame,
+                NMS survivors on every frame within ZOO_SURVIVORS (below
+                max_det), ms/frame and a
+                frame's parts (letterbox, detector, NMS, step; CUDA
+                events), the detector in float32 (TF32 off) on the card
+                against the CPU and fused against unfused (ZOO_REL_TOL, on
+                each part of the output alone; bf16 must land above it),
+                and a CPU replay of the tracker with the same ids.
 Then K2 on the offline path's last stage-1 and stage-2/3 problems and on
 the last tick's 2S problems, K1 on step_frame's last problem and K3 on the
 last tick's are timed (ms, us per sweep, bound) and profiled (where a
@@ -227,6 +245,33 @@ SCORE_SEQS = 3
 SCORE_FRAMES = 200
 SCORE_HW = (1080, 1920)
 DETECT_EVERY = (2, 3)         # phase 8b: --detect_per_frame k
+# phase 9: (zoo name, head spread, head boost). Through a seeded deep
+# body the image's signal dies out below some conv gain and blows up above
+# it; for yolov7, yolov5l and yolov4-csp no gain sits between (the scores
+# are the same in every cell, or chaotic). So the BN statistics are set
+# from phase 3's first 8 frames, each layer's output scaled to
+# ZOO_BN_SCALE (calibrate_detector_bn), and each head output channel is
+# standardised over the same frames to std `spread` around its prior +
+# `boost` (standardize_heads). The pairs keep NMS well below max_det on
+# every frame; DetectV8 runs a smaller spread, as its scores are held to
+# ZOO_REL_TOL absolutely.
+ZOO_RUNS = (
+    ("yolov7", 14.0, -34.0),
+    ("yolov7-e6e", 14.0, -35.0),
+    ("yolov5l", 14.0, -34.0),
+    ("yolov8l", 10.0, -32.0),
+    ("yolov4-csp", 14.0, -34.0),
+    ("yolov3-spp", 14.0, -34.0),
+)
+ZOO_BN_SCALE = 0.15
+ZOO_IMG = 1280                # cli/track.py's default --img_size
+# NMS survivors on every frame of the run: below max_det (300), so that
+# no frame's NMS sits at its cap
+ZOO_SURVIVORS = (10, 280)
+# detector card vs CPU and fused vs unfused, float32 with TF32 off: the
+# worst over the output's parts (output_parts) of max |difference| over
+# max(1, max |part|). The same forward in bf16 must land above it.
+ZOO_REL_TOL = 1e-4
 
 
 def log(msg):
@@ -1000,7 +1045,6 @@ def breakdown(pipe, frames_u8, batch_dets, dev):
     import torch
 
     from yolov7_tracker_tpu_torch.data import letterbox
-    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
 
     frames = pipe._frames(frames_u8)
     src_hw = tuple(frames.shape[1:3])
@@ -1013,10 +1057,7 @@ def breakdown(pipe, frames_u8, batch_dets, dev):
         t_pre = cuda_ms(lambda: letterbox.device_preprocess(
             frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=pipe.dtype), 5)
         t_model = cuda_ms(lambda: pipe.model(imgs), 5)
-        t_nms = cuda_ms(lambda: nms_mod.nms_from_raw(
-            raw, pipe._anchors, tuple(pipe.spec.strides),
-            pipe.pcfg.conf_thres, pipe.pcfg.iou_thres,
-            max_det=pipe.pcfg.max_det, top_k=pipe.pcfg.nms_top_k), 2)
+        t_nms = cuda_ms(lambda: pipe.nms(raw), 2)
     boxes, score, cls, counts = batch_dets
     slabs = [pipe.dets_to_slab(boxes[b], score[b], cls[b], counts[b])
              for b in range(boxes.shape[0])]
@@ -1025,8 +1066,12 @@ def breakdown(pipe, frames_u8, batch_dets, dev):
     b = frames.shape[0]
     log(f"per-frame breakdown on {card_line()} (batch {b}): "
         f"H2D {t_h2d / b:.2f} ms, "
-        f"letterbox {t_pre / b:.2f} ms, w6 forward {t_model / b:.2f} ms, "
-        f"NMS {t_nms / b:.2f} ms, ByteTrack step {t_track / b:.2f} ms")
+        f"letterbox {t_pre / b:.2f} ms, {pipe.spec.name} forward "
+        f"{t_model / b:.2f} ms, NMS {t_nms / b:.2f} ms, ByteTrack step "
+        f"{t_track / b:.2f} ms")
+    return {"h2d_ms": t_h2d / b, "letterbox_ms": t_pre / b,
+            "detector_ms": t_model / b, "nms_ms": t_nms / b,
+            "step_ms": t_track / b}
 
 
 # ---------------------------------------------------------------------------
@@ -1180,7 +1225,6 @@ def serving_breakdown(pipe, slabs, streams, last, dev):
     from yolov7_tracker_tpu_torch.data.sequence import SynthFrames
     from yolov7_tracker_tpu_torch.ops import auction
     from yolov7_tracker_tpu_torch.ops import auction_square as square
-    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
     from yolov7_tracker_tpu_torch.ops.assignment import masked_assignment
     from yolov7_tracker_tpu_torch.trackers import slab as S
 
@@ -1203,10 +1247,7 @@ def serving_breakdown(pipe, slabs, streams, last, dev):
         t_pre = cuda_ms(lambda: letterbox.device_preprocess(
             frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=pipe.dtype), 5)
         t_model = cuda_ms(lambda: pipe.model(imgs), 5)
-        t_nms = cuda_ms(lambda: nms_mod.nms_from_raw(
-            raw, pipe._anchors, tuple(pipe.spec.strides),
-            pipe.pcfg.conf_thres, pipe.pcfg.iou_thres,
-            max_det=pipe.pcfg.max_det, top_k=pipe.pcfg.nms_top_k), 2)
+        t_nms = cuda_ms(lambda: pipe.nms(raw), 2)
     dets = pipe.dets_to_slab(*pipe.detect_batch(frames_u8))
     t_step = cuda_ms(lambda: pipe.step(stacked, dets,
                                        solve_stage1=masked_assignment), 3)
@@ -2736,6 +2777,288 @@ def detect_every_phase(sd, dev):
     return records, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the detector zoo at full width
+# ---------------------------------------------------------------------------
+
+def zoo_phase(dev):
+    """Phase 9: one model of each new kind (ZOO_RUNS) at full width (nc=80,
+    the published multiples), 1280 px (cli/track.py's default), batch 8,
+    bf16, BN and RepConv folded, through offline ByteTrack (128 / 300,
+    conf_thresh 0.5) on phase 3's 16 frames. Returns ({name: record},
+    {name: K2 launches})."""
+    import torch
+
+    frames = offline_frames()
+    records, launches = {}, {}
+    for name, spread, boost in ZOO_RUNS:
+        t0 = time.time()
+        records[name] = zoo_run(name, spread, boost, frames, dev)
+        records[name]["phase_s"] = time.time() - t0
+        launches[name] = records[name]["k2_launches"]
+        torch.cuda.empty_cache()
+    return records, launches
+
+
+def zoo_run(name, spread, boost, frames, dev):
+    """One zoo model, its seeded weights calibrated on the first 8 frames
+    (calibrate_detector_bn, standardize_heads), through
+    run_sequence_stateful (after a warm-up batch): K2 launches, NMS
+    survivors of every frame in ZOO_SURVIVORS, the parts of a frame, the
+    detector on the card against the CPU and fused against
+    unfused (zoo_detector_checks), and the CPU replay of the tracker."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
+    from yolov7_tracker_tpu_torch.models.yolo import random_state_dict
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                   TrackingPipeline)
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    spec = zoo.get_spec(name, nc=80)
+    sd = random_state_dict(spec, seed=0)
+    pipe = TrackingPipeline(
+        PipelineConfig(model=name, nc=80, img_size=ZOO_IMG, detector_batch=8,
+                       dtype="bfloat16", fuse=True),
+        S.TrackerConfig(tracker="bytetrack", conf_thresh=0.5, capacity=128,
+                        det_capacity=300),
+        state_dict=sd, spec=spec, device=dev)
+    img = letterboxed(pipe, frames[:8], dev)
+    sd = calibrate_detector_bn(spec, sd, img, ZOO_BN_SCALE)
+    sd = standardize_heads(spec, sd, img, spread, boost)
+    pipe.model.load_state_dict(fuse_state_dict(sd))
+    del img
+    t0 = time.time()
+    pipe.run_sequence(iter(frames[:8]))        # warm-up, not counted
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    batches, dets, slabs = [], [], []
+    detect, step = pipe.detect_batch, pipe.step
+
+    def recording_detect(frames_u8):
+        out = detect(frames_u8)
+        batches.append(tuple(t.clone() for t in out))
+        return out
+
+    def recording_step(slab, det, **kw):
+        dets.append(S.DetSlab(*(x.clone() for x in det)))
+        slabs.append(S.TrackSlab(*(x.clone() for x in slab)))
+        return step(slab, det, **kw)
+
+    pipe.detect_batch, pipe.step = recording_detect, recording_step
+    torch.cuda.synchronize()
+    auction.LAUNCHES = 0
+    t0 = time.time()
+    results, slab = pipe.run_sequence_stateful(iter(frames))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = auction.LAUNCHES
+    del pipe.detect_batch
+    pipe.step = step
+    n = len(frames)
+    if launches != 2 * n:
+        raise AssertionError(f"{name}: {launches} K2 launches in {n} frames")
+    counts = torch.cat([b[3] for b in batches]).float().cpu()
+    boxes = torch.cat([b[0] for b in batches])
+    tracks = [len(r[1]) for r in results]
+    lo, hi = ZOO_SURVIVORS
+    if not (lo <= float(counts.min()) and float(counts.max()) <= hi
+            and max(tracks) >= 1 and bool(torch.isfinite(boxes).all())):
+        raise AssertionError(
+            f"{name}: NMS survivors a frame {counts.tolist()}, tracks a "
+            f"frame {tracks}, best score a frame "
+            f"{[round(float(b[1][:, 0].max()), 3) for b in batches]}")
+    parts = breakdown(pipe, np.stack(frames[8:]), batches[-1], dev)
+    # where a batch's detector + NMS time goes (does the DFL decode or the
+    # decoded-path NMS show?)
+    log(f"{name}: torch.profiler over detect_batch of 8 frames")
+    profile = profile_ops(lambda: pipe.detect_batch(np.stack(frames[8:])))
+    checks = zoo_detector_checks(pipe, sd, frames[0], dev)
+    t0 = time.time()
+    replay_on_cpu(pipe, dets, slabs, results, name)
+    replay_s = time.time() - t0
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    rec = {"ms_per_frame": wall / n * 1e3, "frames": n,
+           "img_size": ZOO_IMG, "canvas_hw": list(pipe._geometry(
+               tuple(frames[0].shape[:2]))[0]),
+           "head": spec.head_kind, "fused_params": n_params,
+           "bn_scale": ZOO_BN_SCALE, "head_spread": spread,
+           "head_boost": boost, "warm_up_s": warm_s,
+           "nms_survivors_per_frame": float(counts.mean()),
+           "nms_survivors_range": [float(counts.min()),
+                                   float(counts.max())],
+           "k2_launches": launches,
+           "tracks_per_frame_mean": float(np.mean(tracks)),
+           "tracks_per_frame_max": max(tracks), "ids": int(slab.next_id),
+           **parts, **checks, "profile_detect_batch": profile,
+           "cpu_replay": "same ids, boxes 1e-2",
+           "cpu_replay_s": replay_s}
+    log(f"{name} ({spec.head_kind}, {n_params:,} fused parameters, BN "
+        f"scale {ZOO_BN_SCALE}, head spread {spread}, head boost {boost}) "
+        f"on {card_line()}: "
+        f"{wall / n * 1e3:.2f} ms/frame over {n} frames at {ZOO_IMG} px "
+        f"(canvas {rec['canvas_hw']}), {launches} K2 launches, NMS "
+        f"survivors/frame {float(counts.mean()):.1f} (min "
+        f"{float(counts.min()):.0f}, max {float(counts.max()):.0f}), "
+        f"tracks/frame mean {np.mean(tracks):.1f} max {max(tracks)}, "
+        f"{int(slab.next_id)} ids; float32 card vs CPU "
+        f"{checks['card_vs_cpu']:.2e}, fused vs unfused "
+        f"{checks['fused_vs_unfused']:.2e} (relative to each part, "
+        f"tolerance {ZOO_REL_TOL}; bf16 vs CPU {checks['bf16_vs_cpu']:.2e}, "
+        f"largest part {checks['largest_part']:.4g}); CPU replay "
+        f"({replay_s:.1f} s): same "
+        "ids, boxes within 1e-2")
+    return rec
+
+
+def letterboxed(pipe, frames, dev):
+    """``frames`` (uint8 HWC) letterboxed on ``dev`` as ``pipe`` does:
+    (B, H, W, 3) in [0, 1], float32."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.data import letterbox
+
+    src_hw = tuple(frames[0].shape[:2])
+    out_hw, unpad_hw = pipe._geometry(src_hw)
+    img, _ = letterbox.device_preprocess(
+        torch.from_numpy(np.stack(frames)).to(dev), src_hw, out_hw,
+        unpad_hw=unpad_hw)
+    return img.float()
+
+
+def calibrate_detector_bn(spec, sd, img, scale):
+    """``sd`` (unfused) with every BatchNorm's running statistics set to
+    those of its input on ``img`` (letterboxed frames) and its weight to
+    ``scale``, as calibrate_bn does for ReID: one float32 forward in
+    training mode on ``img``'s device. Each layer's output then has std
+    ``scale`` on these frames, whatever the depth; at a small scale SiLU
+    is near linear and the body neither loses the image nor turns
+    chaotic."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models.yolo import YoloV7
+
+    model = YoloV7(spec, fused=False)
+    model.load_state_dict(sd)
+    model = model.to(img.device).train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_running_stats()
+            m.momentum = None        # a cumulative mean: this batch's
+            m.weight.data.fill_(scale)
+    with torch.no_grad():
+        model(img)
+    return {k: v.cpu() for k, v in model.eval().state_dict().items()}
+
+
+def standardize_heads(spec, sd, img, spread, boost):
+    """``sd`` (unfused) with each head output conv rescaled so that, on
+    ``img`` (letterboxed frames), each of its channels has std ``spread``
+    (1 for the box channels) around its prior bias, raised by ``boost``
+    on the objectness and class channels. The scores then spread over the
+    cells as the image does, and ``boost`` sets how many boxes pass the
+    NMS threshold."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models.yolo import YoloV7
+
+    model = YoloV7(spec, fused=False)
+    model.load_state_dict(sd)
+    model = model.to(img.device).eval()
+    stats = {}
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, n=n: stats.__setitem__(
+            n, (o.float().mean((0, 2, 3)), o.float().std((0, 2, 3)))))
+        for n, m in model.named_children()
+        if n.startswith(("head_m_", "head_cv")) and isinstance(
+            m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model(img)
+    for h in hooks:
+        h.remove()
+    out = dict(sd)
+    for n, (mean, std) in stats.items():
+        mean, std = mean.cpu(), std.cpu().clamp_min(1e-12)
+        w, b = sd[f"{n}.weight"], sd[f"{n}.bias"]
+        if n.startswith("head_m_"):
+            scored = (torch.arange(b.numel()) % spec.no) >= 4
+        else:
+            scored = torch.full_like(b, n.startswith("head_cv3_"), dtype=bool)
+        a = torch.where(scored, spread, 1.0) / std
+        out[f"{n}.weight"] = w * a[:, None, None, None]
+        out[f"{n}.bias"] = a * (b - mean) + b + boost * scored
+    return out
+
+
+def output_parts(out, spec, hw):
+    """A detector's output cut into parts of one scale each, every level
+    alone: an anchor head's raw xy, wh, objectness and class logits;
+    DetectV8's decoded box columns (pixels) and class scores (0 to 1)."""
+    if spec.head_kind == "DetectV8":
+        sizes = [(hw[0] // s) * (hw[1] // s) for s in spec.strides]
+        return [p for lvl in out[0].split(sizes, dim=1)
+                for p in (lvl[..., :4], lvl[..., 5:])]
+    return [p for lvl in out for p in (lvl[..., :2], lvl[..., 2:4],
+                                       lvl[..., 4:5], lvl[..., 5:])]
+
+
+def zoo_detector_checks(pipe, sd, frame, dev):
+    """One letterboxed frame through the detector in float32 (TF32 off):
+    the fused model on the card against the same on the CPU, and the fused
+    against the unfused model on the card; and the fused model in bf16 on
+    the card against the CPU. Each difference is the worst over the
+    output's parts (output_parts) of max |a - b| over max(1, max |b|): the
+    float32 ones must stay within ZOO_REL_TOL and the bf16 one must not,
+    so that the check tells the two apart."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
+    from yolov7_tracker_tpu_torch.models.yolo import YoloV7
+
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the detector checks need TF32 off")
+    img = letterboxed(pipe, [frame], "cpu")
+    out_hw = tuple(img.shape[1:3])
+    fused_sd = fuse_state_dict(sd)
+    outs = {}
+    t = {}
+    for key, d, state, fused, dtype in (
+            ("card", dev, fused_sd, True, torch.float32),
+            ("cpu", "cpu", fused_sd, True, torch.float32),
+            ("unfused", dev, sd, False, torch.float32),
+            ("bf16", dev, fused_sd, True, torch.bfloat16)):
+        model = YoloV7(pipe.spec, fused=fused)
+        model.load_state_dict(state)
+        model = model.to(d, dtype).eval()
+        t0 = time.time()
+        with torch.no_grad():
+            out = model(img.to(d, dtype))
+        out = out if isinstance(out, list) else [out]
+        outs[key] = output_parts([o.float().cpu() for o in out], pipe.spec,
+                                 out_hw)
+        t[key] = time.time() - t0
+        del model
+
+    def rel(a, b):
+        return max(float((x - y).abs().max()) / max(1.0, float(
+            y.abs().max())) for x, y in zip(a, b))
+
+    res = {"card_vs_cpu": rel(outs["card"], outs["cpu"]),
+           "fused_vs_unfused": rel(outs["card"], outs["unfused"]),
+           "bf16_vs_cpu": rel(outs["bf16"], outs["cpu"]),
+           "largest_part": max(float(o.abs().max()) for o in outs["cpu"]),
+           "cpu_forward_s": t["cpu"]}
+    finite = all(bool(torch.isfinite(o).all()) for o in outs["card"])
+    if not (finite and res["card_vs_cpu"] <= ZOO_REL_TOL
+            and res["fused_vs_unfused"] <= ZOO_REL_TOL
+            and res["bf16_vs_cpu"] > ZOO_REL_TOL):
+        raise AssertionError(f"{pipe.spec.name}: detector checks {res}, "
+                             f"finite {finite}")
+    return res
+
+
 def read_file(path):
     with open(path, "rb") as fh:
         return fh.read()
@@ -2909,7 +3232,10 @@ def main(argv=None):
     t8b = time.time()
     trackers["detect_per_frame"], k2_detect_every = detect_every_phase(sd,
                                                                        dev)
-    log(f"phase 8a {t8b - t8:.1f} s, phase 8b {time.time() - t8b:.1f} s")
+    t9 = time.time()
+    log(f"phase 8a {t8b - t8:.1f} s, phase 8b {t9 - t8b:.1f} s")
+    trackers["zoo"], k2_zoo = zoo_phase(dev)
+    log(f"phase 9 {time.time() - t9:.1f} s")
 
     # K2 on the last frame's two solves, as the main path gave them, and on
     # the serving path's stages 2+3: one launch of B = 2 S problems
@@ -2936,6 +3262,7 @@ def main(argv=None):
               "launches_deepmot_s8": k2_deepmot,
               "launches_scoring": k2_scoring,
               "launches_detect_per_frame": k2_detect_every,
+              "launches_zoo": k2_zoo,
               "max_abs_err": float(worst), "library_ms": None, **t1,
               **{f"{k}_b2": v for k, v in t2.items()},
               **{f"{k}_serving": v for k, v in t16.items()}}

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 import chip_smoke
 from tests.test_torch_trackers import feature_stream
+from tests.test_torch_zoo import sharpen_v8_heads
 from tests.torch_parity import (  # noqa: F401 (one_torch_thread: autouse)
     one_torch_thread, random_variables, sharpen_heads)
 from yolov7_tracker_tpu import pipeline as j_pipeline
@@ -37,6 +38,7 @@ from yolov7_tracker_tpu_torch.cli import track_demo as t_demo
 from yolov7_tracker_tpu_torch.data import detections as t_dets
 from yolov7_tracker_tpu_torch.data import sequence as t_seq
 from yolov7_tracker_tpu_torch.models import zoo as t_zoo
+from yolov7_tracker_tpu_torch.models.convert import load_detector_weights
 from yolov7_tracker_tpu_torch.models.from_jax import jax_variables_to_torch
 from yolov7_tracker_tpu_torch.pipeline import PipelineConfig, TrackingPipeline
 from yolov7_tracker_tpu_torch.trackers import slab as TS
@@ -397,7 +399,7 @@ def test_msgpack_weights_give_jax_detections(tiny_variables, tiny_msgpack):
     port = TrackingPipeline(
         PipelineConfig(dtype="float32", **TINY),
         TS.TrackerConfig(tracker="sort", det_capacity=300),
-        state_dict=t_track.load_detector_weights(tiny_msgpack, spec),
+        state_dict=load_detector_weights(tiny_msgpack, spec),
         spec=spec, device="cpu")
     jpipe = j_pipeline.TrackingPipeline(
         j_pipeline.PipelineConfig(dtype="float32", wpack=False, **TINY),
@@ -478,3 +480,164 @@ def test_track_demo_defaults_match_jax():
     t = vars(t_demo.parse_args(["--obj", "0"]))
     assert set(t) - set(j) == {"dtype", "device"} and set(j) <= set(t)
     assert {k: t[k] for k in j} == j
+
+
+# ---------------------------------------------------------------------------
+# the rest of the zoo through the CLIs: DetectV8 and reference checkpoints
+# ---------------------------------------------------------------------------
+
+def _yolo_split_dataset(root):
+    """The frames as a YOLO-split dataset; returns the CLI's dataset
+    arguments."""
+    d = root / "images" / "SYN-01"
+    d.mkdir(parents=True)
+    for t, f in enumerate(_frames()):
+        cv2.imwrite(str(d / f"{t + 1:06d}.png"), f)
+    split = root / "split.txt"
+    split.write_text("".join(f"images/SYN-01/{t + 1:06d}.png\n"
+                             for t in range(N_FRAMES)))
+    cfg_dir = root / "configs"
+    cfg_dir.mkdir()
+    (cfg_dir / "yolosyn.yaml").write_text(f"DATASET_ROOT: {root}\n")
+    return ["--dataset", "yolosyn", "--config_dir", str(cfg_dir),
+            "--data_format", "yolo", "--split_txt", str(split)]
+
+
+def _narrow_yolov7_yaml(path):
+    """yolov7's rows (RepConv, IDetect) at width 0.25 as a cfg yaml."""
+    import yaml
+
+    cfg = {"nc": 1, "depth_multiple": 1.0, "width_multiple": 0.25,
+           "anchors": j_zoo.ANCHORS_P5, "backbone": j_zoo.yolov7_rows(),
+           "head": []}
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+@pytest.mark.parametrize("model", ["yolov8n", "yolov7-ref"])
+def test_track_cli_zoo_equals_jax(model, jax_float32, tmp_path):
+    """--model yolov8n (DetectV8 through the decoded-path NMS), with the
+    JAX package's msgpack; and yolov7's rows at width 0.25 from a cfg
+    yaml, the port reading a state_dict in the reference's names
+    (``model.{i}....``) where the JAX CLI reads the same weights as
+    msgpack: the same MOT rows, with tracks on every frame."""
+    from tests.test_torch_convert import to_reference
+
+    if model == "yolov8n":
+        spec = j_zoo.get_spec("yolov8n", nc=1)
+        arg = "yolov8n"
+        variables = sharpen_v8_heads(random_variables(spec, seed=3), spec,
+                                     sharpen=16.0, obj_boost=6.0)
+    else:
+        arg = _narrow_yolov7_yaml(tmp_path / "yolov7-narrow.yaml")
+        from yolov7_tracker_tpu.models.spec import load_yaml_file
+
+        spec = load_yaml_file(arg, nc=1)
+        variables = sharpen_heads(random_variables(spec, seed=3), spec,
+                                  sharpen=16.0, obj_boost=4.0, levels=(0,))
+    msgpack = str(tmp_path / "w.msgpack")
+    save_variables(msgpack, variables)
+    port_weights = msgpack
+    if model == "yolov7-ref":
+        port_weights = str(tmp_path / "ref_layout.pt")
+        torch.save(to_reference(variables, spec), port_weights)
+    common = (_yolo_split_dataset(tmp_path / "data")
+              + ["--model", arg, "--nc", "1", "--img_size", "160",
+                 "--tracker", "bytetrack", "--conf_thresh", "0.5",
+                 "--capacity", "32", "--det_capacity", "64",
+                 "--detector_batch", "4"])
+    j_folder = j_track.main(common + ["--model_path", msgpack,
+                                      "--output_dir", str(tmp_path / "j")])
+    t_folder = t_track.main(common + ["--model_path", port_weights,
+                                      "--output_dir", str(tmp_path / "t"),
+                                      "--dtype", "float32", "--device",
+                                      "cpu"])
+    got, want = _results(t_folder), _results(j_folder)
+    assert got == want
+    rows = got["SYN-01.txt"].splitlines()
+    per_frame = [sum(1 for r in rows if int(r.split(b",")[0]) == f)
+                 for f in range(1, N_FRAMES + 1)]
+    assert min(per_frame) >= 3, per_frame
+
+
+def test_serve_v8_reference_layout_equals_jax(media, jax_float32, tmp_path):
+    """cli.serve on yolov8n weights in the reference's names: the rows the
+    JAX serve CLI writes from the same weights as msgpack."""
+    from tests.test_torch_convert import to_reference
+
+    spec = j_zoo.get_spec("yolov8n", nc=1)
+    variables = sharpen_v8_heads(random_variables(spec, seed=3), spec,
+                                 sharpen=16.0, obj_boost=6.0)
+    msgpack = str(tmp_path / "w.msgpack")
+    save_variables(msgpack, variables)
+    pt = str(tmp_path / "yolov8n_ref.pt")
+    torch.save(to_reference(variables, spec), pt)
+    common = ["--streams", media["video"], "--model", "yolov8n",
+              "--nc", "1", "--img_size", "160", "--conf_thresh", "0.5",
+              "--capacity", "32", "--det_capacity", "16"]
+    want, _ = j_serve.main(common + ["--model_path", msgpack,
+                                     "--save_dir", str(tmp_path / "j")])
+    got, _ = t_serve.main(common + ["--model_path", pt, "--dtype",
+                                    "float32", "--device", "cpu",
+                                    "--save_dir", str(tmp_path / "t")])
+    assert sum(len(r[1]) for r in got[0]) >= 2 * N_FRAMES
+    assert _results(tmp_path / "t") == _results(tmp_path / "j")
+
+
+def test_load_detector_weights_reads_every_layout(tmp_path, monkeypatch):
+    """--model_path: a state_dict in the port's names loads as it is; one
+    in the reference's names (``model.``, or ``module.model.``) is
+    converted; a pickled {'model': module} checkpoint, whose class is
+    importable only from the reference repository, is refused unless the
+    caller asks to unpickle it (--trust_model_path), and is then read with
+    the reference repository importable and converted. All give the same
+    state_dict."""
+    import sys
+
+    from tests.test_torch_convert import to_reference
+
+    j_spec = j_zoo.get_spec("yolov7-tiny", nc=1)
+    spec = t_zoo.get_spec("yolov7-tiny", nc=1)
+    variables = random_variables(j_spec, seed=8)
+    want = jax_variables_to_torch(variables, spec)
+    ref = to_reference(variables, j_spec)
+    for name, sd in (("port", want), ("reference", ref), (
+            "wrapped", {"module." + k: v for k, v in ref.items()})):
+        torch.save(sd, tmp_path / f"{name}.pt")
+    repo = tmp_path / "reference_repo"
+    (repo / "refmodels").mkdir(parents=True)
+    (repo / "refmodels" / "__init__.py").write_text(
+        "import torch\n\n\nclass Model(torch.nn.Module):\n    pass\n")
+    monkeypatch.setattr(sys, "path", [str(repo)] + sys.path)
+    try:
+        from refmodels import Model
+
+        module = Model()
+        for k, v in ref.items():         # the reference's module names
+            *path, leaf = k.split(".")
+            node = module
+            for p in path:
+                if not hasattr(node, p):
+                    node.add_module(p, torch.nn.Module())
+                node = getattr(node, p)
+            node.register_buffer(leaf, v.clone())
+        torch.save({"model": module, "epoch": 3}, tmp_path / "ckpt.pt")
+    finally:
+        sys.modules.pop("refmodels", None)
+    ckpt = str(tmp_path / "ckpt.pt")
+    with pytest.raises(ValueError, match="--trust_model_path"):
+        load_detector_weights(ckpt, spec)
+    assert "refmodels" not in sys.modules       # nothing was unpickled
+    sys.path.remove(str(repo))
+    with pytest.raises(ModuleNotFoundError):
+        load_detector_weights(ckpt, spec, unpickle=True)
+    sys.path.insert(0, str(repo))               # PYTHONPATH=<reference>
+    try:
+        for name in ("port", "reference", "wrapped", "ckpt"):
+            got = load_detector_weights(str(tmp_path / f"{name}.pt"), spec,
+                                        unpickle=name == "ckpt")
+            assert sorted(got) == sorted(want), name
+            for k in want:
+                assert torch.equal(got[k], want[k]), (name, k)
+    finally:
+        sys.modules.pop("refmodels", None)

@@ -671,3 +671,91 @@ def test_detections_path_on_the_card_equals_the_cpu(card, tracker):
                                    np.reshape(b[2], (-1, 4)), atol=1e-3)
         rows += len(a[1])
     assert rows > 300
+
+
+# ---------------------------------------------------------------------------
+# the rest of the detector zoo on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yolov7", "yolov7-e6e", "yolov5s",
+                                  "yolov8s", "yolov4-csp", "yolov3-spp"])
+def test_zoo_detector_on_the_card_equals_the_cpu(card, full_float32, name):
+    """A model of each new kind at full width, seeded weights: float32 on
+    the card equals the CPU, fused and unfused, within chip_smoke's
+    ZOO_REL_TOL on each part of the output (each level's xy, wh,
+    objectness and class logits; DetectV8's boxes and scores) over
+    max(1, the part's largest value); the same forward in bf16 on the
+    card is finite, of the same shape, and off by more than that."""
+    from chip_smoke import ZOO_REL_TOL, output_parts
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
+    from yolov7_tracker_tpu_torch.models.yolo import (YoloV7,
+                                                      random_state_dict)
+
+    spec = zoo.get_spec(name, nc=80)
+    sd = random_state_dict(spec, seed=0, gain=1.4)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (1, 256, 320, 3)).astype(np.float32))
+    outs = {}
+    for key, dev, fused, dtype in (("cpu", "cpu", True, torch.float32),
+                                   ("card", card, True, torch.float32),
+                                   ("unfused", card, False, torch.float32),
+                                   ("bf16", card, True, torch.bfloat16)):
+        model = YoloV7(spec, fused=fused)
+        model.load_state_dict(fuse_state_dict(sd) if fused else sd)
+        model = model.to(dev, dtype).eval()
+        with torch.no_grad():
+            out = model(x.to(dev, dtype))
+        outs[key] = output_parts(
+            [o.float().cpu() for o in (out if isinstance(out, list)
+                                       else [out])], spec, (256, 320))
+
+    def rel(key):
+        return max(float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())) for a, b in zip(outs[key], outs["cpu"]))
+
+    for key in ("card", "unfused"):
+        assert rel(key) <= ZOO_REL_TOL, (key, rel(key))
+    assert [o.shape for o in outs["bf16"]] == [o.shape for o in outs["cpu"]]
+    assert all(bool(torch.isfinite(o).all()) for o in outs["bf16"])
+    assert rel("bf16") > ZOO_REL_TOL
+
+
+@pytest.mark.cuda
+def test_v8_pipeline_on_the_card_equals_the_cpu(card, full_float32):
+    """yolov8n through TrackingPipeline (DetectV8 -> decoded-path NMS ->
+    ByteTrack) in float32, card against CPU: the same ids and boxes
+    within 1e-2 px; K2 twice a frame on the card."""
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.yolo import (random_state_dict,
+                                                      sharpen_heads)
+    from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                   TrackingPipeline)
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    spec = zoo.get_spec("yolov8n", nc=4)
+    sd = random_state_dict(spec, seed=1, gain=1.6)
+    sharpen_heads(sd, spec, obj_boost=10.0)
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 255, (360, 640, 3), np.uint8)
+    frames = [np.roll(base, 4 * t, axis=1) for t in range(8)]
+    results = {}
+    for dev in ("cpu", card):
+        pipe = TrackingPipeline(
+            PipelineConfig(model="yolov8n", nc=4, img_size=320,
+                           detector_batch=4, dtype="float32"),
+            S.TrackerConfig(tracker="bytetrack", conf_thresh=0.5,
+                            capacity=64, det_capacity=300),
+            state_dict=sd, spec=spec, device=dev)
+        before = auction.LAUNCHES
+        results[str(dev)] = pipe.run_sequence(iter(frames))
+        launched = auction.LAUNCHES - before
+    assert launched == 2 * len(frames)
+    rows = 0
+    for a, b in zip(results["cpu"], results[str(card)]):
+        assert a[0] == b[0] and a[1] == b[1]
+        np.testing.assert_allclose(np.reshape(a[2], (-1, 4)),
+                                   np.reshape(b[2], (-1, 4)), atol=1e-2)
+        rows += len(a[1])
+    assert rows > 0

@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from tests.test_torch_bytetrack import _stream
+from tests.test_torch_zoo import sharpen_v8_heads
 from tests.torch_parity import (  # noqa: F401 (one_torch_thread: autouse)
     one_torch_thread, random_variables, sharpen_heads,
 )
@@ -302,3 +303,32 @@ def test_track_scan_multi_matches_jax(jpipe, port):
     _assert_outputs_match(t_outs, j_outs, "scan")
     _assert_slab_matches(t_slabs, j_slabs, "scan")
     assert int(t_outs.valid.sum()) > 100 and int(t_slabs.next_id.min()) >= 6
+
+
+def test_process_multistream_with_a_v8_detector_matches_jax():
+    """yolov8n (DetectV8, the decoded-path NMS) under process_multistream:
+    the same outputs and states as the JAX package, tick by tick."""
+    spec = jzoo.get_spec("yolov8n", nc=1)
+    # the stride-8 level only: the coarser ones give boxes clipped to the
+    # whole frame, several of them identical (see _assert_slab_matches)
+    weights = sharpen_v8_heads(random_variables(spec, seed=4), spec,
+                               sharpen=16.0, obj_boost=6.0, levels=(0,))
+    pipe = dict(PIPE, model="yolov8n", nc=1)
+    t_spec = tzoo.get_spec("yolov8n", nc=1)
+    port = TrackingPipeline(
+        PipelineConfig(**pipe), TS.TrackerConfig(**TRACK),
+        state_dict=jax_variables_to_torch(weights, t_spec), spec=t_spec,
+        device="cpu")
+    jpipe = JPipeline(JPipelineConfig(wpack=False, **pipe),
+                      JS.TrackerConfig(**TRACK),
+                      variables=jax.tree.map(jnp.asarray, weights),
+                      spec=spec)
+    frames = _frames()[:6]
+    j_slabs = jpipe.init_multistream(N_STREAMS)
+    t_slabs = port.init_multistream(N_STREAMS)
+    for t in range(frames.shape[0]):
+        j_slabs, j_out = jpipe.process_multistream(j_slabs, frames[t])
+        t_slabs, t_out = port.process_multistream(t_slabs, frames[t])
+        _assert_outputs_match(t_out, j_out, f"tick {t}")
+        _assert_slab_matches(t_slabs, j_slabs, f"tick {t}")
+    assert int(t_slabs.next_id.min()) >= 2       # every stream tracked

@@ -70,8 +70,14 @@ def parse_args(argv=None):
     p.add_argument("--model", type=str, default="yolov7-tiny",
                    help="zoo model name or reference cfg yaml path")
     p.add_argument("--model_path", type=str, default="",
-                   help="unfused detector state_dict saved with torch.save "
+                   help="detector weights, read as cli/track.py reads them: "
+                        "a Flax variables file, a reference checkpoint or "
+                        "an unfused state_dict in the port's names "
                         "(default: seeded random weights)")
+    p.add_argument("--trust_model_path", action="store_true",
+                   help="unpickle a --model_path that holds a full "
+                        "reference checkpoint (runs code from the file; the "
+                        "reference repository must be on PYTHONPATH)")
     p.add_argument("--nc", type=int, default=80)
     p.add_argument("--img_size", type=int, default=640)
     p.add_argument("--conf_thresh", type=float, default=0.2)
@@ -222,6 +228,7 @@ def main(argv=None):
 
     from ..data import writer
     from ..models import zoo
+    from ..models.convert import load_detector_weights
     from ..models.spec import load_yaml_file
     from ..pipeline import PipelineConfig, TrackingPipeline
     from ..reid import resolve_reid
@@ -243,7 +250,8 @@ def main(argv=None):
         spec = load_yaml_file(opts.model, nc=opts.nc)
     else:
         spec = zoo.get_spec(opts.model, nc=opts.nc)
-    state_dict = (torch.load(opts.model_path, map_location="cpu")
+    state_dict = (load_detector_weights(opts.model_path, spec,
+                                        opts.trust_model_path)
                   if opts.model_path else None)
     pipe = TrackingPipeline(pcfg, tcfg, state_dict=state_dict, spec=spec,
                             device=opts.device,

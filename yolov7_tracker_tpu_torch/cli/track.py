@@ -23,11 +23,15 @@ scored (eval/, HOTA, CLEAR, Identity and Count) and the table printed;
 ``cli.evaluate`` scores a results folder on its own. Runs on the GPU
 unless --device says otherwise. Dataset configs come from the package's
 configs/ (the JAX package's copies), then ./config_files and
-./tracker/config_files. --model_path is a Flax variables file (.msgpack
-or .npz, the JAX CLI's checkpoints) or a torch state_dict in the port's
-module names. --gmc defaults to orb for botsort and ecc for strongsort,
-as in the JAX CLI; orb needs OpenCV on the host, so on a machine without
-it pass --gmc ecc or --gmc none.
+./tracker/config_files. --model takes any zoo name (yolov7, the e6 / d6 /
+e6e / w6 family, yolov5n-x, yolov8n-x, yolov3(-spp), yolov4-csp,
+yolor-csp ...) or a reference cfg yaml built from the ported blocks.
+--model_path is a Flax variables file (.msgpack or .npz, the JAX CLI's
+checkpoints), a reference checkpoint (a state_dict in the reference's
+names, or a pickled one with --trust_model_path) or a torch state_dict in
+the port's module names. --gmc defaults to orb for botsort and ecc for
+strongsort, as in the JAX CLI; orb needs OpenCV on the host, so on a
+machine without it pass --gmc ecc or --gmc none.
 """
 
 from __future__ import annotations
@@ -55,8 +59,15 @@ def parse_args(argv=None):
                    help="zoo model name or reference cfg yaml path")
     p.add_argument("--model_path", type=str, default="",
                    help="detector weights: a Flax variables file "
-                        "(.msgpack/.npz) or an unfused torch state_dict in "
-                        "the port's names (default: seeded random weights)")
+                        "(.msgpack/.npz), a reference checkpoint (.pt: a "
+                        "state_dict in the reference's names or a pickled "
+                        "{'model'|'ema': module}) or an unfused torch "
+                        "state_dict in the port's names (default: seeded "
+                        "random weights)")
+    p.add_argument("--trust_model_path", action="store_true",
+                   help="unpickle a --model_path that holds a full "
+                        "reference checkpoint (runs code from the file; the "
+                        "reference repository must be on PYTHONPATH)")
     p.add_argument("--nc", type=int, default=80)
     p.add_argument("--img_size", type=int, default=1280)
     p.add_argument("--reid_model_path", type=str, default="",
@@ -163,20 +174,6 @@ def post_process(results, linker, gsi: bool):
             for fid, ids, tlwhs, clses in results]
 
 
-def load_detector_weights(path, spec):
-    """--model_path as an unfused state_dict in the port's names: a Flax
-    variables file (.msgpack / .npz, what the JAX CLI loads) is converted,
-    anything else is read with torch.load."""
-    if path.endswith((".msgpack", ".npz")):
-        from ..models.from_jax import jax_variables_to_torch
-        from ..utils.flax_msgpack import load_variables
-
-        return jax_variables_to_torch(load_variables(path), spec)
-    import torch
-
-    return torch.load(path, map_location="cpu")
-
-
 def evaluate_run(dataset, track_eval_cfg, folder):
     """Score a results folder as the JAX CLI does: the config's
     TRACK_EVAL gt (SEQ_INFO lengths, missing ones from seqinfo.ini),
@@ -209,6 +206,7 @@ def main(argv=None):
     from ..data import sequence as seqmod
     from ..data import writer
     from ..models import zoo
+    from ..models.convert import load_detector_weights
     from ..models.spec import load_yaml_file
     from ..pipeline import PipelineConfig, TrackingPipeline
     from ..reid import resolve_reid
@@ -237,7 +235,8 @@ def main(argv=None):
         spec = load_yaml_file(opts.model, nc=opts.nc)
     else:
         spec = zoo.get_spec(opts.model, nc=opts.nc)
-    state_dict = (load_detector_weights(opts.model_path, spec)
+    state_dict = (load_detector_weights(opts.model_path, spec,
+                                        opts.trust_model_path)
                   if opts.model_path else None)
     pipe = TrackingPipeline(pcfg, tcfg, state_dict=state_dict, spec=spec,
                             device=opts.device,

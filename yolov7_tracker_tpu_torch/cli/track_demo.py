@@ -35,9 +35,11 @@ def parse_args(argv=None):
                             "botsort", "deepsort", "strongsort", "deepmot"])
     p.add_argument("--model", type=str, default="yolov7-tiny")
     p.add_argument("--model_path", type=str, default="",
-                   help="detector weights: a Flax variables file "
-                        "(.msgpack/.npz) or an unfused torch state_dict in "
-                        "the port's names (default: seeded random weights)")
+                   help="detector weights, read as cli/track.py reads "
+                        "them: a Flax variables file (.msgpack/.npz), a "
+                        "state_dict in the reference's names or an unfused "
+                        "one in the port's names (default: seeded random "
+                        "weights)")
     p.add_argument("--nc", type=int, default=80)
     p.add_argument("--img_size", type=int, default=640)
     p.add_argument("--conf_thresh", type=float, default=0.2)
@@ -139,10 +141,10 @@ def main(argv=None):
     from ..data import sequence as seqmod
     from ..data import writer
     from ..models import zoo
+    from ..models.convert import load_detector_weights
     from ..pipeline import PipelineConfig, TrackingPipeline
     from ..reid import resolve_reid
     from ..trackers.slab import TrackerConfig
-    from .track import load_detector_weights
 
     reid, reid_state_dict = resolve_reid(opts.tracker, opts.reid_model_path)
     pcfg = PipelineConfig(model=opts.model, nc=opts.nc,

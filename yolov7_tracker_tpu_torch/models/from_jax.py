@@ -55,18 +55,26 @@ def jax_variables_to_torch(variables_np: Mapping, spec: ModelSpec
         sd[f"{base}.{_STAT_LEAF[path[-1]]}"] = torch.tensor(
             np.asarray(leaf, np.float32))
         sd[f"{base}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
-    want = YoloV7(spec, fused=False).state_dict()
+    check_state_dict(sd, spec)
+    return sd
+
+
+def check_state_dict(sd: Mapping[str, torch.Tensor], spec: ModelSpec
+                     ) -> None:
+    """Raise ValueError unless ``sd`` has exactly the keys and shapes of
+    ``YoloV7(spec, fused=False)`` (built on the meta device: no memory)."""
+    with torch.device("meta"):
+        want = YoloV7(spec, fused=False).state_dict()
     missing = sorted(set(want) - set(sd))
     extra = sorted(set(sd) - set(want))
     if missing or extra:
         raise ValueError(
-            f"variables do not match the spec: missing {missing[:5]}, "
+            f"weights do not match the spec: missing {missing[:5]}, "
             f"unexpected {extra[:5]}")
     for k, v in want.items():
         if tuple(sd[k].shape) != tuple(v.shape):
             raise ValueError(f"{k}: shape {tuple(sd[k].shape)} != "
                              f"{tuple(v.shape)}")
-    return sd
 
 
 def slab_from_numpy(slab_np, device="cpu") -> TrackSlab:

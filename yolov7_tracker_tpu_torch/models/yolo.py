@@ -1,30 +1,40 @@
-"""YOLOv7 detector as a torch nn.Module built from a ModelSpec (port of
+"""The detector zoo as a torch nn.Module built from a ModelSpec (port of
 yolov7_tracker_tpu/models/yolo.py, inference path).
 
-The forward pass replays the spec's layer DAG like the JAX module and
-returns the RAW lead head levels, each (B, ny, nx, na, no) pre-sigmoid,
-which is what the pipeline's score-first NMS consumes. Input is the JAX
-layout (B, H, W, 3) in [0, 1]; inside, tensors are NCHW. Layers that feed
-only IAuxDetect's auxiliary heads are skipped: at inference the JAX
-module computes them and then drops their outputs (yolo.py:430-432), so
-the lead outputs are the same either way. Module and parameter names
-follow the Flax tree (``layer{i}``, ``head_m_{i}``, ``head_ia_{i}`` ...),
-which keeps the weight bridge (models/from_jax.py) a renaming.
+The forward pass replays the spec's layer DAG like the JAX module. The
+anchor heads (Detect, IDetect, IAuxDetect) return the RAW lead head
+levels, each (B, ny, nx, na, no) pre-sigmoid, which is what the
+pipeline's score-first NMS consumes; the anchor-free DetectV8 head returns
+its decoded (B, N, 5 + nc) predictions, which go through the plain NMS.
+Input is the JAX layout (B, H, W, 3) in [0, 1]; inside, tensors are NCHW.
+Layers that feed only IAuxDetect's auxiliary heads are skipped: at
+inference the JAX module computes them and then drops their outputs
+(yolo.py:430-432), so the lead outputs are the same either way. Module
+and parameter names follow the Flax tree (``layer{i}``, ``head_m_{i}``,
+``head_ia_{i}``, ``head_cv2_{i}_{j}`` ...), which keeps the weight bridge
+(models/from_jax.py) a renaming.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import re
 from typing import List
 
 import torch
 from torch import nn
 
 from . import blocks
+from . import spec as spec_mod
 from .spec import ModelSpec
 
-HEAD_KINDS = ("Detect", "IDetect", "IAuxDetect")
+HEAD_KINDS = ("Detect", "IDetect", "IAuxDetect", "DetectV8")
 _IMPLICIT_HEADS = ("IDetect", "IAuxDetect")
+_PLAIN_KINDS = ("MP", "SP", "ReOrg", "Upsample", "Concat", "Shortcut")
+# the biased output convs of the heads: what the bias prior and the head
+# sharpening write, and what random_state_dict's gain leaves alone
+_HEAD_OUT = re.compile(r"head_m2?_\d+\.|head_cv[23]_\d+_2\.")
 
 
 class ImplicitA(nn.Module):
@@ -53,6 +63,46 @@ def _in_channels(spec: ModelSpec, layer) -> int:
     return spec.layers[layer.frm[0]].c_out if layer.index > 0 else 3
 
 
+def _layer_module(spec: ModelSpec, l, fused: bool):
+    """The nn.Module of one spec layer (JAX yolo.py:118-214), or None for
+    the kinds without parameters."""
+    c1, c2, a = _in_channels(spec, l), l.c_out, l.args
+    if l.kind == "Conv":
+        k, s, g, act, p = a
+        return blocks.ConvBnAct(c1, c2, k, s, g, act, fused=fused, p=p)
+    if l.kind == "DWConv":          # a Conv with groups gcd(c1, c2)
+        return blocks.ConvBnAct(c1, c2, a[0], a[1], g=math.gcd(c1, c2),
+                                fused=fused)
+    if l.kind == "RepConv":
+        return blocks.RepConv(c1, c2, a[1], fused=fused)
+    if l.kind == "DownC":
+        return blocks.DownC(c1, c2, a[0], fused=fused)
+    if l.kind == "SPPCSPC":
+        return blocks.SPPCSPC(c1, c2, fused=fused)
+    if l.kind == "Bottleneck":
+        return blocks.Bottleneck(c1, c2, n=a[0], shortcut=a[1], fused=fused)
+    if l.kind in spec_mod.CSP_KINDS:
+        variant, inner, sc, g, ie = spec_mod.CSP_KINDS[l.kind]
+        return blocks.CSP(c1, c2, n=a[0], variant=variant, inner=inner,
+                          shortcut=sc, g=g, inner_e=ie, fused=fused)
+    if l.kind == "SPP":
+        return blocks.SPP(c1, c2, k=a[0], fused=fused)
+    if l.kind == "Stem":
+        return blocks.Stem(c1, c2, fused=fused)
+    if l.kind == "C3":
+        return blocks.C3(c1, c2, n=a[0], shortcut=a[1], fused=fused)
+    if l.kind == "C2f":
+        return blocks.C2f(c1, c2, n=a[0], shortcut=a[1], fused=fused)
+    if l.kind == "SPPF":
+        return blocks.SPPF(c1, c2, k=a[0], fused=fused)
+    if l.kind == "Focus":
+        return blocks.Focus(c1, c2, k=a[0], s=a[1], fused=fused)
+    if l.kind in _PLAIN_KINDS:
+        return None
+    raise NotImplementedError(
+        f"layer {l.index}: {l.kind!r} is not ported yet")
+
+
 class YoloV7(nn.Module):
     def __init__(self, spec: ModelSpec, fused: bool = False):
         super().__init__()
@@ -70,18 +120,12 @@ class YoloV7(nn.Module):
                 needed.update(x for x in l.frm if x >= 0)
         self._needed = needed
         for l in spec.layers[:-1]:
-            name = f"layer{l.index}"
-            c1 = _in_channels(spec, l)
-            if l.kind == "Conv":
-                k, s, g, act, p = l.args
-                self.add_module(name, blocks.ConvBnAct(
-                    c1, l.c_out, k, s, g, act, fused=fused, p=p))
-            elif l.kind == "SPPCSPC":
-                self.add_module(name, blocks.SPPCSPC(c1, l.c_out,
-                                                     fused=fused))
-            elif l.kind not in ("MP", "SP", "ReOrg", "Upsample", "Concat"):
-                raise NotImplementedError(
-                    f"layer {l.index}: {l.kind!r} is not ported yet")
+            m = _layer_module(spec, l, fused)
+            if m is not None:
+                self.add_module(f"layer{l.index}", m)
+        if spec.head_kind == "DetectV8":
+            self._build_v8_head(fused)
+            return
         na, no = spec.na, spec.no
         for i, src in enumerate(head.frm):
             c = spec.layers[src].c_out
@@ -92,8 +136,29 @@ class YoloV7(nn.Module):
                 self.add_module(f"head_ia_{i}", ImplicitA(c))
                 self.add_module(f"head_im_{i}", ImplicitM(na * no))
 
-    def forward(self, x) -> List[torch.Tensor]:
-        """x: (B, H, W, 3) in [0, 1] -> nl raw levels (B, ny, nx, na, no)."""
+    def _build_v8_head(self, fused: bool):
+        """The decoupled anchor-free head (JAX yolo.py:244-275): per level
+        a box tower ending in 4 * REG_MAX DFL logits (cv2) and a class
+        tower ending in nc logits (cv3)."""
+        spec = self.spec
+        reg = spec_mod.REG_MAX
+        c0 = spec.layers[self._head_from[0]].c_out
+        widths = {"cv2": (max(16, c0 // 4, 4 * reg), 4 * reg),
+                  "cv3": (max(c0, min(spec.nc, 100)), spec.nc)}
+        for i in range(spec.nl):
+            c = spec.layers[self._head_from[i]].c_out
+            for br, (cw, cout) in widths.items():
+                self.add_module(f"head_{br}_{i}_0", blocks.ConvBnAct(
+                    c, cw, 3, 1, fused=fused))
+                self.add_module(f"head_{br}_{i}_1", blocks.ConvBnAct(
+                    cw, cw, 3, 1, fused=fused))
+                self.add_module(f"head_{br}_{i}_2",
+                                nn.Conv2d(cw, cout, 1, bias=True))
+
+    def forward(self, x):
+        """x: (B, H, W, 3) in [0, 1] -> the anchor heads' nl raw levels
+        (B, ny, nx, na, no), or DetectV8's decoded predictions (B, N,
+        5 + nc) [xywh, obj = 1, class scores] in float32."""
         spec = self.spec
         x = x.permute(0, 3, 1, 2)
         if x.is_cuda:
@@ -105,9 +170,7 @@ class YoloV7(nn.Module):
                 continue
             inp = x if l.index == 0 else (
                 y if l.frm[0] == l.index - 1 else saved[l.frm[0]])
-            if l.kind in ("Conv", "SPPCSPC"):
-                y = getattr(self, f"layer{l.index}")(inp)
-            elif l.kind == "MP":
+            if l.kind == "MP":
                 y = blocks.mp(inp, l.args[0])
             elif l.kind == "SP":
                 y = blocks.sp(inp, *l.args)
@@ -115,15 +178,20 @@ class YoloV7(nn.Module):
                 y = blocks.reorg(inp)
             elif l.kind == "Upsample":
                 y = blocks.upsample_nearest(inp, l.args[0])
-            else:  # Concat
-                y = torch.cat([y if i == l.index - 1 else saved[i]
-                               for i in l.frm], dim=1)
+            elif l.kind in ("Concat", "Shortcut"):
+                parts = [y if i == l.index - 1 else saved[i] for i in l.frm]
+                y = (torch.cat(parts, dim=1) if l.kind == "Concat"
+                     else functools.reduce(torch.add, parts))
+            else:
+                y = getattr(self, f"layer{l.index}")(inp)
             if l.index in spec.save:
                 saved[l.index] = y
+        feats = [saved[src] if src in saved else y
+                 for src in self._head_from[:spec.nl]]
+        if spec.head_kind == "DetectV8":
+            return self._decode_v8(feats)
         raw = []
-        for i in range(spec.nl):
-            src = self._head_from[i]
-            feat = saved[src] if src in saved else y
+        for i, feat in enumerate(feats):
             if hasattr(self, f"head_ia_{i}"):
                 feat = getattr(self, f"head_ia_{i}")(feat)
             p = getattr(self, f"head_m_{i}")(feat)
@@ -134,11 +202,53 @@ class YoloV7(nn.Module):
                                                      spec.no))
         return raw
 
+    def _decode_v8(self, feats: List[torch.Tensor]) -> torch.Tensor:
+        """The DFL decode (JAX yolo.py:434-481): a softmax over the REG_MAX
+        bins of each side, whose expectation is the side's distance in
+        cells from the cell centre (x + 0.5, y + 0.5); xy = (centre + (rb
+        - lt) / 2) * stride, wh = (lt + rb) * stride, obj = 1, sigmoid
+        class scores. It runs in float32: in JAX the softmax meets the
+        float32 bins and grid, so its boxes come out float32 too."""
+        spec = self.spec
+        reg = spec_mod.REG_MAX
+        out = []
+        for i, feat in enumerate(feats):
+            d, c = feat, feat
+            for j in range(3):
+                d = getattr(self, f"head_cv2_{i}_{j}")(d)
+                c = getattr(self, f"head_cv3_{i}_{j}")(c)
+            b, _, ny, nx = d.shape
+            dev = d.device
+            bins = torch.arange(reg, dtype=torch.float32, device=dev)
+            dist = torch.softmax(d.float().reshape(b, 4, reg, ny, nx), dim=2)
+            dist = torch.einsum("bsrhw,r->bhws", dist, bins)   # ltrb
+            gy, gx = torch.meshgrid(
+                torch.arange(ny, dtype=torch.float32, device=dev),
+                torch.arange(nx, dtype=torch.float32, device=dev),
+                indexing="ij")
+            centre = torch.stack([gx, gy], dim=-1) + 0.5
+            lt, rb = dist[..., :2], dist[..., 2:]
+            stride = float(spec.strides[i])
+            score = torch.sigmoid(c.float()).permute(0, 2, 3, 1)
+            out.append(torch.cat([
+                (centre + (rb - lt) / 2.0) * stride, (lt + rb) * stride,
+                torch.ones_like(score[..., :1]), score],
+                dim=-1).reshape(b, ny * nx, 5 + spec.nc))
+        return torch.cat(out, dim=1)
+
 
 def init_head_biases(state_dict, spec: ModelSpec) -> None:
     """Detection-head bias prior (models/yolo.py:353-368): obj
-    log(8 / (640/stride)^2), cls log(0.6 / (nc - 0.99)). In place."""
+    log(8 / (640/stride)^2), cls log(0.6 / (nc - 0.99)); DetectV8 (JAX
+    yolo.py:515-529): box logits 1, cls log(5 / nc / (640/stride)^2).
+    In place."""
     nl, na, nc = spec.nl, spec.na, spec.nc
+    if spec.head_kind == "DetectV8":
+        for i, s in enumerate(spec.strides):
+            state_dict[f"head_cv2_{i}_2.bias"].fill_(1.0)
+            state_dict[f"head_cv3_{i}_2.bias"].fill_(
+                math.log(5.0 / nc / (640.0 / float(s)) ** 2))
+        return
     for i in range(len(spec.layers[-1].frm)):
         key = f"head_m{'2' if i >= nl else ''}_{i % nl}.bias"
         b = state_dict[key].view(na, spec.no)
@@ -150,22 +260,24 @@ def random_state_dict(spec: ModelSpec, seed: int = 0, gain: float = 1.0):
     """Seeded random weights in the unfused layout: Flax-style lecun-normal
     conv kernels (truncated at 2 std), zero conv biases, identity BN
     statistics, implicit vectors around 0 and 1, and the head bias prior.
-    ``gain`` scales the std of every conv kernel below the head: at 1.0 the
-    signal of a deep model (yolov7-w6) dies out through its SiLU layers and
-    the heads emit their biases whatever the image shows."""
+    ``gain`` scales the std of every conv kernel but the heads' output
+    convs: at 1.0 the signal of a deep model (yolov7-w6) dies out through
+    its SiLU layers and the heads emit their biases whatever the image
+    shows."""
     g = torch.Generator().manual_seed(seed)
     model = YoloV7(spec, fused=False)
     sd = {k: v.clone() for k, v in model.state_dict().items()}
     for k, v in sd.items():
+        head_out = _HEAD_OUT.match(k) is not None
         if k.endswith("weight") and v.dim() == 4:
             std = math.sqrt(1.0 / (v[0].numel())) / 0.87962566103423978
-            if not k.startswith("head_m"):
+            if not head_out:
                 std *= gain
             nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std, generator=g)
         elif k.endswith("implicit"):
             base = 0.0 if k.startswith("head_ia") else 1.0
             v.copy_(base + 0.02 * torch.randn(v.shape, generator=g))
-        elif k.endswith(".bias") and k.startswith("head_m"):
+        elif k.endswith(".bias") and head_out:
             v.zero_()
     init_head_biases(sd, spec)
     return sd
@@ -176,9 +288,17 @@ def sharpen_heads(state_dict, spec: ModelSpec, seed: int = 1,
                   jitter: float = 3.0) -> None:
     """Spread random-init scores so NMS keeps a realistic detection load
     (bench.py:46-72): scale the head kernels, raise the objectness and
-    class logits, jitter the class logits per anchor. In place, unfused
-    layout."""
+    class logits, jitter the class logits per anchor. DetectV8 has no
+    objectness: its box and class kernels are scaled and its class logits
+    raised by ``obj_boost`` and jittered. In place, unfused layout."""
     g = torch.Generator().manual_seed(seed)
+    if spec.head_kind == "DetectV8":
+        for i in range(spec.nl):
+            state_dict[f"head_cv2_{i}_2.weight"].mul_(sharpen)
+            state_dict[f"head_cv3_{i}_2.weight"].mul_(sharpen)
+            state_dict[f"head_cv3_{i}_2.bias"].add_(obj_boost + jitter * (
+                2.0 * torch.rand((spec.nc,), generator=g) - 1.0))
+        return
     for i in range(len(spec.layers[-1].frm)):
         name = f"head_m{'2' if i >= spec.nl else ''}_{i % spec.nl}"
         state_dict[f"{name}.weight"].mul_(sharpen)

@@ -1,10 +1,11 @@
 """End-to-end tracking pipeline: frames -> detections -> tracks (port of
 yolov7_tracker_tpu/pipeline.py).
 
-  uint8 frames --> device_preprocess --> YoloV7 --> nms_from_raw
-      --> scale_coords --> DetSlab (+ ReID features: device crops and
-      the DeepSORT CNN or OSNet; + the GMC warp: ECC on the device or
-      ORB on the host) --> tracker slab step --> FrameOutput
+  uint8 frames --> device_preprocess --> YoloV7 --> nms_from_raw (the
+      anchor heads) or nms (DetectV8's decoded boxes) --> scale_coords
+      --> DetSlab (+ ReID features: device crops and the DeepSORT CNN or
+      OSNet; + the GMC warp: ECC on the device or ORB on the host)
+      --> tracker slab step --> FrameOutput
 
 The detector runs on batches of ``detector_batch`` frames; the tracker
 then steps through the batch frame by frame (the JAX ``lax.scan`` as a
@@ -186,13 +187,22 @@ class TrackingPipeline:
         out_hw, unpad_hw = self._geometry(src_hw)
         imgs, _ = letterbox.device_preprocess(
             frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=self.dtype)
-        raw = self.model(imgs)
-        dets, counts = nms_mod.nms_from_raw(
-            raw, self._anchors, tuple(self.spec.strides),
-            self.pcfg.conf_thres, self.pcfg.iou_thres,
-            max_det=self.pcfg.max_det, top_k=self.pcfg.nms_top_k)
+        dets, counts = self.nms(self.model(imgs))
         boxes = letterbox.scale_coords_device(dets[..., :4], out_hw, src_hw)
         return boxes, dets[..., 4], dets[..., 5], counts
+
+    def nms(self, out):
+        """The detector's output -> (dets (B, max_det, 6), counts (B,)),
+        by head kind as in the JAX pipeline: the anchor heads' raw levels
+        through the score-first ``nms_from_raw``, DetectV8's decoded
+        predictions (float32) through ``nms``."""
+        p = self.pcfg
+        if self.spec.head_kind == "DetectV8":
+            return nms_mod.nms(out.float(), p.conf_thres, p.iou_thres,
+                               max_det=p.max_det, top_k=p.nms_top_k)
+        return nms_mod.nms_from_raw(
+            out, self._anchors, tuple(self.spec.strides), p.conf_thres,
+            p.iou_thres, max_det=p.max_det, top_k=p.nms_top_k)
 
     # ------------------------------------------------------------------
     # tracking
