@@ -144,14 +144,56 @@ Phases, each of which must pass:
                 against the CPU and fused against unfused (ZOO_REL_TOL, on
                 each part of the output alone; bf16 must land above it),
                 and a CPU replay of the tracker with the same ids.
+ 10. train   -- training and the detector test (no kernel of the port:
+                training reaches none; convs are cuDNN, SimOTA is torch
+                ops). (a) two train steps of yolov7-w6 at full width
+                (nc=80, 320 px, batch 2) from one seeded TrainState on the
+                card and on the CPU: at ni 495 the accumulation carries,
+                at 496 it applies (SGD + EMA). The network runs in float64
+                (in float32 the two devices' raw preds part by more than
+                1e-4, which flips the odd steep match), SimOTA and the loss
+                terms on its preds cast to float32 as always. After each
+                step: the same SimOTA assignments, lead and aux (a
+                difference only at a printed near-tie), loss parts within
+                1e-4 relative, parameters, BN statistics, EMA, momentum
+                and gradient sum within 1e-4 of each tensor's largest
+                value; the carry leaves a gradient sum, the apply moves
+                every group. The float32 steps (TF32 off) are reported
+                beside them, their SimOTA on the card's preds equal to the
+                CPU's, the card's applying step under
+                torch.cuda.set_sync_debug_mode("error"). (b)
+                cli/train.train_loop on yolov7-w6 at 1280 px, batch 8, bf16,
+                nominal batch 64, data/hyp.scratch.p6.yaml, 12 batches of a
+                seeded in-memory dataset (MemoryDataset: 5-60 rectangles an
+                image) from ni 500 (accumulate 4, then 5): every loss
+                finite, optimizer steps where the accumulate schedule says
+                and carried sums between, step ms (median of steps 4-12),
+                imgs/s, peak memory, the step's parts by CUDA events
+                (forward, the two SimOTA assignments, the loss terms,
+                backward, optimizer + EMA), launches a step (profiler) and
+                FLOPs (FlopCounterMode) as a share of the bf16 peak. (c)
+                (a)'s configuration through the loop's checkpointing under
+                torch.use_deterministic_algorithms: preempt_after 3 writes
+                step_3/ and preempted.json, _find_latest_ckpt picks it, it
+                reloads bit for bit, and two resumed steps equal steps 4-5
+                of an uninterrupted run bit for bit (within 1e-4 where an
+                op has no deterministic form, named). (d) cli/test's
+                evaluate_map on (b)'s EMA weights and its starting weights
+                at 640 px over 16 seeded images labelled from the latter's
+                detections: float32 on the card (time, the NMS's ms and
+                host syncs a batch), and card against CPU in float64:
+                detections per image equal, mAPs within 1e-4. (e)
+                yolov7-tiny (IDetect, SimOTA, hyp.scratch.tiny) at 640 px,
+                batch 32, 6 batches: step ms and imgs/s. Prints the train
+                JSON line.
 Then K2 on the offline path's last stage-1 and stage-2/3 problems and on
 the last tick's 2S problems, K1 on step_frame's last problem and K3 on the
 last tick's are timed (ms, us per sweep, bound) and profiled (where a
 solve's cycles go, by the profiling builds, which no path uses), and the
 problems are written to chiprun_out/chip_smoke/k2_problems.pt and
 square_problems.pt.
-It prints the trackers JSON line, the kernel JSON line, the card's name
-and power limit, and last
+It prints the trackers JSON line, the train JSON line, the kernel JSON
+line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, if
 there is no CUDA device or if any phase fails. It imports nothing of JAX.
 
@@ -164,6 +206,10 @@ problems. It prints no result line.
     python3 chip_smoke.py --k2-only [--problems k2_problems.pt]
 
 is its twin for work on K2.
+
+    python3 chip_smoke.py --train-only
+
+runs phase 10 alone and prints its JSON line, no result line.
 """
 
 from __future__ import annotations
@@ -3091,6 +3137,891 @@ def path_timings(square, step_last, tick_last, dev):
     return on_step, on_tick
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training (parallel/train_step, cli/train.train_loop) and the
+# detector test (cli/test.evaluate_map)
+# ---------------------------------------------------------------------------
+
+TRAIN_PARITY_IMG = 320        # (a), (c): yolov7-w6 at full width, batch 2
+# (a)'s two steps run at ni = 495 and 496, inside the warmup, where every
+# group's LR is above 0 (at ni = 0 only the biases move) and accumulate is
+# 16 (batch 2, nominal 64): 495 carries the gradient sum, 496 applies it
+TRAIN_PARITY_NI = 495
+TRAIN_REL_TOL = 1e-4          # (a): of each tensor's largest |value|
+NEAR_TIE = 1e-6               # (a): a SimOTA difference is allowed within
+TRAIN_IMG = 1280              # (b): train_aux.py's size for w6
+TRAIN_BATCH = 8
+TRAIN_BATCHES = 12
+# (b) starts at ni = 500 of the warmup, where accumulate (batch 8, nominal
+# 64) is 4, then 5: the loop carries the gradient sum over most steps
+TRAIN_START_NI = 500
+TEST_IMG = 640                # (d)
+TEST_IMAGES = 16
+TEST_REL_TOL = 1e-4           # (d): map50, map, mp, mr card against CPU
+TINY_IMG, TINY_BATCH, TINY_BATCHES = 640, 32, 6     # (e)
+# (b): each lead head output channel's std on the first batch
+# (standardize_heads), around its prior
+TRAIN_HEAD_SPREAD = 4.0
+TRAIN_BN_SCALE = 1.0          # (b): calibrate_detector_bn's BN weight
+BF16_PEAK = 989e12            # H100 SXM dense bf16 (NVIDIA datasheet)
+
+
+class MemoryDataset:
+    """A seeded in-memory detection dataset: n uint8 BGR images (size x
+    size) of blocky noise with 5-60 filled rectangles each, their labels
+    [cls, cx, cy, w, h] normalised and padded to max_labels. It exposes
+    what cli/train.train_loop and cli/test.evaluate_map read: ``batches``
+    (in order: the data is seeded already), ``labels`` and ``len``."""
+
+    def __init__(self, n, size, nc=80, seed=0, max_labels=128):
+        rng = np.random.default_rng(seed)
+        cell = 16
+        self.imgs = np.repeat(np.repeat(rng.integers(
+            0, 255, (n, size // cell, size // cell, 3), np.uint8), cell, 1),
+            cell, 2)
+        self.targets = np.zeros((n, max_labels, 5), np.float32)
+        self.masks = np.zeros((n, max_labels), bool)
+        self.labels = []
+        for i in range(n):
+            k = int(rng.integers(5, 61))
+            wh = rng.uniform(0.02, 0.3, (k, 2))
+            xy = rng.uniform(0, 1, (k, 2)) * (1 - wh)
+            lab = np.concatenate([rng.integers(0, nc, (k, 1)), xy + wh / 2,
+                                  wh], axis=1).astype(np.float32)
+            for (x, y), (w, h) in zip((xy * size).astype(int),
+                                      (wh * size).astype(int)):
+                self.imgs[i, y:y + h, x:x + w] = rng.integers(0, 255, 3)
+            self.labels.append(lab)
+            self.targets[i, :k] = lab[:max_labels]
+            self.masks[i, :k] = True
+
+    def __len__(self):
+        return len(self.imgs)
+
+    def batches(self, batch_size, shuffle=True, epochs=1):
+        for _ in range(epochs):
+            for k in range(0, len(self) - batch_size + 1, batch_size):
+                yield (self.imgs[k:k + batch_size],
+                       self.targets[k:k + batch_size],
+                       self.masks[k:k + batch_size])
+
+
+class SkipBatches:
+    """``data`` whose batches start after the first ``skip``: a resumed
+    run's dataset that goes on where the preempted one stopped."""
+
+    def __init__(self, data, skip):
+        self.data, self.skip, self.labels = data, skip, data.labels
+
+    def __len__(self):
+        return len(self.data)
+
+    def batches(self, batch_size, shuffle=True, epochs=1):
+        it = self.data.batches(batch_size, shuffle, epochs)
+        for _ in range(self.skip):
+            next(it)
+        yield from it
+
+
+def train_opts(model, img, batch, ckpt_dir, hyp, *extra):
+    """cli/train.py's parsed options for train_loop, on the card."""
+    from yolov7_tracker_tpu_torch.cli import train as train_cli
+
+    return train_cli.parse_args(
+        ["--model", model, "--data", "unused.yaml", "--img", str(img),
+         "--batch", str(batch), "--epochs", "1", "--eval_every", "0",
+         "--ckpt_dir", ckpt_dir, "--hyp", hyp, "--device", "cuda",
+         *extra])
+
+
+@contextlib.contextmanager
+def train_instruments(around=None, weights=None, start_step=0):
+    """For the block, every step that parallel/train_step.make_train_step
+    makes is timed on the host clock between two synchronizes, and CUDA
+    events time its parts: the forward, each SimOTA assignment, the loss
+    (its assignments included) and the optimizer + EMA; the backward is
+    the gap between the loss's end and the optimizer's start, or the
+    step's end where the accumulation carries. ``around`` maps a step's
+    index to a context-manager factory it runs under (FlopCounterMode, the
+    profiler); ``weights`` (a state_dict) seeds make_train_state, whose
+    state starts at ni = ``start_step``. Yields {"steps": [per-step
+    record], "state": the live TrainState}."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models import yolo
+    from yolov7_tracker_tpu_torch.parallel import train_step as ts
+    from yolov7_tracker_tpu_torch.train import loss as loss_mod
+
+    out = {"steps": [], "state": None}
+    events = []
+    patched = [(yolo.YoloV7, "forward", "forward"),
+               (loss_mod, "simota_assign", "simota"),
+               (ts, "compute_loss_aux_ota", "loss"),
+               (ts, "compute_loss_ota", "loss"),
+               (ts, "compute_loss", "loss"),
+               (ts, "_apply_update", "optimizer_ema")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+
+    def evented(part, fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            r = fn(*args, **kw)
+            e.record()
+            events.append((part, s, e))
+            return r
+        return wrapped
+
+    for (obj, name, part), (_, _, fn) in zip(patched, saved):
+        setattr(obj, name, evented(part, fn))
+    make, make_state = ts.make_train_step, ts.make_train_state
+
+    def seeded_state(spec, opt_cfg=ts.OptConfig(), seed=0, device=None,
+                     state_dict=None):
+        state = make_state(spec, opt_cfg, seed, device,
+                           state_dict if state_dict is not None else weights)
+        state.step = start_step
+        return state
+
+    def make_timed(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(state, *batch):
+            out["state"] = state
+            i = len(out["steps"])
+            ctx = (around or {}).get(i, contextlib.nullcontext)()
+            events.clear()
+            updates = state.ema_count
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with ctx as hook:
+                metrics = step(state, *batch)
+            end.record()
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3
+            parts = collections.defaultdict(float)
+            loss_end, opt_start = None, end
+            for part, s, e in events:
+                parts[part] += s.elapsed_time(e)
+                if part == "loss":
+                    loss_end = e
+                elif part == "optimizer_ema":
+                    opt_start = s
+            parts["backward"] = loss_end.elapsed_time(opt_start)
+            parts["loss_terms"] = parts["loss"] - parts["simota"]
+            out["steps"].append({
+                "ms": wall, "parts": dict(parts), "hook": hook,
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "ni": state.step - 1, "updates": state.ema_count,
+                "applied": state.ema_count > updates})
+            return metrics
+        return timed
+
+    ts.make_train_step = make_timed
+    ts.make_train_state = seeded_state
+    try:
+        yield out
+    finally:
+        ts.make_train_step, ts.make_train_state = make, make_state
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def parity_weights(spec, seed=0):
+    """Seeded w6 weights for (a): random_state_dict with each BatchNorm's
+    affine terms and running statistics drawn around identity, so that a
+    BN bias is no zero tensor whose update alone sets its scale."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models.yolo import random_state_dict
+
+    sd = random_state_dict(spec, seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    for k, v in sd.items():
+        if v.dim() != 1 or k.endswith("implicit") or k.startswith("head"):
+            continue
+        if k.endswith("running_var") or k.endswith(".weight"):
+            v.copy_(torch.empty(v.shape).uniform_(0.8, 1.2, generator=g))
+        elif k.endswith("running_mean") or k.endswith(".bias"):
+            v.copy_(0.05 * torch.randn(v.shape, generator=g))
+    return sd
+
+
+def to_input(batch, dev):
+    """A dataset batch as the loop feeds it: BGR uint8 -> RGB [0, 1]."""
+    import torch
+
+    imgs, tgts, masks = batch
+    x = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
+    return (x.flip(-1).float() / 255.0, torch.from_numpy(tgts).to(dev),
+            torch.from_numpy(masks).to(dev))
+
+
+def state_rel_diff(a, b, sections=("model", "ema")):
+    """The worst |a - b| over each float tensor of two TrainState
+    state_dicts, as a share of the tensor's largest |value| in b; and its
+    name."""
+    worst, name = 0.0, ""
+    for sec in sections:
+        for k, v in b[sec].items():
+            if not v.is_floating_point():
+                continue
+            w = a[sec][k].to(v.device)
+            err = (w - v).abs().max().item()
+            scale = v.abs().max().item()
+            r = err / scale if scale else (0.0 if err == 0 else float("inf"))
+            if r > worst:
+                worst, name = r, f"{sec}/{k}"
+    return worst, name
+
+
+@contextlib.contextmanager
+def keeping_calls(obj, name, kept):
+    """obj.name wrapped for the block: each call's (args, kwargs, result)
+    is appended to ``kept``."""
+    fn = getattr(obj, name)
+
+    def kept_call(*args, **kw):
+        out = fn(*args, **kw)
+        kept.append((args, kw, out))
+        return out
+
+    setattr(obj, name, kept_call)
+    try:
+        yield
+    finally:
+        setattr(obj, name, fn)
+
+
+def assignment_check(card, cpu, name):
+    """SimOTA assignments of one step on the card against the CPU's:
+    the matched slots and their targets. A difference counts only at a
+    near-tie of the CPU's costs (two costs of the slot within NEAR_TIE
+    relative, or its target's top-k IoU sum within NEAR_TIE of an
+    integer); each is printed. Returns (slots that differ, of them not at
+    a near-tie)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.train import loss as loss_mod
+
+    (_, _, a_out), (b_args, b_kw, b_out) = card, cpu
+    ma, mb = a_out["matched"].cpu(), b_out["matched"]
+    ga, gb = a_out["matched_gt"].cpu(), b_out["matched_gt"]
+    diff = (ma != mb) | (ma & mb & (ga != gb))
+    n = int(diff.sum())
+    if not n:
+        return 0, 0
+    cost, top_sum, _, _ = loss_mod.simota_costs(*b_args, **b_kw)
+    bsz, t_cap = cost.shape[:2]
+    d = diff.reshape(bsz, t_cap, -1)
+
+    def close(x, y):
+        return abs(x - y) <= NEAR_TIE * max(abs(x), abs(y))
+
+    far = 0
+    for b, t, c in zip(*torch.nonzero(d, as_tuple=True)):
+        row = torch.sort(cost[b, t]).values
+        k = max(int(top_sum[b, t]), 1)
+        two = torch.sort(cost[b, :, c]).values[:2]
+        tie = (close(float(two[0]), float(two[1]))
+               or close(float(row[k - 1]), float(row[min(k, row.numel() - 1)]))
+               or abs(float(top_sum[b, t]) - round(float(top_sum[b, t])))
+               <= NEAR_TIE)
+        far += not tie
+        log(f"phase 10a: {name} SimOTA slot (image {int(b)}, target "
+            f"{int(t)}, slot {int(c)}) differs; near-tie: {tie} (top-k sum "
+            f"{float(top_sum[b, t]):.7f}; the row's k-th and next cost "
+            f"{float(row[k - 1]):.7f} "
+            f"{float(row[min(k, row.numel() - 1)]):.7f}"
+            f"; the slot's two lowest {float(two[0]):.7f} "
+            f"{float(two[1]):.7f})")
+    return n, far
+
+
+def on_host(call):
+    """A kept call's (args, kwargs, result) with its tensors on the CPU."""
+    import torch
+
+    def host(x):
+        return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+    args, kw, out = call
+    return (tuple(host(a) for a in args), {k: host(v) for k, v in kw.items()},
+            {k: host(v) for k, v in out.items()})
+
+
+def float64_state(state):
+    """A TrainState converted in place to float64: parameters (the same
+    Parameter objects, so the optimizer keeps them), BN statistics, EMA,
+    momentum buffers and gradient sum."""
+    import torch
+
+    state.model.double()
+    for n, p in state.model.named_parameters():
+        st = state.optimizer.state[p]
+        st["momentum_buffer"] = st["momentum_buffer"].double()
+        state.ema[n] = state.ema[n].double()
+        if p.grad is not None:
+            g = p.grad.double()
+            p.grad = None
+            p.grad = g
+    return state
+
+
+def parity_steps(spec, sd, cfg, inputs, device, dtype, sync_check=False):
+    """Train steps of ``spec`` from ``sd`` on ``device`` in ``dtype``, one
+    for each of ``inputs`` (host tensors), from ni = TRAIN_PARITY_NI.
+    Yields (state, losses, kept SimOTA calls, seconds) after each step;
+    with ``sync_check`` every step but the first runs under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.parallel import train_step as ts
+    from yolov7_tracker_tpu_torch.train import loss as loss_mod
+
+    state = ts.make_train_state(spec, cfg, device=device, state_dict=sd)
+    if dtype == torch.float64:
+        float64_state(state)
+    state.step = TRAIN_PARITY_NI
+    step = ts.make_train_step(spec, img_size=TRAIN_PARITY_IMG, opt_cfg=cfg)
+    for i, (x, t, m) in enumerate(inputs):
+        kept = []
+        x, t, m = x.to(device, dtype), t.to(device), m.to(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error" if sync_check and i
+                                           else "default")
+        t0 = time.time()
+        try:
+            with keeping_calls(loss_mod, "simota_assign", kept):
+                metrics = step(state, x, t, m)
+        finally:
+            if device.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        yield (state, {k: float(v) for k, v in metrics.items()},
+               [on_host(k) for k in kept], time.time() - t0)
+
+
+def moved_params(state, sd):
+    """Per optimizer group: (parameters that differ from ``sd``, all)."""
+    import torch
+
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return {g["name"]: (sum(not torch.equal(p.detach().cpu(),
+                                            sd[names[id(p)]].to(p.dtype))
+                            for p in g["params"]), len(g["params"]))
+            for g in state.optimizer.param_groups}
+
+
+def train_parity(dev):
+    """(a): two train steps of yolov7-w6 at full width, 320 px, batch 2,
+    from one seeded TrainState and two batches made on the host, on the
+    card and on the CPU: at ni = TRAIN_PARITY_NI the accumulation carries
+    (the gradient sum is left in .grad), at the next ni it applies (SGD +
+    Nesterov in the three groups, every group's LR above 0, then the EMA).
+    In float32 (TF32 off) the raw training-mode preds of the two devices
+    part by more than 1e-4 of the largest (each is reported against the
+    CPU's float64 preds), which flips the odd SimOTA match whose -log IoU is
+    steep; so the equalities run the network (forward, backward,
+    parameters, BN statistics, EMA, momentum, gradient sum) in float64 on
+    both, with SimOTA and the loss terms on the preds cast to float32 as the
+    step always does. After each step: the same SimOTA assignments, lead
+    and aux (a difference only at a printed near-tie); loss parts within
+    TRAIN_REL_TOL relative; parameters, BN statistics, EMA, momentum and
+    gradient sum each within TRAIN_REL_TOL of the tensor's largest value.
+    The carry step must leave ema_count 0 and a gradient sum; the applying
+    step ema_count 1, the sum zeroed and parameters of every group moved.
+    The float32 steps are the control and are reported: their raw preds,
+    losses and state against the CPU's, their assignment differences, and
+    SimOTA on the card's own preds equal to the CPU's SimOTA on them. The
+    float32 card's applying step runs under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.parallel import train_step as ts
+    from yolov7_tracker_tpu_torch.train import loss as loss_mod
+
+    spec = zoo.get_spec("yolov7-w6", nc=80)
+    sd = parity_weights(spec)
+    cfg = ts.OptConfig(batch_size=2)
+    ni = TRAIN_PARITY_NI
+    acc = [ts.accumulate_schedule(cfg, n) for n in (ni, ni + 1)]
+    assert ni % acc[0] != 0 and (ni + 1) % acc[1] == 0, acc
+    data = MemoryDataset(4, TRAIN_PARITY_IMG, seed=1)
+    cpu = torch.device("cpu")
+    # made on the host: the card divides by 255 through a reciprocal
+    inputs = [to_input(b, cpu) for b in data.batches(2)]
+    sections = ("model", "ema", "momentum", "grad_acc")
+    rec = {"ni": [ni, ni + 1], "accumulate": acc}
+    truth = []                       # the CPU's float64 preds (lead), a step
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[1]
+        runs = zip(parity_steps(spec, sd, cfg, inputs, dev, dtype,
+                                sync_check=dtype == torch.float32),
+                   parity_steps(spec, sd, cfg, inputs, cpu, dtype))
+        for i, ((cs, cm, ck, card_s), (ps, pm, pk, cpu_s)) in enumerate(runs):
+            kind = "apply" if i else "carry"
+            assert len(ck) == len(pk) == 2          # lead and aux
+            fwd = float((ck[0][0][0] - pk[0][0][0]).abs().max()
+                        / pk[0][0][0].abs().max())
+            if len(truth) == i:
+                truth.append(pk[0][0][0])
+
+            def off(x):
+                return float((x - truth[i]).abs().max()
+                             / truth[i].abs().max())
+
+            tag = f"{name} {kind}"
+            diffs = [assignment_check(a, b, f"{tag} {nm}") for a, b, nm in
+                     zip(ck, pk, ("lead", "aux"))]
+            # SimOTA on the card's own preds, again on the CPU
+            same_in = [assignment_check(a, (a[0], a[1], loss_mod.simota_assign(
+                *a[0], **a[1])), f"{tag} {nm} (the card's preds)")
+                for a, nm in zip(ck, ("lead", "aux"))]
+            loss_rel = max(abs(cm[k] - v) / abs(v) for k, v in pm.items())
+            csd, psd = cs.state_dict(), ps.state_dict()
+            worst = {sec: state_rel_diff(csd, psd, (sec,))
+                     for sec in sections}
+            grad_max = max(float(g.abs().max())
+                           for g in psd["grad_acc"].values())
+            moved = moved_params(ps, sd)
+            r = rec.setdefault(name, {})[kind] = {
+                "loss_card": cm, "loss_cpu": pm, "loss_worst_rel": loss_rel,
+                "raw_preds_rel": fwd, "card_vs_cpu_float64": off(ck[0][0][0]),
+                "cpu_vs_cpu_float64": off(pk[0][0][0]),
+                "matched_slots": [int(k[2]["matched"].sum()) for k in pk],
+                "assignment_differences": diffs,
+                "assignment_differences_on_card_preds": same_in,
+                "worst_rel": {sec: w for sec, (w, _) in worst.items()},
+                "worst_at": {sec: at for sec, (_, at) in worst.items()},
+                "ema_count": [cs.ema_count, ps.ema_count],
+                "grad_acc_max": grad_max, "moved_params": moved,
+                "card_step_s": card_s, "cpu_step_s": cpu_s}
+            log(f"phase 10a: w6 {kind} step (ni {ni + i}) card vs CPU, "
+                f"{name}: raw preds {fwd:.2e} of the largest (card "
+                f"{r['card_vs_cpu_float64']:.2e}, CPU "
+                f"{r['cpu_vs_cpu_float64']:.2e} off the CPU's float64); "
+                f"losses {cm} / {pm} ({loss_rel:.2e}); matched slots "
+                f"{r['matched_slots']}; assignment differences (slots, not "
+                f"at a near-tie) {diffs}, on the card's preds {same_in}; "
+                f"worst of the tensor's max "
+                + ", ".join(f"{sec} {w:.2e} ({at})"
+                            for sec, (w, at) in worst.items())
+                + f"; ema_count {r['ema_count']}, gradient sum max "
+                f"{grad_max:.3g}, parameters moved (of all) {moved}")
+            assert all(far == 0 for _, far in same_in), same_in
+            if dtype == torch.float32:
+                continue
+            assert all(far == 0 for _, far in diffs), diffs
+            assert loss_rel <= TRAIN_REL_TOL, (cm, pm)
+            for sec, (w, at) in worst.items():
+                assert w <= TRAIN_REL_TOL, (kind, sec, w, at)
+            assert cs.ema_count == ps.ema_count == i, r["ema_count"]
+            assert (grad_max > 0) == (kind == "carry"), grad_max
+            if kind == "apply":
+                assert all(n for n, _ in moved.values()), moved
+    rec["apply_step_without_sync"] = True
+    log("phase 10a: the float32 card's applying step made no host sync")
+    return rec
+
+
+def train_full(dev):
+    """(b): cli/train.train_loop on yolov7-w6 at full width, 1280 px,
+    nc = 80, batch 8, bf16 autocast, nominal batch 64, hyp.scratch.p6, 12
+    batches of a seeded in-memory dataset, from seeded weights calibrated
+    on its first batch (calibrate_detector_bn, standardize_heads) and a
+    state at ni = TRAIN_START_NI, so that the optimizer steps on the ni
+    that JAX's accumulate schedule names and the gradient sum carries in
+    between. Returns (record, the EMA variables with the live BN statistics
+    and the starting weights, on the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from yolov7_tracker_tpu_torch.cli import train as train_cli
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.yolo import random_state_dict
+    from yolov7_tracker_tpu_torch.parallel import train_step as ts
+
+    spec = zoo.get_spec("yolov7-w6", nc=80)
+    t0 = time.time()
+    data = MemoryDataset(TRAIN_BATCH * TRAIN_BATCHES, TRAIN_IMG, seed=2)
+    data_s = time.time() - t0
+    # seeded weights calibrated on the first batch as phase 9 does, so that
+    # the BN running statistics fit the data from the start and the EMA
+    # model scored in (d) sees what it trained on
+    x = to_input(next(data.batches(TRAIN_BATCH)), dev)[0]
+    sd = calibrate_detector_bn(spec, random_state_dict(spec, seed=0), x,
+                               TRAIN_BN_SCALE)
+    sd = standardize_heads(spec, sd, x, TRAIN_HEAD_SPREAD, 0.0)
+    del x
+    around = {1: lambda: FlopCounterMode(display=False),
+              2: lambda: profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])}
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    opts = train_opts("yolov7-w6", TRAIN_IMG, TRAIN_BATCH, ckpt_dir,
+                      "data/hyp.scratch.p6.yaml")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with train_instruments(around, weights=sd,
+                               start_step=TRAIN_START_NI) as ins:
+            t0 = time.time()
+            train_cli.train_loop(opts, {"nc": 80}, data, {"requested": False})
+            loop_s = time.time() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    steps, state = ins["steps"], ins["state"]
+    assert len(steps) == TRAIN_BATCHES, len(steps)
+    for s in steps:
+        assert all(np.isfinite(v) for v in s["metrics"].values()), s
+    cfg = ts.OptConfig(epochs=1, steps_per_epoch=TRAIN_BATCHES,
+                       batch_size=TRAIN_BATCH)
+    nis = range(TRAIN_START_NI, TRAIN_START_NI + TRAIN_BATCHES)
+    accumulate = [ts.accumulate_schedule(cfg, ni) for ni in nis]
+    applies = [ni for ni, a in zip(nis, accumulate) if ni % a == 0]
+    assert [s["ni"] for s in steps] == list(nis)
+    assert [s["ni"] for s in steps if s["applied"]] == applies, steps
+    assert [s["updates"] for s in steps] == [
+        sum(1 for a in applies if a <= ni) for ni in nis]
+    assert 1 < len(applies) < TRAIN_BATCHES, applies
+    timed = steps[3:]
+    kinds = {"carry": [s for s in timed if not s["applied"]],
+             "apply": [s for s in timed if s["applied"]]}
+    assert all(kinds.values()), applies
+    ms = float(np.median([s["ms"] for s in timed]))
+    kind_ms = {k: float(np.median([s["ms"] for s in v]))
+               for k, v in kinds.items()}
+    parts = {k: {p: float(np.median([s["parts"].get(p, 0.0) for s in v]))
+                 for p in ("forward", "simota", "loss_terms", "backward",
+                           "optimizer_ema")}
+             for k, v in kinds.items()}
+    flops = float(steps[1]["hook"].get_total_flops())
+    prof = steps[2]["hook"].key_averages()
+    launches = sum(e.count for e in prof if "LaunchKernel" in e.key)
+    # the profiled step's kernel time (kernel entries only: an op's own
+    # entry repeats its kernels' time) against the median carry step's
+    # wall time: how far the host's launches hold the card back
+    device_ms = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+                    for e in prof
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    rec = {"model": "yolov7-w6", "img": TRAIN_IMG, "batch": TRAIN_BATCH,
+           "dtype": "bfloat16", "step_ms": ms,
+           "imgs_per_s": TRAIN_BATCH / ms * 1e3, "step_ms_by_kind": kind_ms,
+           "step_ms_all": [s["ms"] for s in steps],
+           "parts_ms": parts, "peak_bytes": int(peak),
+           "profiled_step": "carry", "launches_per_step": launches,
+           "flops_per_step": flops, "profiled_step_device_ms": device_ms,
+           "device_busy_share": device_ms / kind_ms["carry"],
+           "tflops": flops / ms * 1e-9,
+           "bf16_peak_share": flops / (ms * 1e-3) / BF16_PEAK,
+           "ni": list(nis), "accumulate": accumulate,
+           "updates": steps[-1]["updates"], "applied_at": applies,
+           "loss_first_last": [steps[0]["metrics"]["loss"],
+                               steps[-1]["metrics"]["loss"]],
+           "data_s": data_s, "loop_s": loop_s}
+    log(f"phase 10b: w6 @{TRAIN_IMG} batch {TRAIN_BATCH} bf16, ni "
+        f"{TRAIN_START_NI}-{nis[-1]} (accumulate {accumulate}): {ms:.1f} "
+        f"ms/step (median of steps 4-{TRAIN_BATCHES}; carry "
+        f"{kind_ms['carry']:.1f}, apply {kind_ms['apply']:.1f}), "
+        f"{rec['imgs_per_s']:.1f} imgs/s, peak {peak / 2**30:.2f} GiB, parts "
+        f"{parts}, {launches} launches a carry step, {device_ms:.1f} ms of "
+        f"kernels in it (busy {rec['device_busy_share']:.2f}), "
+        f"{flops / 1e12:.2f} TFLOP a step = {rec['tflops']:.1f} TFLOP/s = "
+        f"{rec['bf16_peak_share']:.3f} of the bf16 peak; optimizer steps at "
+        f"ni {applies}")
+    variables = {"start": {k: v.cpu() for k, v in sd.items()},
+                 "ema": {k: v.detach().cpu().clone()
+                         for k, v in state.ema_variables().items()}}
+    del ins, state
+    torch.cuda.empty_cache()
+    return rec, variables
+
+
+def preempt_resume(dev):
+    """(c): (a)'s configuration through train_loop's checkpointing, bf16
+    as the loop runs it, under torch.use_deterministic_algorithms: run A
+    stops at preempt_after = 5; run B at 3, which writes step_3/ and
+    preempted.json; _find_latest_ckpt with the fingerprint picks it; the
+    loaded TrainState equals B's bit for bit; run C resumes from it over
+    batches 4-5 and stops at 5: its step_5 state and its two steps'
+    losses equal A's bit for bit (or within TRAIN_REL_TOL where an op
+    refuses deterministic mode, named)."""
+    import warnings
+
+    import torch
+
+    from yolov7_tracker_tpu_torch.cli import train as train_cli
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.parallel import train_step as ts
+    from yolov7_tracker_tpu_torch.utils import checkpoint
+
+    spec = zoo.get_spec("yolov7-w6", nc=80)
+    sd = parity_weights(spec)
+    data = MemoryDataset(10, TRAIN_PARITY_IMG, seed=5)
+    dirs = {k: tempfile.mkdtemp(prefix=f"chip_smoke_{k}_") for k in "ABC"}
+    fingerprint = {"model": "yolov7-w6", "img": TRAIN_PARITY_IMG, "nc": 80}
+
+    def run(k, stop_at, dataset, *resume):
+        opts = train_opts("yolov7-w6", TRAIN_PARITY_IMG, 2, dirs[k],
+                          "data/hyp.scratch.p6.yaml", "--preempt_after",
+                          str(stop_at), *resume)
+        with train_instruments(weights=sd) as ins:
+            run_dir = train_cli.train_loop(opts, {"nc": 80}, dataset,
+                                           {"requested": False})
+        pre = json.load(open(os.path.join(run_dir, "preempted.json")))
+        assert pre["step"] == stop_at, pre
+        assert os.path.isfile(os.path.join(run_dir, f"step_{stop_at}",
+                                           "meta.json"))
+        return run_dir, ins["steps"], ins["state"].state_dict()
+
+    sections = ("model", "ema", "momentum", "grad_acc")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run_a, steps_a, _ = run("A", 5, data)
+            run_b, _, saved_b = run("B", 3, data)
+            latest = train_cli._find_latest_ckpt(dirs["B"], fingerprint)
+            assert latest == os.path.join(run_b, "step_3"), latest
+            loaded = checkpoint.load_train_state(latest, ts.make_train_state(
+                spec, ts.OptConfig(batch_size=2), device=dev)).state_dict()
+            reload_worst, reload_at = state_rel_diff(loaded, saved_b,
+                                                     sections)
+            assert reload_worst == 0.0, (reload_worst, reload_at)
+            assert (loaded["step"], loaded["ema_count"]) == (
+                saved_b["step"], saved_b["ema_count"])
+            run_c, steps_c, _ = run("C", 5, SkipBatches(data, 3),
+                                    "--resume", latest)
+        refused = sorted({str(w.message).split(" does not have")[0]
+                          for w in caught
+                          if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a_state = torch.load(os.path.join(run_a, "step_5", "state.pt"),
+                         weights_only=True)
+    c_state = torch.load(os.path.join(run_c, "step_5", "state.pt"),
+                         weights_only=True)
+    worst, where = state_rel_diff(c_state, a_state, sections)
+    a_loss = [s["metrics"] for s in steps_a[3:5]]
+    c_loss = [s["metrics"] for s in steps_c]
+    assert (a_state["step"], c_state["step"]) == (5, 5)
+    if refused:
+        log(f"phase 10c: ops without a deterministic implementation: "
+            f"{refused}; steps 4-5 held to {TRAIN_REL_TOL}")
+        assert worst <= TRAIN_REL_TOL, (worst, where)
+        for a, c in zip(a_loss, c_loss):
+            for key, v in a.items():
+                assert abs(c[key] - v) <= TRAIN_REL_TOL * abs(v), (key, a, c)
+    else:
+        assert worst == 0.0, (worst, where)
+        assert c_loss == a_loss, (c_loss, a_loss)
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    rec = {"preempted_at": 3, "resumed_steps": len(c_loss),
+           "bit_exact": not refused, "nondeterministic_ops": refused,
+           "worst_rel": worst, "losses_4_5": c_loss}
+    log(f"phase 10c: preempted at step 3, picked by --resume auto, reloaded "
+        f"bit for bit; steps 4-5 after the resume against an uninterrupted "
+        f"run: worst {worst:.2e} ({'bit for bit' if not refused else where})")
+    return rec
+
+
+def label_from_detections(val, spec, variables, dev, per_image=6):
+    """Relabel ``val`` (a MemoryDataset) with the detector's own top
+    detections on it that lie inside the image and are at least 4 px a
+    side (jittered by 1% of the image, one in three given the next class)
+    plus two boxes it did not find, so that its mAP there is neither 0 nor
+    1."""
+    from yolov7_tracker_tpu_torch.cli.test import evaluate_map
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    kept = []
+    with recording(nms_mod, "nms", kept):
+        evaluate_map(spec, variables, val, img=TEST_IMG, batch=8,
+                     device=dev)
+    dets = np.concatenate([k[1][0].cpu().numpy() for k in kept])
+    rng = np.random.default_rng(6)
+    size = val.imgs.shape[1]
+    val.targets[:] = 0
+    val.masks[:] = False
+    val.labels = []
+    for i, d in enumerate(dets):
+        wh = d[:, 2:4] - d[:, 0:2]
+        inside = (d[:, :2] >= 0).all(1) & (d[:, 2:4] <= size).all(1)
+        d = d[inside & (wh >= 4).all(1) & (d[:, 4] > 0)][:per_image]
+        cls = np.where(np.arange(len(d)) % 3 == 0, (d[:, 5] + 1) % spec.nc,
+                       d[:, 5])
+        wh = (d[:, 2:4] - d[:, 0:2]) / size
+        cxy = (d[:, 0:2] + d[:, 2:4]) / 2 / size + rng.normal(
+            0, 0.01, (len(d), 2))
+        lab = np.concatenate([cls[:, None], cxy, wh], 1)
+        lab = np.concatenate([lab, [[1, 0.1, 0.1, 0.1, 0.1],
+                                    [2, 0.9, 0.85, 0.15, 0.2]]])
+        val.labels.append(lab.astype(np.float32))
+        val.targets[i, :len(lab)] = lab
+        val.masks[i, :len(lab)] = True
+
+
+def scored(spec, weights, val, device, dtype, sync):
+    """evaluate_map at TEST_IMG with the CLI's defaults on ``device`` in
+    ``dtype``: (result, detections per image, (seconds, result,
+    arguments) of each NMS call, seconds)."""
+    from yolov7_tracker_tpu_torch.cli.test import evaluate_map
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    kept = []
+    t0 = time.time()
+    with recording(nms_mod, "nms", kept, sync=sync):
+        res = evaluate_map(spec, weights, val, img=TEST_IMG, batch=8,
+                           device=device, dtype=dtype)
+    counts = np.concatenate([k[1][1].cpu().numpy() for k in kept])
+    return res, counts, kept, time.time() - t0
+
+
+def detector_test(variables, dev):
+    """(d): cli/test.evaluate_map at 640 px over 16 seeded in-memory val
+    images, the CLI's defaults (conf 0.001, iou 0.65, multi_label, top_k
+    8192), of (b)'s EMA weights with the live BN statistics and of (b)'s
+    calibrated starting weights, whose own detections label the val set
+    (label_from_detections). After 12 steps at the warmup's bias LR the
+    EMA model's running statistics trail its weights and its scores
+    saturate; the starting weights give a mAP between 0 and 1. On the
+    card in float32 (TF32 off): the time, and the NMS's ms and host syncs
+    per batch. Card against CPU: in float32 the decoded rows of the two
+    devices part (each is reported against the CPU's float64 rows), which
+    reorders close scores, so the equalities run in float64 on both:
+    detections per image equal, map50 / map / mp / mr within
+    TEST_REL_TOL. The float32 CPU score of the starting weights is
+    reported beside the card's."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    spec = zoo.get_spec("yolov7-w6", nc=80)
+    val = MemoryDataset(TEST_IMAGES, TEST_IMG, seed=3)
+    label_from_detections(val, spec, variables["start"], dev)
+    keys = ("map50", "map", "mp", "mr")
+    rec = {"img": TEST_IMG, "images": TEST_IMAGES}
+    for weights in ("ema", "start"):
+        w = variables[weights]
+        card32, n32, kept, secs = scored(spec, w, val, dev, torch.float32,
+                                         True)
+        pred = kept[-1][2][0]
+        prof = profile_ops(lambda: nms_mod.nms(pred, 0.001, 0.65,
+                                               multi_label=True, top_k=8192))
+        card64, n_card, _, _ = scored(spec, w, val, dev, torch.float64,
+                                      False)
+        cpu64, n_cpu, kept64, cpu_s = scored(spec, w, val, "cpu",
+                                             torch.float64, False)
+        truth = kept64[-1][2][0]
+
+        def off(x):
+            return float((x.cpu() - truth).abs().max() / truth.abs().max())
+
+        assert np.array_equal(n_card, n_cpu), (n_card, n_cpu)
+        for k in keys:
+            a, b = card64[k], cpu64[k]
+            assert abs(a - b) <= TEST_REL_TOL * max(abs(b), 1.0), (k, a, b)
+        r = rec[weights] = {
+            "card_float32": {k: card32[k] for k in keys},
+            "card_float64": {k: card64[k] for k in keys},
+            "cpu_float64": {k: cpu64[k] for k in keys},
+            "dets_per_image": n_card.tolist(),
+            "dets_per_image_float32": n32.tolist(),
+            "decoded_card_float32_vs_cpu_float64": off(pred),
+            "evaluate_map_s_card": secs, "evaluate_map_s_cpu64": cpu_s,
+            "nms_ms_per_batch": [k[0] * 1e3 for k in kept],
+            "nms_host_syncs_per_batch": prof.get("syncs"),
+            "nms_profile_wall_ms": prof.get("wall_ms")}
+        if weights == "start":
+            cpu32, _, kept32, _ = scored(spec, w, val, "cpu", torch.float32,
+                                         False)
+            r["cpu_float32"] = {k: cpu32[k] for k in keys}
+            r["decoded_cpu_float32_vs_cpu_float64"] = off(kept32[-1][2][0])
+        log(f"phase 10d: evaluate_map w6 @{TEST_IMG}, {weights} weights: "
+            f"float64 card {r['card_float64']} == CPU {r['cpu_float64']}, "
+            f"detections per image {r['dets_per_image']}; float32 card "
+            f"{r['card_float32']}"
+            + (f", CPU {r['cpu_float32']}" if "cpu_float32" in r else "")
+            + f" (decoded rows off the CPU's float64: card "
+            f"{r['decoded_card_float32_vs_cpu_float64']:.2e}"
+            + (f", CPU {r['decoded_cpu_float32_vs_cpu_float64']:.2e}"
+               if "cpu_float32" in r else "") + ")"
+            + f"; {secs:.2f} s on the card, NMS {r['nms_ms_per_batch']} ms "
+            f"a batch with {r['nms_host_syncs_per_batch']} host syncs")
+    assert 0 < rec["start"]["card_float64"]["map"] < 1, rec["start"]
+    return rec
+
+
+def train_tiny(dev):
+    """(e): the CLI's default model, yolov7-tiny (IDetect, SimOTA,
+    hyp.scratch.tiny), at 640 px, batch 32, bf16, 6 batches of the
+    in-memory dataset through train_loop."""
+    from yolov7_tracker_tpu_torch.cli import train as train_cli
+
+    data = MemoryDataset(TINY_BATCH * TINY_BATCHES, TINY_IMG, seed=4)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tiny_")
+    opts = train_opts("yolov7-tiny", TINY_IMG, TINY_BATCH, ckpt_dir,
+                      "data/hyp.scratch.tiny.yaml")
+    try:
+        with train_instruments() as ins:
+            train_cli.train_loop(opts, {"nc": 80}, data,
+                                 {"requested": False})
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    steps = ins["steps"]
+    assert len(steps) == TINY_BATCHES
+    assert all(np.isfinite(s["metrics"]["loss"]) for s in steps)
+    ms = float(np.median([s["ms"] for s in steps[1:]]))
+    parts = {k: float(np.median([s["parts"].get(k, 0.0) for s in steps[1:]]))
+             for k in ("forward", "simota", "loss_terms", "backward",
+                       "optimizer_ema")}
+    rec = {"model": "yolov7-tiny", "img": TINY_IMG, "batch": TINY_BATCH,
+           "step_ms": ms, "imgs_per_s": TINY_BATCH / ms * 1e3,
+           "parts_ms": parts, "step_ms_all": [s["ms"] for s in steps]}
+    log(f"phase 10e: yolov7-tiny @{TINY_IMG} batch {TINY_BATCH} bf16: "
+        f"{ms:.1f} ms/step (median of steps 2-{TINY_BATCHES}), "
+        f"{rec['imgs_per_s']:.1f} imgs/s, parts {parts}")
+    return rec
+
+
+def train_phase(dev):
+    """Phase 10: (a) train-step parity card vs CPU, (b) the trainer at full
+    width, (c) preempt and resume, (d) the detector test, (e) the CLI's
+    default model. Returns its record."""
+    import torch
+
+    t0 = time.time()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rec = {"parity": train_parity(dev)}
+        torch.cuda.empty_cache()
+        rec["w6"], variables = train_full(dev)
+        rec["preempt_resume"] = preempt_resume(dev)
+        torch.cuda.empty_cache()
+        rec["test"] = detector_test(variables, dev)
+        torch.cuda.empty_cache()
+        rec["tiny"] = train_tiny(dev)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rec["phase_s"] = time.time() - t0
+    log(f"phase 10 {rec['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def build_kernels(mods):
     """One nvcc per build, all started together; mods: (module, source,
     load_library arguments). Raises if a build failed."""
@@ -3185,6 +4116,8 @@ def main(argv=None):
                     help="only build, check, time and profile K1/K3")
     ap.add_argument("--k2-only", action="store_true",
                     help="only build, check, time and profile K2")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only phase 10 (training and the detector test)")
     ap.add_argument("--problems", default="",
                     help="with --square-only or --k2-only: the "
                          "square_problems.pt or k2_problems.pt written by a "
@@ -3205,6 +4138,10 @@ def main(argv=None):
         return square_only(dev, args.problems)
     if args.k2_only:
         return k2_only(dev, args.problems)
+    if args.train_only:
+        print(json.dumps({"train": train_phase(dev)}))
+        log("train-only run done (not the smoke run: no result line)")
+        return 0
     t0 = time.time()
     build_kernels([(auction, SOURCE, ()), (square, SOURCE_SQUARE, ()),
                    (auction, SOURCE, (True,)),
@@ -3236,6 +4173,7 @@ def main(argv=None):
     log(f"phase 8a {t8b - t8:.1f} s, phase 8b {t9 - t8b:.1f} s")
     trackers["zoo"], k2_zoo = zoo_phase(dev)
     log(f"phase 9 {time.time() - t9:.1f} s")
+    train = train_phase(dev)
 
     # K2 on the last frame's two solves, as the main path gave them, and on
     # the serving path's stages 2+3: one launch of B = 2 S problems
@@ -3291,6 +4229,7 @@ def main(argv=None):
               "seeded_batches": {str(b): t for b, t in t_k3.items()}}
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"trackers": trackers}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": [rec_k1, record, rec_k3]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

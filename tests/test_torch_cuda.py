@@ -759,3 +759,76 @@ def test_v8_pipeline_on_the_card_equals_the_cpu(card, full_float32):
                                    np.reshape(b[2], (-1, 4)), atol=1e-2)
         rows += len(a[1])
     assert rows > 0
+
+
+# ---------------------------------------------------------------------------
+# training and the detector test on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_equals_the_cpu(card, full_float32):
+    """One float32 train step of the narrow four-level IAuxDetect model
+    (aux SimOTA, accumulation to the nominal batch, ni = 500 so that every
+    group moves) from one seeded state, card against CPU: the losses
+    within 1e-4 relative; parameters, EMA, momentum buffers, gradient sum
+    and BN statistics within 1e-4 of each tensor's largest value; and a
+    second card step makes no host sync."""
+    from tests.torch_train_cfgs import narrow_aux_cfg, seeded_batch
+    from yolov7_tracker_tpu_torch.models.spec import parse_yaml_cfg
+    from yolov7_tracker_tpu_torch.parallel import train_step as ts
+
+    spec = parse_yaml_cfg(narrow_aux_cfg(), name="aux")
+    cfg = ts.OptConfig(batch_size=16)
+    runs = {}
+    for dev in ("cpu", card):
+        state = ts.make_train_state(spec, cfg, seed=0, device=dev)
+        state.step = 500
+        step = ts.make_train_step(spec, img_size=128, opt_cfg=cfg)
+        metrics = step(state, *(torch.from_numpy(x).to(dev)
+                                for x in seeded_batch(0)))
+        runs[str(dev)] = (state, {k: float(v) for k, v in metrics.items()},
+                          step)
+    (cpu, cpu_m, _), (gpu, gpu_m, gpu_step) = runs["cpu"], runs[str(card)]
+    for k, v in cpu_m.items():
+        assert abs(gpu_m[k] - v) <= 1e-4 * abs(v), (k, gpu_m[k], v)
+    want, got = cpu.state_dict(), gpu.state_dict()
+    for sec in ("model", "ema", "momentum", "grad_acc"):
+        for k, v in want[sec].items():
+            if v.is_floating_point():
+                err = float((got[sec][k].cpu() - v).abs().max())
+                assert err <= 1e-4 * float(v.abs().max()) or err == 0.0, (
+                    sec, k, err)
+    second = [torch.from_numpy(x).to(card) for x in seeded_batch(1)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu_step(gpu, *second)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert gpu.step == 502
+
+
+@pytest.mark.cuda
+def test_multi_label_nms_on_the_card_equals_the_cpu(card):
+    """ops/nms.nms with multi_label (cli/test.py's call) on seeded decoded
+    rows with tied scores: the same detections on the card as on the
+    CPU."""
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    rng = np.random.default_rng(0)
+    b, n, nc = 2, 2000, 12
+    rows = np.concatenate([rng.uniform(20, 600, (b, n, 2)),
+                           rng.uniform(8, 80, (b, n, 2)),
+                           rng.uniform(0, 1, (b, n, 1)),
+                           rng.uniform(0, 1, (b, n, nc)) ** 3],
+                          -1).astype(np.float32)
+    rows[:, 9::10] = rows[:, 8::10]
+    pred = torch.from_numpy(rows)
+    for top_k in (8192, 256):
+        want = nms_mod.nms(pred, 0.001, 0.65, multi_label=True, top_k=top_k)
+        got = nms_mod.nms(pred.to(card), 0.001, 0.65, multi_label=True,
+                          top_k=top_k)
+        assert torch.equal(got[1].cpu(), want[1])
+        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                                   rtol=0, atol=1e-4)
+        assert int(want[1].min()) > 0

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing every module of
 yolov7_tracker_tpu_torch (and chip_smoke.py) pulls in neither JAX, Flax,
-msgpack nor the JAX package, and its entry points refuse to run without a
+optax, orbax, msgpack nor the JAX package, and its entry points refuse to run without a
 device on a machine without a GPU instead of falling back to the CPU."""
 
 import os
@@ -29,7 +29,8 @@ def test_port_imports_no_jax():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                            "msgpack", "yolov7_tracker_tpu"))
+                                            "msgpack", "optax", "orbax",
+                                            "yolov7_tracker_tpu"))
         assert len(names) >= 50, names
         for new in ("ops.auction_square", "ops.cuda_build", "cli.serve",
                     "trackers.sort", "trackers.appearance",
@@ -42,7 +43,12 @@ def test_port_imports_no_jax():
                     "eval", "eval.rle", "eval.data", "eval.metrics",
                     "eval.readers", "eval.evaluator", "eval.motmetrics_lite",
                     "eval.cocoeval_lite", "eval.baselines", "eval.plotting",
-                    "cli.evaluate", "cli.track_demo", "data.detections"):
+                    "cli.evaluate", "cli.track_demo", "data.detections",
+                    "train", "train.loss", "train.datasets",
+                    "train.metrics", "parallel", "parallel.train_step",
+                    "utils.checkpoint", "utils.logging",
+                    "utils.artifacts", "utils.timer", "cli.train",
+                    "cli.test"):
             assert "yolov7_tracker_tpu_torch." + new in names, new
         print("BAD", bad)
     """)
@@ -71,6 +77,11 @@ def test_entry_points_need_a_device():
         from yolov7_tracker_tpu_torch.cli import track_demo
         with pytest.raises(RuntimeError, match="no CUDA device"):
             track_demo.main(["--obj", "0"])
+        from yolov7_tracker_tpu_torch.cli import test, train
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--data", "data/coco.yaml", "--epochs", "1"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            test.main(["--data", "data/coco.yaml", "--weights", "x.pt"])
         print("OK")
     """)
     assert proc.returncode == 0, proc.stderr
@@ -107,6 +118,17 @@ def test_chip_smoke_k2_only_fails_without_a_card():
     """The short K2 run of chip_smoke.py needs the card as the full run
     does."""
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--k2-only"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_train_only_fails_without_a_card():
+    """The phase-10 run of chip_smoke.py (training and the detector test)
+    needs the card as the full run does."""
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--train-only"],
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300,
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})

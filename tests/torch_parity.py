@@ -12,6 +12,9 @@ import jax
 from yolov7_tracker_tpu.models import yolo as jyolo
 from yolov7_tracker_tpu.models import zoo as jzoo
 
+from tests.torch_train_cfgs import (narrow_aux_cfg,  # noqa: F401
+                                   narrow_idetect_cfg, seeded_batch)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -94,3 +97,54 @@ def sharpen_heads(variables, spec, sharpen=8.0, obj_boost=6.0, jitter=3.0,
         v["bias"] = b.reshape(-1).astype(np.float32)
         params[k] = v
     return {"params": params, "batch_stats": variables["batch_stats"]}
+
+
+def jax_train_runs(j_spec, opt_cfg, hyp, img, batches, starts):
+    """Run the JAX package's train step (one step function, data_mesh(1))
+    from a seeded fresh state: for each ``(start_step, n_steps)`` of
+    ``starts``, n_steps steps over ``batches`` from the fresh state with
+    ``step`` set to start_step. Returns (fresh state, [[(state, metrics)
+    after each step] per start]) with numpy leaves."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from yolov7_tracker_tpu.parallel import train_step as jts
+    from yolov7_tracker_tpu.parallel.mesh import data_mesh, shard_batch
+
+    mesh = data_mesh(1)
+    fresh = jts.make_train_state(j_spec, img_size=img, opt_cfg=opt_cfg,
+                                 mesh=mesh, rng=jax.random.PRNGKey(0))
+    fresh = jax.tree.map(np.asarray, fresh)
+    step = jts.make_train_step(j_spec, mesh, img_size=img, hyp=hyp,
+                               opt_cfg=opt_cfg)
+    runs = []
+    for start, n in starts:
+        state = jax.device_put(fresh._replace(step=np.int32(start)),
+                               NamedSharding(mesh, P()))
+        out = []
+        for b in batches[:n]:
+            state, metrics = step(state, *shard_batch(mesh, b))
+            out.append((jax.tree.map(np.asarray, state),
+                        {k: float(v) for k, v in metrics.items()}))
+        runs.append(out)
+    return fresh, runs
+
+
+def state_within(got, want, tol):
+    """Every float tensor of the port's TrainState.state_dict() ``got``
+    within ``tol`` of each ``want`` tensor's largest |value| (sections
+    model, ema, momentum, grad_acc). Returns the worst ratio."""
+    worst = 0.0
+    for sec in ("model", "ema", "momentum", "grad_acc"):
+        if want[sec] is None:
+            assert got[sec] is None, sec
+            continue
+        for k, w in want[sec].items():
+            if not w.is_floating_point():
+                continue
+            err = (got[sec][k] - w).abs().max().item()
+            scale = w.abs().max().item()
+            assert err <= tol * scale or err == 0.0, (sec, k, err, scale)
+            worst = max(worst, err / scale if scale else 0.0)
+    assert got["step"] == want["step"]
+    assert got["ema_count"] == want["ema_count"]
+    return worst

@@ -17,11 +17,11 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; None means the GPU, which must exist."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``device`` as a torch.device; None means the GPU. A CUDA device
+    must exist: without one this raises instead of falling back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run "
+            "on the CPU")
+    return dev

@@ -15,13 +15,70 @@ followed by the 3x3 conv.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import contextlib
+import contextvars
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOM = 0.9  # Flax's momentum (blocks.py:20), 1 - torch's 0.1
+
+_STATS_SINK: contextvars.ContextVar = contextvars.ContextVar(
+    "batch_stats_sink", default=None)
+
+
+@contextlib.contextmanager
+def batch_stats_sink(sink: List):
+    """Inside the block every BatchNorm2d in training mode normalises by
+    its batch statistics and appends ``(module, mean, invstd)`` (float32,
+    detached) to ``sink`` instead of updating its running statistics;
+    ``update_running_stats(sink)`` then applies Flax's update."""
+    token = _STATS_SINK.set(sink)
+    try:
+        yield sink
+    finally:
+        _STATS_SINK.reset(token)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training-mode forward inside
+    ``batch_stats_sink`` reports its batch statistics rather than folding
+    them into the running ones: torch updates ``running_var`` with the
+    unbiased batch variance, Flax (``_compute_stats``) with the biased
+    one, a factor n / (n - 1) apart. Anywhere else it is nn.BatchNorm2d."""
+
+    def forward(self, x):
+        sink = _STATS_SINK.get()
+        if not self.training or sink is None:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        sink.append((self, mean.detach(), invstd.detach()))
+        return y
+
+
+def update_running_stats(sink, momentum: float = BN_MOM) -> None:
+    """Flax BatchNorm's running-statistics update from the batch
+    statistics a training forward reported into ``sink``: ra = m * ra +
+    (1 - m) * batch, with the biased batch variance (1 / invstd^2 - eps),
+    in the running statistics' dtype (float32) and on the device (no host
+    sync)."""
+    if not sink:
+        return
+    with torch.no_grad():
+        ra_mean = [m.running_mean for m, _, _ in sink]
+        ra_var = [m.running_var for m, _, _ in sink]
+        var = [torch.clamp_min(invstd.to(m.running_var.dtype).pow(-2)
+                               - m.eps, 0.0) for m, _, invstd in sink]
+        torch._foreach_mul_(ra_mean, momentum)
+        torch._foreach_add_(ra_mean, [mean.to(m.running_mean.dtype)
+                                      for m, mean, _ in sink],
+                            alpha=1.0 - momentum)
+        torch._foreach_mul_(ra_var, momentum)
+        torch._foreach_add_(ra_var, var, alpha=1.0 - momentum)
 
 
 def activation(name: str) -> Callable:
@@ -51,7 +108,7 @@ class ConvBnAct(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, k // 2 if p is None else p,
                               groups=g, bias=fused)
-        self.bn = None if fused else nn.BatchNorm2d(c2, eps=BN_EPS)
+        self.bn = None if fused else BatchNorm2d(c2, eps=BN_EPS)
         self.act = activation(act)
 
     def forward(self, x):
@@ -124,10 +181,10 @@ class RepConv(nn.Module):
             return
         self.rbr_dense_conv = nn.Conv2d(c1, c2, 3, s, 1, groups=g,
                                         bias=False)
-        self.rbr_dense_bn = nn.BatchNorm2d(c2, eps=BN_EPS)
+        self.rbr_dense_bn = BatchNorm2d(c2, eps=BN_EPS)
         self.rbr_1x1_conv = nn.Conv2d(c1, c2, 1, s, 0, groups=g, bias=False)
-        self.rbr_1x1_bn = nn.BatchNorm2d(c2, eps=BN_EPS)
-        self.rbr_identity = (nn.BatchNorm2d(c1, eps=BN_EPS)
+        self.rbr_1x1_bn = BatchNorm2d(c2, eps=BN_EPS)
+        self.rbr_identity = (BatchNorm2d(c1, eps=BN_EPS)
                              if c1 == c2 and s == 1 else None)
 
     def forward(self, x):

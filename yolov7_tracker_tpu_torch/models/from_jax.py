@@ -42,14 +42,32 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def jax_variables_to_torch(variables_np: Mapping, spec: ModelSpec
-                           ) -> Dict[str, torch.Tensor]:
+def jax_params_to_torch(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """A Flax ``params`` tree (numpy) -> {port parameter name: tensor}: the
+    parameters, or any tree of their shape (EMA, momentum buffers, a
+    gradient sum)."""
     sd: Dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(variables_np["params"]):
+    for path, leaf in _flatten(params_np):
         arr = np.asarray(leaf, np.float32)
         if path[-1] == "kernel":
             arr = arr.transpose(3, 2, 0, 1)
         sd[".".join(path[:-1] + (_PARAM_LEAF[path[-1]],))] = torch.tensor(arr)
+    return sd
+
+
+def flax_leaf_name(name: str, param: torch.Tensor) -> str:
+    """The Flax leaf name a port parameter maps to (the inverse of the
+    renaming above): a conv's weight is a ``kernel``, a BatchNorm's a
+    ``scale``; ``bias`` and ``implicit`` keep their names."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "weight":
+        return "kernel" if param.dim() > 1 else "scale"
+    return leaf
+
+
+def jax_variables_to_torch(variables_np: Mapping, spec: ModelSpec
+                           ) -> Dict[str, torch.Tensor]:
+    sd = jax_params_to_torch(variables_np["params"])
     for path, leaf in _flatten(variables_np.get("batch_stats", {})):
         base = ".".join(path[:-1])
         sd[f"{base}.{_STAT_LEAF[path[-1]]}"] = torch.tensor(

@@ -9,7 +9,10 @@ its decoded (B, N, 5 + nc) predictions, which go through the plain NMS.
 Input is the JAX layout (B, H, W, 3) in [0, 1]; inside, tensors are NCHW.
 Layers that feed only IAuxDetect's auxiliary heads are skipped: at
 inference the JAX module computes them and then drops their outputs
-(yolo.py:430-432), so the lead outputs are the same either way. Module
+(yolo.py:430-432), so the lead outputs are the same either way. The
+training call (``forward(x, training=True)``, JAX yolo.py:292 with
+training=True) computes every layer and returns every head's raw level:
+nl, or 2 * nl for IAuxDetect (lead, then aux). Module
 and parameter names follow the Flax tree (``layer{i}``, ``head_m_{i}``,
 ``head_ia_{i}``, ``head_cv2_{i}_{j}`` ...), which keeps the weight bridge
 (models/from_jax.py) a renaming.
@@ -155,18 +158,30 @@ class YoloV7(nn.Module):
                 self.add_module(f"head_{br}_{i}_2",
                                 nn.Conv2d(cw, cout, 1, bias=True))
 
-    def forward(self, x):
+    def forward(self, x, training: bool = False):
         """x: (B, H, W, 3) in [0, 1] -> the anchor heads' nl raw levels
         (B, ny, nx, na, no), or DetectV8's decoded predictions (B, N,
-        5 + nc) [xywh, obj = 1, class scores] in float32."""
+        5 + nc) [xywh, obj = 1, class scores] in float32.
+
+        training=True is the JAX module's training call of the anchor
+        heads: every layer runs, and every head's raw level comes back, nl
+        or 2 * nl (IAuxDetect: lead, then aux). BatchNorm follows the
+        module's mode (``train()`` for batch statistics). A fused model
+        does not train, nor does DetectV8, which has no loss."""
         spec = self.spec
+        if training and self.fused:
+            raise ValueError("a fused model does not train; build "
+                             "YoloV7(spec, fused=False)")
+        if training and spec.head_kind == "DetectV8":
+            raise NotImplementedError(
+                "DetectV8 has no training loss in the JAX package")
         x = x.permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
         saved = {}
         y = x
         for l in spec.layers[:-1]:
-            if l.index not in self._needed:
+            if not training and l.index not in self._needed:
                 continue
             inp = x if l.index == 0 else (
                 y if l.frm[0] == l.index - 1 else saved[l.frm[0]])
@@ -186,16 +201,18 @@ class YoloV7(nn.Module):
                 y = getattr(self, f"layer{l.index}")(inp)
             if l.index in spec.save:
                 saved[l.index] = y
-        feats = [saved[src] if src in saved else y
-                 for src in self._head_from[:spec.nl]]
+        heads = self._head_from if training else self._head_from[:spec.nl]
+        feats = [saved[src] if src in saved else y for src in heads]
         if spec.head_kind == "DetectV8":
             return self._decode_v8(feats)
         raw = []
         for i, feat in enumerate(feats):
-            if hasattr(self, f"head_ia_{i}"):
+            lead = i < spec.nl
+            if lead and hasattr(self, f"head_ia_{i}"):
                 feat = getattr(self, f"head_ia_{i}")(feat)
-            p = getattr(self, f"head_m_{i}")(feat)
-            if hasattr(self, f"head_im_{i}"):
+            p = getattr(self, f"head_m{'' if lead else '2'}_{i % spec.nl}")(
+                feat)
+            if lead and hasattr(self, f"head_im_{i}"):
                 p = getattr(self, f"head_im_{i}")(p)
             b, _, ny, nx = p.shape
             raw.append(p.permute(0, 2, 3, 1).reshape(b, ny, nx, spec.na,
@@ -235,6 +252,30 @@ class YoloV7(nn.Module):
                 torch.ones_like(score[..., :1]), score],
                 dim=-1).reshape(b, ny * nx, 5 + spec.nc))
         return torch.cat(out, dim=1)
+
+
+def decode_levels(raw: List[torch.Tensor], spec: ModelSpec) -> torch.Tensor:
+    """The anchor heads' inference decode (JAX yolo.py:407-431): raw lead
+    levels (B, ny, nx, na, no) -> (B, N, no) [xywh pixels, obj, class
+    scores] in float32 (float64 stays float64), levels and then (y, x,
+    anchor) in order."""
+    anchors = torch.as_tensor(spec.anchors_per_level(), dtype=torch.float32,
+                              device=raw[0].device)
+    out = []
+    for i, p in enumerate(raw):
+        b, ny, nx, na, no = p.shape
+        gy, gx = torch.meshgrid(
+            torch.arange(ny, dtype=torch.float32, device=p.device),
+            torch.arange(nx, dtype=torch.float32, device=p.device),
+            indexing="ij")
+        grid = torch.stack([gx, gy], dim=-1)[:, :, None, :]
+        y = torch.sigmoid(p.to(torch.promote_types(p.dtype,
+                                                   torch.float32)))
+        xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * float(spec.strides[i])
+        wh = (y[..., 2:4] * 2.0) ** 2 * anchors[i]
+        out.append(torch.cat([xy, wh, y[..., 4:]], dim=-1).reshape(
+            b, ny * nx * na, no))
+    return torch.cat(out, dim=1)
 
 
 def init_head_biases(state_dict, spec: ModelSpec) -> None:

@@ -9,6 +9,8 @@ kept, since they feed the association costs.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -112,3 +114,44 @@ def buffered_tlwh(tlwh, scale: float):
     xy = tlwh[..., :2] - scale * tlwh[..., 2:]
     wh = (1.0 + 2.0 * scale) * tlwh[..., 2:]
     return torch.cat([xy, wh], dim=-1)
+
+
+def bbox_iou(box1, box2, *, xywh: bool = True, giou: bool = False,
+             diou: bool = False, ciou: bool = False, eps: float = 1e-7):
+    """Elementwise IoU / GIoU / DIoU / CIoU of broadcast-compatible boxes
+    (the detector loss's box term, utils/general.py bbox_iou). Clamps are
+    ``torch.maximum`` against 0, as ``jnp.maximum``, so a tie splits the
+    gradient in halves as JAX's does; CIoU's alpha carries no gradient."""
+    if xywh:
+        b1, b2 = xywh_to_xyxy(box1), xywh_to_xyxy(box2)
+    else:
+        b1, b2 = box1, box2
+    zero = b1.new_zeros(())
+    iw = torch.maximum(torch.minimum(b1[..., 2], b2[..., 2])
+                       - torch.maximum(b1[..., 0], b2[..., 0]), zero)
+    ih = torch.maximum(torch.minimum(b1[..., 3], b2[..., 3])
+                       - torch.maximum(b1[..., 1], b2[..., 1]), zero)
+    inter = iw * ih
+    w1, h1 = b1[..., 2] - b1[..., 0], b1[..., 3] - b1[..., 1]
+    w2, h2 = b2[..., 2] - b2[..., 0], b2[..., 3] - b2[..., 1]
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not (giou or diou or ciou):
+        return iou
+    cw = (torch.maximum(b1[..., 2], b2[..., 2])
+          - torch.minimum(b1[..., 0], b2[..., 0]))
+    ch = (torch.maximum(b1[..., 3], b2[..., 3])
+          - torch.minimum(b1[..., 1], b2[..., 1]))
+    if giou:
+        c_area = cw * ch + eps
+        return iou - (c_area - union) / c_area
+    c2 = cw ** 2 + ch ** 2 + eps
+    rho2 = ((b2[..., 0] + b2[..., 2] - b1[..., 0] - b1[..., 2]) ** 2
+            + (b2[..., 1] + b2[..., 3] - b1[..., 1] - b1[..., 3]) ** 2) / 4.0
+    if diou:
+        return iou - rho2 / c2
+    v = (4.0 / math.pi ** 2) * (torch.atan(w2 / (h2 + eps))
+                                - torch.atan(w1 / (h1 + eps))) ** 2
+    with torch.no_grad():
+        alpha = v / (v - iou + (1.0 + eps))
+    return iou - (rho2 / c2 + v * alpha)

@@ -80,20 +80,39 @@ def greedy_suppress(sel_box, off_box, scores, cls_id, *, max_det: int,
 
 
 def nms(prediction, conf_thres: float = 0.25, iou_thres: float = 0.45, *,
-        max_det: int = 300, top_k: int = 4096, agnostic: bool = False):
-    """Best-class NMS over decoded output (B, N, 5 + nc) [xywh, obj, cls].
+        max_det: int = 300, top_k: int = 4096, agnostic: bool = False,
+        multi_label: bool = False):
+    """NMS over decoded output (B, N, 5 + nc) [xywh, obj, cls]: best class
+    per box, or with ``multi_label`` (and nc > 1) one candidate per (box,
+    class) pair over the threshold, in the JAX module's (box, class) order
+    (JAX nms.py:117-125), which cli/test.py scores.
     Returns (dets (B, max_det, 6) float32, count (B,) int64)."""
     obj = prediction[..., 4]
     box_xyxy = boxops.xywh_to_xyxy(prediction[..., :4])
     cls_conf = prediction[..., 5:] * obj[..., None]
-    conf = cls_conf.max(dim=-1).values
-    cls_idx = cls_conf.argmax(dim=-1)   # first maximal class
-    keep = (obj > conf_thres) & (conf > conf_thres)
+    nc = cls_conf.shape[-1]
+    if multi_label and nc > 1:
+        # candidate j is box j // nc with class j % nc (JAX repeats each box
+        # nc times and tiles the class ids)
+        conf = cls_conf.reshape(cls_conf.shape[0], -1)
+        keep = (obj > conf_thres).repeat_interleave(nc, dim=1) & (
+            conf > conf_thres)
+    else:
+        conf = cls_conf.max(dim=-1).values
+        cls_idx = cls_conf.argmax(dim=-1)   # first maximal class
+        keep = (obj > conf_thres) & (conf > conf_thres)
     score = torch.where(keep, conf, torch.full_like(conf, -1.0))
     k = min(top_k, score.shape[1])
     top_scores, top_idx = sorted_top_k(score, k)
-    sel_box = torch.gather(box_xyxy, 1, top_idx[..., None].expand(-1, -1, 4))
-    sel_cls = torch.gather(cls_idx.float(), 1, top_idx)
+    if multi_label and nc > 1:
+        box_idx = torch.div(top_idx, nc, rounding_mode="floor")
+        sel_box = torch.gather(box_xyxy, 1,
+                               box_idx[..., None].expand(-1, -1, 4))
+        sel_cls = (top_idx % nc).float()
+    else:
+        sel_box = torch.gather(box_xyxy, 1,
+                               top_idx[..., None].expand(-1, -1, 4))
+        sel_cls = torch.gather(cls_idx.float(), 1, top_idx)
     off_box = sel_box + (0.0 if agnostic else sel_cls[..., None] * MAX_WH)
     scores0 = torch.where(top_scores > 0, top_scores,
                           torch.full_like(top_scores, -1.0))
