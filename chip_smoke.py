@@ -186,14 +186,47 @@ Phases, each of which must pass:
                 yolov7-tiny (IDetect, SimOTA, hyp.scratch.tiny) at 640 px,
                 batch 32, 6 batches: step ms and imgs/s. Prints the train
                 JSON line.
+ 11. train2  -- the rest of training (no new kernel: none of it reaches
+                Pallas in JAX). (a) yolov7's zoo rows with an IBin head
+                (nc=80) through phase 9's run: seeded weights calibrated on
+                the frames (standardize_heads scores objectness and class
+                after the bins), 1280 px, batch 8, bf16, folded, offline
+                ByteTrack (128 / 300) on phase 3's 16 frames through the
+                decoded-path NMS: K2 twice a frame, NMS survivors within
+                ZOO_SURVIVORS, ms/frame and its parts, the detector in
+                float32 card vs CPU and fused vs unfused per raw part (xy,
+                w bins, h bins, objectness, class; bf16 above the
+                tolerance), the decoded output card vs CPU (a bin may
+                differ only at a near tie, IBIN_TIE; the scores within
+                IBIN_SCORE_TOL, bf16's above it), a CPU replay with the
+                same ids. (b) the IBin yolov7 in training mode at 320 px,
+                batch 2, its network in float64 on the card and the CPU,
+                through compute_loss_bin_ota on its preds cast to float32
+                and backward: the same SimOTA assignments, loss parts
+                within 1e-4 relative, every gradient within 1e-4 of its
+                largest, the preds rounded to bf16 above that; and at
+                640 px, batch 16, bf16 autocast, forward + loss + backward
+                (median of 6 after 2) by parts (CUDA events), peak memory
+                and the host syncs in the loss, beside the IDetect yolov7
+                through compute_loss_ota. (c) rank_sort_loss, alrp_loss and
+                ap_loss at N = 8,400 with 15% positives, forward +
+                backward, card vs CPU within 1e-5 of the largest value and
+                gradient, ms and peak memory. (d) train_dhn for the GRU at
+                hidden 256 and for Sinkhorn (size 16, pad_train, batch 8,
+                200 steps): the first step card vs CPU in float64 (1e-6),
+                ms a step split into problem generation on the host, H2D
+                and the device step, eval_dhn, the msgpack written and
+                reloaded by load_dhn, and deepmot (128 x 48) on phase 3's
+                frames with it (K2 twice a frame). Prints the train2 JSON
+                line.
 Then K2 on the offline path's last stage-1 and stage-2/3 problems and on
 the last tick's 2S problems, K1 on step_frame's last problem and K3 on the
 last tick's are timed (ms, us per sweep, bound) and profiled (where a
 solve's cycles go, by the profiling builds, which no path uses), and the
 problems are written to chiprun_out/chip_smoke/k2_problems.pt and
 square_problems.pt.
-It prints the trackers JSON line, the train JSON line, the kernel JSON
-line, the card's name and power limit, and last
+It prints the trackers JSON line, the train JSON line, the train2 JSON
+line, the kernel JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, if
 there is no CUDA device or if any phase fails. It imports nothing of JAX.
 
@@ -210,6 +243,11 @@ is its twin for work on K2.
     python3 chip_smoke.py --train-only
 
 runs phase 10 alone and prints its JSON line, no result line.
+
+    python3 chip_smoke.py --train2-only
+
+builds K2 and runs phase 11 alone, and prints its JSON line, no result
+line.
 """
 
 from __future__ import annotations
@@ -2846,13 +2884,17 @@ def zoo_phase(dev):
     return records, launches
 
 
-def zoo_run(name, spread, boost, frames, dev):
-    """One zoo model, its seeded weights calibrated on the first 8 frames
+def zoo_run(name, spread, boost, frames, dev, spec=None, keep=None,
+            weights=None):
+    """One zoo model (or ``spec``, a model built from its rows), its
+    seeded weights (random_state_dict, or ``weights``) calibrated on the
+    first 8 frames
     (calibrate_detector_bn, standardize_heads), through
     run_sequence_stateful (after a warm-up batch): K2 launches, NMS
     survivors of every frame in ZOO_SURVIVORS, the parts of a frame, the
     detector on the card against the CPU and fused against
-    unfused (zoo_detector_checks), and the CPU replay of the tracker."""
+    unfused (zoo_detector_checks; ``keep``: a dict that gets its float32
+    outputs), and the CPU replay of the tracker."""
     import torch
 
     from yolov7_tracker_tpu_torch.models import zoo
@@ -2863,8 +2905,8 @@ def zoo_run(name, spread, boost, frames, dev):
                                                    TrackingPipeline)
     from yolov7_tracker_tpu_torch.trackers import slab as S
 
-    spec = zoo.get_spec(name, nc=80)
-    sd = random_state_dict(spec, seed=0)
+    spec = spec if spec is not None else zoo.get_spec(name, nc=80)
+    sd = weights if weights is not None else random_state_dict(spec, seed=0)
     pipe = TrackingPipeline(
         PipelineConfig(model=name, nc=80, img_size=ZOO_IMG, detector_batch=8,
                        dtype="bfloat16", fuse=True),
@@ -2921,7 +2963,7 @@ def zoo_run(name, spread, boost, frames, dev):
     # decoded-path NMS show?)
     log(f"{name}: torch.profiler over detect_batch of 8 frames")
     profile = profile_ops(lambda: pipe.detect_batch(np.stack(frames[8:])))
-    checks = zoo_detector_checks(pipe, sd, frames[0], dev)
+    checks = zoo_detector_checks(pipe, sd, frames[0], dev, keep)
     t0 = time.time()
     replay_on_cpu(pipe, dets, slabs, results, name)
     replay_s = time.time() - t0
@@ -3005,10 +3047,11 @@ def standardize_heads(spec, sd, img, spread, boost):
     (1 for the box channels) around its prior bias, raised by ``boost``
     on the objectness and class channels. The scores then spread over the
     cells as the image does, and ``boost`` sets how many boxes pass the
-    NMS threshold."""
+    NMS threshold. IBin's scored channels are its objectness and class
+    logits after the bins."""
     import torch
 
-    from yolov7_tracker_tpu_torch.models.yolo import YoloV7
+    from yolov7_tracker_tpu_torch.models.yolo import YoloV7, obj_index
 
     model = YoloV7(spec, fused=False)
     model.load_state_dict(sd)
@@ -3029,7 +3072,7 @@ def standardize_heads(spec, sd, img, spread, boost):
         mean, std = mean.cpu(), std.cpu().clamp_min(1e-12)
         w, b = sd[f"{n}.weight"], sd[f"{n}.bias"]
         if n.startswith("head_m_"):
-            scored = (torch.arange(b.numel()) % spec.no) >= 4
+            scored = (torch.arange(b.numel()) % spec.no) >= obj_index(spec)
         else:
             scored = torch.full_like(b, n.startswith("head_cv3_"), dtype=bool)
         a = torch.where(scored, spread, 1.0) / std
@@ -3040,8 +3083,18 @@ def standardize_heads(spec, sd, img, spread, boost):
 
 def output_parts(out, spec, hw):
     """A detector's output cut into parts of one scale each, every level
-    alone: an anchor head's raw xy, wh, objectness and class logits;
-    DetectV8's decoded box columns (pixels) and class scores (0 to 1)."""
+    alone: an anchor head's raw xy, wh, objectness and class logits
+    (IBin's: xy, the w residual and bins, the h residual and bins,
+    objectness, class); DetectV8's decoded box columns (pixels) and class
+    scores (0 to 1)."""
+    if spec.head_kind == "IBin":
+        from yolov7_tracker_tpu_torch.models.yolo import obj_index
+
+        o = obj_index(spec)
+        n_bin = (o - 2) // 2
+        return [p for lvl in out for p in (
+            lvl[..., :2], lvl[..., 2:2 + n_bin], lvl[..., 2 + n_bin:o],
+            lvl[..., o:o + 1], lvl[..., o + 1:])]
     if spec.head_kind == "DetectV8":
         sizes = [(hw[0] // s) * (hw[1] // s) for s in spec.strides]
         return [p for lvl in out[0].split(sizes, dim=1)
@@ -3050,14 +3103,15 @@ def output_parts(out, spec, hw):
                                        lvl[..., 4:5], lvl[..., 5:])]
 
 
-def zoo_detector_checks(pipe, sd, frame, dev):
+def zoo_detector_checks(pipe, sd, frame, dev, keep=None):
     """One letterboxed frame through the detector in float32 (TF32 off):
     the fused model on the card against the same on the CPU, and the fused
     against the unfused model on the card; and the fused model in bf16 on
     the card against the CPU. Each difference is the worst over the
     output's parts (output_parts) of max |a - b| over max(1, max |b|): the
     float32 ones must stay within ZOO_REL_TOL and the bf16 one must not,
-    so that the check tells the two apart."""
+    so that the check tells the two apart. ``keep``: a dict that gets each
+    run's float32 outputs on the CPU, by key (card, cpu, unfused, bf16)."""
     import torch
 
     from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
@@ -3081,9 +3135,11 @@ def zoo_detector_checks(pipe, sd, frame, dev):
         t0 = time.time()
         with torch.no_grad():
             out = model(img.to(d, dtype))
-        out = out if isinstance(out, list) else [out]
-        outs[key] = output_parts([o.float().cpu() for o in out], pipe.spec,
-                                 out_hw)
+        out = [o.float().cpu() for o in (out if isinstance(out, list)
+                                         else [out])]
+        if keep is not None:
+            keep[key] = out
+        outs[key] = output_parts(out, pipe.spec, out_hw)
         t[key] = time.time() - t0
         del model
 
@@ -3396,7 +3452,7 @@ def keeping_calls(obj, name, kept):
         setattr(obj, name, fn)
 
 
-def assignment_check(card, cpu, name):
+def assignment_check(card, cpu, name, phase="10a"):
     """SimOTA assignments of one step on the card against the CPU's:
     the matched slots and their targets. A difference counts only at a
     near-tie of the CPU's costs (two costs of the slot within NEAR_TIE
@@ -3431,7 +3487,7 @@ def assignment_check(card, cpu, name):
                or abs(float(top_sum[b, t]) - round(float(top_sum[b, t])))
                <= NEAR_TIE)
         far += not tie
-        log(f"phase 10a: {name} SimOTA slot (image {int(b)}, target "
+        log(f"phase {phase}: {name} SimOTA slot (image {int(b)}, target "
             f"{int(t)}, slot {int(c)}) differs; near-tie: {tie} (top-k sum "
             f"{float(top_sum[b, t]):.7f}; the row's k-th and next cost "
             f"{float(row[k - 1]):.7f} "
@@ -4022,6 +4078,627 @@ def train_phase(dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the rest of training (the IBin head and its SigmoidBin loss,
+# the rank losses, the DHN trainer)
+# ---------------------------------------------------------------------------
+
+# (a): the zoo's yolov7 rows with the head kind IBin, calibrated as phase
+# 9 calibrates yolov7 (its spread and boost)
+IBIN_RUN = ("yolov7", 14.0, -34.0)
+# (a): a decoded w or h may take another bin on the card than on the CPU
+# only where the CPU's two best sigmoided bin values lie this close
+IBIN_TIE = 1e-4
+# (a): decoded objectness and class scores (0 to 1), card vs CPU, absolute
+IBIN_SCORE_TOL = 1e-3
+BIN_PARITY_IMG, BIN_PARITY_BATCH = 320, 2     # (b) card vs CPU (float64 net)
+BIN_REL_TOL = 1e-4            # (b): loss parts relative, gradients of the max
+BIN_TIME_IMG, BIN_TIME_BATCH = 640, 16        # (b) timing, bf16 autocast
+BIN_TIME_WARMUP, BIN_TIME_STEPS = 2, 6
+RANK_N = 80 * 80 + 40 * 40 + 20 * 20          # (c): a 640 px image's anchors
+RANK_POS = 0.15
+RANK_TOL = 1e-5               # (c): of the largest value and gradient
+# (d): (arch, hidden): the GRU at the reference's width, and Sinkhorn
+DHN_TRAIN_RUNS = (("gru", 256), ("sinkhorn", 256))
+DHN_TRAIN_SIZE, DHN_TRAIN_BATCH, DHN_TRAIN_STEPS = 16, 8, 200
+DHN_PARITY_TOL = 1e-6         # (d): first step card vs CPU, float64
+
+
+def ibin_spec(nc=80):
+    """yolov7's rows with the last row's head kind set to IBin (how the
+    reference's IBin models are made from an IDetect cfg), through
+    parse_yaml_cfg."""
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.spec import parse_yaml_cfg
+
+    rows = zoo.yolov7_rows()
+    f, n, _, args = rows[-1]
+    rows[-1] = [f, n, "IBin", args]
+    return parse_yaml_cfg({"nc": nc, "depth_multiple": 1.0,
+                           "width_multiple": 1.0, "anchors": zoo.ANCHORS_P5,
+                           "backbone": rows, "head": []},
+                          name="yolov7", nc=nc)
+
+
+def event_ms(fn):
+    """fn() timed by CUDA events around it; returns (result, ms)."""
+    import torch
+
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def ibin_decode_check(spec, card_raw, cpu_raw, bf16_raw):
+    """IBin's decoded output (models/yolo.decode_levels) of the float32
+    fused detector on the card against the CPU's: xy within ZOO_REL_TOL of
+    max(1, its largest), w and h too where both took the same bin; where
+    the bins differ the CPU's two best sigmoided bin values must lie within
+    IBIN_TIE (a near tie). The objectness and class scores (0 to 1) must
+    differ by at most IBIN_SCORE_TOL, and the bf16 detector's (the
+    control) by more."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models.yolo import decode_levels, obj_index
+
+    a, b, c = (decode_levels(r, spec) for r in (card_raw, cpu_raw, bf16_raw))
+    n_bin = (obj_index(spec) - 2) // 2
+    flat = [torch.cat([r.reshape(r.shape[0], -1, spec.no) for r in raw], 1)
+            for raw in (card_raw, cpu_raw)]
+    same = torch.ones(a.shape[:2], dtype=torch.bool)
+    flips, far = 0, 0
+    for k in (0, 1):
+        bins = slice(3 + k * n_bin, 2 + (k + 1) * n_bin)
+        ia, ib = (torch.sigmoid(f[..., bins]).argmax(-1) for f in flat)
+        top2 = torch.sigmoid(flat[1][..., bins].double()).topk(2).values
+        gap = top2[..., 0] - top2[..., 1]
+        differ = ia != ib
+        flips += int(differ.sum())
+        far += int((differ & (gap > IBIN_TIE)).sum())
+        same &= ~differ
+
+    def rel(x, y):
+        return float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+
+    def diff(x, y):
+        return float((x - y).abs().max())
+
+    res = {"xy": rel(a[..., :2], b[..., :2]),
+           "wh_same_bins": rel(a[..., 2:4][same], b[..., 2:4][same]),
+           "obj": diff(a[..., 4], b[..., 4]),
+           "cls": diff(a[..., 5:], b[..., 5:]),
+           "obj_bf16": diff(c[..., 4], b[..., 4]),
+           "cls_bf16": diff(c[..., 5:], b[..., 5:]),
+           "score_tol": IBIN_SCORE_TOL,
+           "bin_flips": flips, "bin_flips_not_near_tie": far,
+           "decodes": 2 * same.numel()}
+    if not (max(res["xy"], res["wh_same_bins"]) <= ZOO_REL_TOL and far == 0
+            and max(res["obj"], res["cls"]) <= IBIN_SCORE_TOL
+            and max(res["obj_bf16"], res["cls_bf16"]) > IBIN_SCORE_TOL):
+        raise AssertionError(f"IBin decode card vs CPU: {res}")
+    return res
+
+
+def ibin_weights(spec):
+    """Seeded weights of an IBin model (random_state_dict) with IDetect's
+    bias prior at IBin's objectness and class slots (init_head_biases
+    leaves IBin without one, as JAX does), so that phase 9's spread and
+    boost spread its scores as they spread the IDetect yolov7's."""
+    import math
+
+    from yolov7_tracker_tpu_torch.models.yolo import (obj_index,
+                                                      random_state_dict)
+
+    sd = random_state_dict(spec, seed=0)
+    o = obj_index(spec)
+    for i, s in enumerate(spec.strides):
+        b = sd[f"head_m_{i}.bias"].view(spec.na, spec.no)
+        b[:, o] += math.log(8.0 / (640.0 / float(s)) ** 2)
+        b[:, o + 1:] += math.log(0.6 / (spec.nc - 0.99))
+    return sd
+
+
+def ibin_tracking(dev):
+    """(a): an IBin-headed yolov7 at full width (ibin_weights) through
+    phase 9's run."""
+    import torch
+
+    name, spread, boost = IBIN_RUN
+    spec = ibin_spec()
+    sd = ibin_weights(spec)
+    keep = {}
+    t0 = time.time()
+    rec = zoo_run(name, spread, boost, offline_frames(), dev, spec=spec,
+                  keep=keep, weights=sd)
+    rec["decode_card_vs_cpu"] = ibin_decode_check(
+        spec, keep["card"], keep["cpu"], keep["bf16"])
+    rec["phase_s"] = time.time() - t0
+    log(f"phase 11a: IBin yolov7 decoded output, float32 card vs CPU "
+        f"{rec['decode_card_vs_cpu']}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bin_loss_parity(dev):
+    """(b), parity: the IBin yolov7 at full width, 320 px, batch 2, in
+    training mode, its network (forward and backward) in float64 on the
+    card and on the CPU from one seeded state and inputs made on the host;
+    compute_loss_bin_ota runs on its preds cast to float32 (as the train
+    steps do), so SimOTA and the loss terms run in float32. Checked: the
+    same SimOTA assignments (a difference only at a printed near-tie), the
+    loss parts within BIN_REL_TOL relative and every parameter's gradient
+    within BIN_REL_TOL of its tensor's largest. The control is the card's
+    run with its preds rounded to bf16 before the loss: it must land above
+    BIN_REL_TOL in the loss parts or the gradients."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models.yolo import YoloV7
+    from yolov7_tracker_tpu_torch.train import loss as loss_mod
+
+    spec = ibin_spec()
+    sd = parity_weights(spec)
+    data = MemoryDataset(BIN_PARITY_BATCH, BIN_PARITY_IMG, seed=5)
+    x, t, m = to_input(next(data.batches(BIN_PARITY_BATCH)),
+                       torch.device("cpu"))
+    runs = {}
+    for key, device, stage in (("card", dev, torch.float32),
+                               ("cpu", torch.device("cpu"), torch.float32),
+                               ("bf16_loss", dev, torch.bfloat16)):
+        model = YoloV7(spec, fused=False)
+        model.load_state_dict(sd)
+        model = model.to(device, torch.float64).train()
+        kept = []
+        t0 = time.time()
+        with keeping_calls(loss_mod, "simota_assign", kept):
+            preds = model(x.to(device, torch.float64), training=True)
+            loss, parts = loss_mod.compute_loss_bin_ota(
+                [p.to(stage).float() for p in preds], t.to(device),
+                m.to(device), spec, BIN_PARITY_IMG)
+        loss.backward()
+        runs[key] = {"parts": {k: float(v.detach())
+                               for k, v in parts.items()},
+                     "kept": [on_host(k) for k in kept],
+                     "grads": {n: p.grad.cpu()
+                               for n, p in model.named_parameters()},
+                     "s": time.time() - t0}
+        del model, preds, loss
+    cpu = runs["cpu"]
+
+    def against_cpu(run):
+        loss_rel = max(abs(run["parts"][k] - v) / abs(v)
+                       for k, v in cpu["parts"].items())
+        worst, at = 0.0, ""
+        for n, g in cpu["grads"].items():
+            scale = float(g.abs().max())
+            r = (float((run["grads"][n] - g).abs().max()) / scale
+                 if scale else 0.0)
+            if r > worst:
+                worst, at = r, n
+        return loss_rel, worst, at
+
+    card = runs["card"]
+    diffs = assignment_check(card["kept"][0], cpu["kept"][0], "IBin lead",
+                             phase="11b")
+    loss_rel, worst, at = against_cpu(card)
+    ctl_loss, ctl_grad, ctl_at = against_cpu(runs["bf16_loss"])
+    n_zero = sum(not bool(g.abs().max() > 0) for g in cpu["grads"].values())
+    rec = {"img": BIN_PARITY_IMG, "batch": BIN_PARITY_BATCH,
+           "loss_card": card["parts"], "loss_cpu": cpu["parts"],
+           "loss_worst_rel": loss_rel, "grad_worst_rel": worst,
+           "grad_worst_at": at, "params": len(cpu["grads"]),
+           "params_without_gradient": n_zero,
+           "matched_slots": int(cpu["kept"][0][2]["matched"].sum()),
+           "assignment_differences": diffs,
+           "control_bf16_loss": {"loss_worst_rel": ctl_loss,
+                                 "grad_worst_rel": ctl_grad,
+                                 "grad_worst_at": ctl_at},
+           "card_s": card["s"], "cpu_s": cpu["s"]}
+    log(f"phase 11b: IBin yolov7 @{BIN_PARITY_IMG} batch {BIN_PARITY_BATCH}, "
+        f"float64 network, float32 loss stage, card vs CPU: losses "
+        f"{card['parts']} / {cpu['parts']} ({loss_rel:.2e}); "
+        f"{rec['matched_slots']} matched slots, assignment differences "
+        f"(slots, not at a near-tie) {diffs}; gradients {worst:.2e} of the "
+        f"tensor's max ({at}), {n_zero} of {len(cpu['grads'])} parameters "
+        f"without gradient; control (preds rounded to bf16 before the "
+        f"loss): losses {ctl_loss:.2e}, gradients {ctl_grad:.2e} ({ctl_at})")
+    assert diffs[1] == 0, diffs
+    assert loss_rel <= BIN_REL_TOL, (card["parts"], cpu["parts"])
+    assert worst <= BIN_REL_TOL, (worst, at)
+    assert max(ctl_loss, ctl_grad) > BIN_REL_TOL, rec["control_bf16_loss"]
+    assert rec["matched_slots"] > 0
+    return rec
+
+
+def loss_step_timing(spec, loss_fn, dev):
+    """Forward (training mode, bf16 autocast) + ``loss_fn`` + backward of
+    ``spec`` at BIN_TIME_IMG, batch BIN_TIME_BATCH, on one seeded batch:
+    the median of BIN_TIME_STEPS after BIN_TIME_WARMUP, its parts by CUDA
+    events (forward, SimOTA, the loss terms, backward), the peak memory,
+    and the host syncs inside the loss (set_sync_debug_mode("warn")'s
+    warnings, counted on the last step)."""
+    import warnings
+
+    import torch
+
+    from yolov7_tracker_tpu_torch.models.yolo import YoloV7, random_state_dict
+    from yolov7_tracker_tpu_torch.train import loss as loss_mod
+
+    model = YoloV7(spec, fused=False)
+    model.load_state_dict(random_state_dict(spec, seed=0))
+    model = model.to(dev).train()
+    data = MemoryDataset(BIN_TIME_BATCH, BIN_TIME_IMG, seed=6)
+    x, t, m = to_input(next(data.batches(BIN_TIME_BATCH)), dev)
+    simota = loss_mod.simota_assign
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(BIN_TIME_WARMUP + BIN_TIME_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        sim = []
+
+        def timed_simota(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = simota(*a, **kw)
+            e.record()
+            sim.append((s, e))
+            return out
+
+        last = i == BIN_TIME_WARMUP + BIN_TIME_STEPS - 1
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ev[0].record()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            preds = model(x, training=True)
+        ev[1].record()
+        loss_mod.simota_assign = timed_simota
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if last:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    loss, parts = loss_fn([p.float() for p in preds], t, m,
+                                          spec, BIN_TIME_IMG)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        finally:
+            loss_mod.simota_assign = simota
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        s_ms = sum(s.elapsed_time(e) for s, e in sim)
+        steps.append({"ms": wall, "forward": ev[0].elapsed_time(ev[1]),
+                      "simota": s_ms,
+                      "loss_terms": ev[1].elapsed_time(ev[2]) - s_ms,
+                      "backward": ev[2].elapsed_time(ev[3]),
+                      "loss": float(loss)})
+        if last:
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+        del preds, loss, parts
+    timed = steps[BIN_TIME_WARMUP:]
+    rec = {k: float(np.median([s[k] for s in timed]))
+           for k in ("ms", "forward", "simota", "loss_terms", "backward")}
+    rec.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               loss_syncs=syncs, losses=[s["loss"] for s in steps],
+               ms_all=[s["ms"] for s in steps])
+    assert all(np.isfinite(s["loss"]) for s in steps), rec["losses"]
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bin_loss_timing(dev):
+    """(b), timing: the IBin yolov7 through compute_loss_bin_ota and, beside
+    it, the IDetect yolov7 through compute_loss_ota (loss_step_timing)."""
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.train import loss as loss_mod
+
+    rec = {"img": BIN_TIME_IMG, "batch": BIN_TIME_BATCH}
+    for key, head, spec, fn in (
+            ("ibin_bin_ota", "IBin", ibin_spec(),
+             loss_mod.compute_loss_bin_ota),
+            ("idetect_ota", "IDetect", zoo.get_spec("yolov7", nc=80),
+             loss_mod.compute_loss_ota)):
+        rec[key] = loss_step_timing(spec, fn, dev)
+        log(f"phase 11b: yolov7 ({head}) @{BIN_TIME_IMG} batch "
+            f"{BIN_TIME_BATCH}, bf16 autocast, forward + {fn.__name__} + "
+            f"backward on {card_line()}: {rec[key]['ms']:.1f} ms (median of "
+            f"{BIN_TIME_STEPS}), forward {rec[key]['forward']:.1f}, SimOTA "
+            f"{rec[key]['simota']:.1f}, loss terms "
+            f"{rec[key]['loss_terms']:.1f}, backward "
+            f"{rec[key]['backward']:.1f} ms; peak "
+            f"{rec[key]['peak_gib']:.2f} GiB; {rec[key]['loss_syncs']} host "
+            f"syncs in the loss")
+    return rec
+
+
+def rank_inputs(loss, seed=0):
+    """(c): seeded (RANK_N,) float32 logits, targets with about RANK_POS
+    positives (RankSort: IoUs in (0.5, 1]; aLRP and AP: 1), valid, and
+    aLRP's regression losses."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0, 2, RANK_N).astype(np.float32)
+    pos = rng.uniform(0, 1, RANK_N) < RANK_POS
+    t = np.zeros(RANK_N, np.float32)
+    t[pos] = (rng.uniform(0.5, 1.0, pos.sum()) if loss == "rank_sort"
+              else 1.0)
+    valid = rng.uniform(0, 1, RANK_N) < 0.95
+    reg = rng.uniform(0, 1, RANK_N).astype(np.float32)
+    return [torch.from_numpy(v) for v in (logits, t, valid, reg)]
+
+
+def rank_loss_run(loss, inputs):
+    """Forward + backward of one rank loss on its inputs' device:
+    (outputs, the logits' gradient)."""
+    from yolov7_tracker_tpu_torch.train import rank_losses as rl
+
+    logits, t, valid, reg = inputs
+    logits = logits.detach().clone().requires_grad_(True)
+    if loss == "rank_sort":
+        out = rl.rank_sort_loss(logits, t, valid)
+    elif loss == "alrp":
+        out = rl.alrp_loss(logits, t, reg, valid)
+    else:
+        out = (rl.ap_loss(logits, t, valid),)
+    out[0].backward()
+    return [o.detach() for o in out], logits.grad
+
+
+def rank_losses_phase(dev):
+    """(c): RankSort, aLRP and AP at N = RANK_N with about RANK_POS
+    positives: forward + backward on the card against the CPU (float32,
+    within RANK_TOL of the largest value and gradient), ms by CUDA events
+    (median of 5 after a warm-up), the peak memory of one call."""
+    import torch
+
+    rec = {"n": RANK_N}
+    for loss in ("rank_sort", "alrp", "ap"):
+        inputs = rank_inputs(loss)
+        cpu_out, cpu_g = rank_loss_run(loss, inputs)
+        inputs = [v.to(dev) for v in inputs]
+        rank_loss_run(loss, inputs)                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(5):
+            (out, g), ms = event_ms(lambda: rank_loss_run(loss, inputs))
+            times.append(ms)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        val_err = max(float((a.cpu() - b).abs().max())
+                      / max(float(b.abs().max()), 1e-30)
+                      for a, b in zip(out, cpu_out))
+        g_err = float((g.cpu() - cpu_g).abs().max()) / float(
+            cpu_g.abs().max())
+        rec[loss] = {"ms": float(np.median(times)), "ms_all": times,
+                     "peak_gib": peak, "value_rel": val_err,
+                     "grad_rel": g_err,
+                     "positives": int((inputs[1] > 0).sum().cpu()),
+                     "values": [float(o.flatten()[0]) for o in cpu_out]}
+        log(f"phase 11c: {loss} at N = {RANK_N} on {card_line()}: "
+            f"forward + backward {rec[loss]['ms']:.2f} ms (median of 5), "
+            f"peak {peak:.2f} GiB above the inputs; card vs CPU values "
+            f"{val_err:.2e}, gradients {g_err:.2e} of the largest")
+        assert val_err <= RANK_TOL and g_err <= RANK_TOL, rec[loss]
+    return rec
+
+
+@contextlib.contextmanager
+def dhn_train_instruments():
+    """For the block, train/dhn_train's loop is timed by parts: problem
+    generation (sample_batch, host clock), the batch's H2D (batch_to) and
+    the device step (train_step), both by CUDA events. Yields the lists
+    of each step's ms and its loss (device tensors)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.train import dhn_train as dt
+
+    out = {"gen": [], "h2d": [], "step": [], "loss": []}
+    saved = dt.sample_batch, dt.batch_to, dt.train_step
+    events = []
+
+    def sample_batch(*a, **kw):
+        t0 = time.perf_counter()
+        r = saved[0](*a, **kw)
+        out["gen"].append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    def evented(key, fn):
+        def wrapped(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            r = fn(*a, **kw)
+            e.record()
+            events.append((key, s, e))
+            if key == "step":
+                out["loss"].append(r)
+            return r
+        return wrapped
+
+    dt.sample_batch = sample_batch
+    dt.batch_to = evented("h2d", saved[1])
+    dt.train_step = evented("step", saved[2])
+    try:
+        yield out
+    finally:
+        dt.sample_batch, dt.batch_to, dt.train_step = saved
+        torch.cuda.synchronize()
+        for key, s, e in events:
+            out[key].append(s.elapsed_time(e))
+
+
+def dhn_first_step_parity(arch, hidden, dev):
+    """(d): the first train step of the seeded DHN on the card against the
+    CPU in float64: the loss within DHN_PARITY_TOL relative and every
+    gradient within DHN_PARITY_TOL of its tensor's largest."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.reid.dhn import build_dhn
+    from yolov7_tracker_tpu_torch.train import dhn_train as dt
+
+    sd = dt.init_dhn(build_dhn(arch, hidden), seed=0).state_dict()
+    d, y = dt.sample_batch(np.random.default_rng(0), DHN_TRAIN_SIZE,
+                           DHN_TRAIN_SIZE, True, DHN_TRAIN_BATCH)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        model, opt = dt.build_trainer(arch, hidden, device=device,
+                                      state_dict=sd)
+        model.double()
+        dd, yy = (v.double() for v in dt.batch_to(device, d, y))
+        loss = dt.train_step(model, opt, dd, yy)
+        runs.append((float(loss), {n: p.grad.cpu()
+                                   for n, p in model.named_parameters()}))
+    (lc, gc), (lp, gp) = runs
+    worst, at = 0.0, ""
+    for n, g in gp.items():
+        scale = float(g.abs().max())
+        r = float((gc[n] - g).abs().max()) / scale if scale else 0.0
+        if r > worst:
+            worst, at = r, n
+    rec = {"loss_card": lc, "loss_cpu": lp,
+           "loss_rel": abs(lc - lp) / abs(lp), "grad_worst_rel": worst,
+           "grad_worst_at": at}
+    assert rec["loss_rel"] <= DHN_PARITY_TOL and worst <= DHN_PARITY_TOL, rec
+    return rec
+
+
+def dhn_deepmot_run(sd, dev, frames, path, arch, hidden):
+    """The trained DHN file through deepmot (128 x 48) on phase 3's
+    detector and frames: K2 twice a frame (reset just before the run, read
+    just after), tracks on the frames."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import auction
+
+    pipe = tracker_pipeline(sd, dev, dict(
+        tracker="deepmot", det_capacity=48, dhn_weights=path,
+        dhn_hidden=hidden, dhn_arch=arch), {})
+    pipe.run_sequence(iter(frames[:8]))        # warm-up, not counted
+    torch.cuda.synchronize()
+    auction.LAUNCHES = 0
+    t0 = time.time()
+    results, slab = pipe.run_sequence_stateful(iter(frames))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = auction.LAUNCHES
+    n = len(frames)
+    tracks = [len(ids) for _, ids, _, _ in results]
+    if launches != 2 * n or max(tracks) < 1:
+        raise AssertionError(f"deepmot with the trained {arch} DHN: "
+                             f"{launches} K2 launches in {n} frames, tracks "
+                             f"a frame {tracks}")
+    return {"ms_per_frame": wall / n * 1e3, "k2_launches": launches,
+            "tracks_per_frame_mean": float(np.mean(tracks)),
+            "ids": int(slab.next_id)}
+
+
+def dhn_train_phase(sd, dev):
+    """(d): train_dhn on the card for each of DHN_TRAIN_RUNS (size 16,
+    pad_train, batch 8, DHN_TRAIN_STEPS steps): the first step card
+    against CPU in float64, ms a step by parts, eval_dhn on the result,
+    the msgpack written and reloaded by load_dhn, and deepmot on it.
+    Returns (record, {arch: K2 launches})."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.reid.dhn import load_dhn
+    from yolov7_tracker_tpu_torch.train import dhn_train as dt
+
+    frames = offline_frames()
+    rec, launches = {}, {}
+    for arch, hidden in DHN_TRAIN_RUNS:
+        name = f"{arch}_h{hidden}" if arch == "gru" else arch
+        r = {"parity_first_step": dhn_first_step_parity(arch, hidden, dev)}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with dhn_train_instruments() as ins:
+            model = dt.train_dhn(DHN_TRAIN_STEPS, DHN_TRAIN_SIZE,
+                                 DHN_TRAIN_SIZE, hidden=hidden, arch=arch,
+                                 pad_train=True, batch=DHN_TRAIN_BATCH,
+                                 log_every=0, device=dev)
+            torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        losses = [float(v) for v in ins["loss"]]
+        r.update(steps=DHN_TRAIN_STEPS, ms_per_step=wall / DHN_TRAIN_STEPS,
+                 gen_ms=float(np.median(ins["gen"])),
+                 h2d_ms=float(np.median(ins["h2d"])),
+                 device_step_ms=float(np.median(ins["step"])),
+                 loss_first=losses[0], loss_last=losses[-1],
+                 loss_last10_mean=float(np.mean(losses[-10:])))
+        assert all(np.isfinite(losses)) and r["loss_last10_mean"] < losses[0]
+        t0 = time.time()
+        r["eval"] = dt.eval_dhn(model, h=DHN_TRAIN_SIZE, w=DHN_TRAIN_SIZE,
+                                pad_to=(DHN_TRAIN_SIZE, DHN_TRAIN_SIZE))
+        r["eval_s"] = time.time() - t0
+        os.makedirs(OUT_DIR, exist_ok=True)
+        path = dt.save_dhn(os.path.join(OUT_DIR, f"dhn_trained_{name}"
+                                                 ".msgpack"), model, arch)
+        loaded = load_dhn(path, arch, hidden, dev)
+        want = model.state_dict()
+        assert all(torch.equal(v, want[k])
+                   for k, v in loaded.state_dict().items())
+        if arch == "gru":
+            hh = [v for k, v in want.items() if "bias_hh" in k]
+            assert not any(v[:2 * hidden].any() for v in hh)
+        r["file_bytes"] = os.path.getsize(path)
+        r["deepmot"] = dhn_deepmot_run(sd, dev, frames, path, arch, hidden)
+        launches[name] = r["deepmot"]["k2_launches"]
+        log(f"phase 11d: train_dhn {name} (size {DHN_TRAIN_SIZE}, pad_train, "
+            f"batch {DHN_TRAIN_BATCH}) on {card_line()}: "
+            f"{r['ms_per_step']:.2f} ms a step over {DHN_TRAIN_STEPS} steps "
+            f"(medians: problems on the host {r['gen_ms']:.2f}, H2D "
+            f"{r['h2d_ms']:.3f}, device step {r['device_step_ms']:.2f} ms); "
+            f"loss {losses[0]:.4f} -> {r['loss_last10_mean']:.4f}; first "
+            f"step card vs CPU float64 {r['parity_first_step']}; eval "
+            f"{r['eval']}; {path} ({r['file_bytes']} bytes) reloaded; "
+            f"deepmot 128 x 48 on it: {r['deepmot']}")
+        rec[name] = r
+        del model, loaded
+        torch.cuda.empty_cache()
+    return rec, launches
+
+
+def train2_phase(dev, sd=None):
+    """Phase 11: (a) the IBin head on the tracking path, (b) the bin loss,
+    (c) the rank losses, (d) the DHN trainer. ``sd``: phase 3's detector
+    weights (built here when not given). Returns (record, {path: K2
+    launches})."""
+    import torch
+
+    t0 = time.time()
+    if sd is None:
+        sd, pipe = build_w6(dev)
+        del pipe
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rec = {"ibin": ibin_tracking(dev)}
+        rec["bin_loss_parity"] = bin_loss_parity(dev)
+        torch.cuda.empty_cache()
+        rec["bin_loss_timing"] = bin_loss_timing(dev)
+        rec["rank_losses"] = rank_losses_phase(dev)
+        torch.cuda.empty_cache()
+        rec["dhn_train"], dhn_launches = dhn_train_phase(sd, dev)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rec["phase_s"] = time.time() - t0
+    log(f"phase 11 {rec['phase_s']:.1f} s")
+    return rec, {"ibin": rec["ibin"]["k2_launches"], **dhn_launches}
+
+
 def build_kernels(mods):
     """One nvcc per build, all started together; mods: (module, source,
     load_library arguments). Raises if a build failed."""
@@ -4118,6 +4795,9 @@ def main(argv=None):
                     help="only build, check, time and profile K2")
     ap.add_argument("--train-only", action="store_true",
                     help="only phase 10 (training and the detector test)")
+    ap.add_argument("--train2-only", action="store_true",
+                    help="only phase 11 (the IBin head and its loss, the "
+                         "rank losses, the DHN trainer)")
     ap.add_argument("--problems", default="",
                     help="with --square-only or --k2-only: the "
                          "square_problems.pt or k2_problems.pt written by a "
@@ -4141,6 +4821,12 @@ def main(argv=None):
     if args.train_only:
         print(json.dumps({"train": train_phase(dev)}))
         log("train-only run done (not the smoke run: no result line)")
+        return 0
+    if args.train2_only:
+        build_kernels([(auction, SOURCE, ())])
+        train2, k2_train2 = train2_phase(dev)
+        print(json.dumps({"train2": train2, "k2_launches": k2_train2}))
+        log("train2-only run done (not the smoke run: no result line)")
         return 0
     t0 = time.time()
     build_kernels([(auction, SOURCE, ()), (square, SOURCE_SQUARE, ()),
@@ -4174,6 +4860,7 @@ def main(argv=None):
     trackers["zoo"], k2_zoo = zoo_phase(dev)
     log(f"phase 9 {time.time() - t9:.1f} s")
     train = train_phase(dev)
+    train2, k2_train2 = train2_phase(dev, sd)
 
     # K2 on the last frame's two solves, as the main path gave them, and on
     # the serving path's stages 2+3: one launch of B = 2 S problems
@@ -4201,6 +4888,7 @@ def main(argv=None):
               "launches_scoring": k2_scoring,
               "launches_detect_per_frame": k2_detect_every,
               "launches_zoo": k2_zoo,
+              "launches_train2": k2_train2,
               "max_abs_err": float(worst), "library_ms": None, **t1,
               **{f"{k}_b2": v for k, v in t2.items()},
               **{f"{k}_serving": v for k, v in t16.items()}}
@@ -4230,6 +4918,7 @@ def main(argv=None):
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"trackers": trackers}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"train2": train2}))
     print(json.dumps({"kernels": [rec_k1, record, rec_k3]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -60,7 +60,7 @@ def linkers(tmp_path_factory):
     path = tmp_path_factory.mktemp("aflink") / "linker.msgpack"
     with open(path, "wb") as f:
         f.write(serialization.to_bytes(variables))
-    return variables, str(path), load_postlinker(str(path))
+    return variables, str(path), load_postlinker(str(path), "cpu")
 
 
 def test_postlinker_matches_jax(linkers):

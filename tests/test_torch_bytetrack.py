@@ -55,7 +55,7 @@ def test_bytetrack_matches_jax(seed):
     cfg = JS.TrackerConfig(tracker="bytetrack", conf_thresh=0.5,
                            capacity=32, det_capacity=24)
     j_step, j_cfg = j_build(cfg)
-    t_step, t_cfg = t_build(TS.TrackerConfig(**vars(cfg)))
+    t_step, t_cfg = t_build(TS.TrackerConfig(**vars(cfg)), "cpu")
     j_slab = JS.init_slab(j_cfg)
     t_slab = TS.init_slab(t_cfg, "cpu")
     n_rows = 0
@@ -83,7 +83,7 @@ def test_bytetrack_matches_jax(seed):
 def test_slab_checkpoint_roundtrip(tmp_path):
     cfg = TS.TrackerConfig(tracker="bytetrack", conf_thresh=0.5,
                            capacity=32, det_capacity=24)
-    step, cfg = t_build(cfg)
+    step, cfg = t_build(cfg, "cpu")
     slab = TS.init_slab(cfg, "cpu")
     for tlbr, score, valid in _stream(3, n_frames=8):
         slab, _ = step(slab, TS.make_det_slab(

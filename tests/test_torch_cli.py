@@ -218,7 +218,7 @@ def _run_with_predict_only(tracker, schedule):
     frames."""
     kw = dict(tracker=tracker, conf_thresh=0.5, capacity=32, det_capacity=24)
     j_step, j_cfg = j_build(JS.TrackerConfig(**kw))
-    t_step, t_cfg = build_tracker(TS.TrackerConfig(**kw))
+    t_step, t_cfg = build_tracker(TS.TrackerConfig(**kw), "cpu")
     j_pred, t_pred = j_po(j_cfg), build_predict_only(t_cfg)
     j_slab, t_slab = JS.init_slab(j_cfg), TS.init_slab(t_cfg, "cpu")
     occupied, rows = [], 0

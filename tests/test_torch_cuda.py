@@ -832,3 +832,161 @@ def test_multi_label_nms_on_the_card_equals_the_cpu(card):
         np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
                                    rtol=0, atol=1e-4)
         assert int(want[1].min()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the rest of training on the card: the IBin head and its loss, the rank
+# losses, the DHN trainer (chip_smoke phase 11)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_ibin_detector_on_the_card_equals_the_cpu(card, full_float32):
+    """yolov7's rows with an IBin head at full width, seeded weights
+    calibrated on the input as phase 11a calibrates them (so that the
+    scores spread over (0, 1)): float32 on the card equals the CPU, fused
+    and unfused, within ZOO_REL_TOL on each raw part (xy, w bins, h bins,
+    objectness, class); bf16 lands above it; the decoded output agrees
+    (chip_smoke.ibin_decode_check: a bin may differ only at a near tie,
+    the scores within IBIN_SCORE_TOL while bf16's lie above it)."""
+    from chip_smoke import (IBIN_RUN, ZOO_BN_SCALE, ZOO_REL_TOL,
+                            calibrate_detector_bn, ibin_decode_check,
+                            ibin_spec, ibin_weights, output_parts,
+                            standardize_heads)
+    from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
+    from yolov7_tracker_tpu_torch.models.yolo import YoloV7
+
+    spec = ibin_spec()
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (1, 256, 320, 3)).astype(np.float32))
+    _, spread, boost = IBIN_RUN
+    sd = calibrate_detector_bn(spec, ibin_weights(spec), x.to(card),
+                               ZOO_BN_SCALE)
+    sd = standardize_heads(spec, sd, x.to(card), spread, boost)
+    raws = {}
+    for key, dev, fused, dtype in (("cpu", "cpu", True, torch.float32),
+                                   ("card", card, True, torch.float32),
+                                   ("unfused", card, False, torch.float32),
+                                   ("bf16", card, True, torch.bfloat16)):
+        model = YoloV7(spec, fused=fused)
+        model.load_state_dict(fuse_state_dict(sd) if fused else sd)
+        model = model.to(dev, dtype).eval()
+        with torch.no_grad():
+            raws[key] = [o.float().cpu() for o in model(x.to(dev, dtype))]
+    parts = {k: output_parts(v, spec, (256, 320)) for k, v in raws.items()}
+    assert len(parts["cpu"]) == 5 * spec.nl
+
+    def rel(key):
+        return max(float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())) for a, b in zip(parts[key], parts["cpu"]))
+
+    for key in ("card", "unfused"):
+        assert rel(key) <= ZOO_REL_TOL, (key, rel(key))
+    assert rel("bf16") > ZOO_REL_TOL
+    res = ibin_decode_check(spec, raws["card"], raws["cpu"], raws["bf16"])
+    assert res["bin_flips_not_near_tie"] == 0
+
+
+@pytest.mark.cuda
+def test_bin_loss_on_the_card_equals_the_cpu(card):
+    """A narrow IBin model (the tiny rows at width 0.25) in training mode
+    in float64, compute_loss_bin_ota on its float32 preds and backward,
+    card against CPU: the same assignments, loss parts within 1e-4
+    relative, every gradient within 1e-4 of its tensor's largest."""
+    from tests.torch_train_cfgs import seeded_batch
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.spec import parse_yaml_cfg
+    from yolov7_tracker_tpu_torch.models.yolo import (YoloV7,
+                                                      random_state_dict)
+    from yolov7_tracker_tpu_torch.train import loss as loss_mod
+
+    rows = zoo.yolov7_tiny_rows()
+    f, n, _, args = rows[-1]
+    rows[-1] = [f, n, "IBin", args]
+    spec = parse_yaml_cfg({"nc": 8, "depth_multiple": 1.0,
+                           "width_multiple": 0.25,
+                           "anchors": zoo.ANCHORS_P5_TINY,
+                           "backbone": rows, "head": []}, name="tiny-ibin")
+    sd = random_state_dict(spec, seed=0)
+    x, t, m = (torch.from_numpy(v) for v in seeded_batch(0))
+    runs = {}
+    for dev in ("cpu", card):
+        model = YoloV7(spec)
+        model.load_state_dict(sd)
+        model = model.to(dev, torch.float64).train()
+        preds = model(x.to(dev, torch.float64), training=True)
+        loss, parts = loss_mod.compute_loss_bin_ota(
+            [p.float() for p in preds], t.to(dev), m.to(dev), spec, 128)
+        loss.backward()
+        runs[str(dev)] = ({k: float(v.detach()) for k, v in parts.items()},
+                          {k: p.grad.cpu()
+                           for k, p in model.named_parameters()})
+    (want, want_g), (got, got_g) = runs["cpu"], runs[str(card)]
+    for k, v in want.items():
+        assert abs(got[k] - v) <= 1e-4 * abs(v), (k, got[k], v)
+    for k, g in want_g.items():
+        assert float((got_g[k] - g).abs().max()) <= 1e-4 * float(
+            g.abs().max()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["rank_sort", "alrp", "ap"])
+def test_rank_losses_on_the_card_equal_the_cpu(card, loss):
+    """Each rank loss at N = 2,000 (15% positives): values and gradient on
+    the card within 1e-5 of the CPU's largest."""
+    import chip_smoke
+
+    old = chip_smoke.RANK_N
+    chip_smoke.RANK_N = 2000
+    try:
+        inputs = chip_smoke.rank_inputs(loss, seed=1)
+    finally:
+        chip_smoke.RANK_N = old
+    want, want_g = chip_smoke.rank_loss_run(loss, inputs)
+    got, got_g = chip_smoke.rank_loss_run(loss, [v.to(card) for v in inputs])
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * max(
+            float(b.abs().max()), 1e-30)
+    assert float((got_g.cpu() - want_g).abs().max()) <= 1e-5 * float(
+        want_g.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,hidden", [("gru", 32), ("sinkhorn", 32)])
+def test_dhn_train_step_on_the_card_equals_the_cpu(card, arch, hidden):
+    """The first DHN train step (size 16, pad_train, batch 8) in float64 on
+    the card against the CPU: loss and gradients within 1e-6
+    (chip_smoke.dhn_first_step_parity)."""
+    from chip_smoke import dhn_first_step_parity
+
+    rec = dhn_first_step_parity(arch, hidden, card)
+    assert rec["loss_rel"] <= 1e-6 and rec["grad_worst_rel"] <= 1e-6
+
+
+@pytest.mark.cuda
+def test_dhn_trainer_on_the_card_feeds_deepmot(card, tmp_path):
+    """python -m ...train.dhn_train --device cuda: the file it writes keeps
+    the r / z hidden biases at zero, loads on the card and runs in deepmot
+    with K2 twice a frame."""
+    from yolov7_tracker_tpu_torch.reid.dhn import load_dhn
+    from yolov7_tracker_tpu_torch.train import dhn_train
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+    from yolov7_tracker_tpu_torch.trackers.registry import build_tracker
+
+    out = str(tmp_path / "dhn.msgpack")
+    dhn_train.main(["--steps", "20", "--size", "8", "--hidden", "16",
+                    "--pad_train", "--batch", "4", "--device", "cuda",
+                    "--out", out])
+    model = load_dhn(out, "gru", 16, card)
+    for k, v in model.state_dict().items():
+        if "bias_hh" in k:
+            assert not v[:32].any(), k
+    step, cfg = build_tracker(S.TrackerConfig(
+        tracker="deepmot", capacity=32, det_capacity=24, conf_thresh=0.5,
+        dhn_weights=out, dhn_hidden=16), card)
+    rng = np.random.default_rng(0)
+    slab = S.init_slab(cfg, card)
+    before = auction.LAUNCHES
+    for t in range(6):
+        slab, _ = step(slab, _card_dets(cfg, rng, t, card))
+    assert auction.LAUNCHES - before == 12
+    assert int(slab.next_id) > 1

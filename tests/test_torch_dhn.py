@@ -157,7 +157,7 @@ def test_dhn_matches_jax(arch, source, tmp_path):
     variables, path, hidden = _variables(arch, source, tmp_path)
     model = jdhn.build_dhn(arch, hidden or jdhn.HIDDEN)
     apply = jax.jit(lambda d: model.apply(variables, d))
-    port = tdhn.load_dhn(path, arch, hidden or tdhn.HIDDEN)
+    port = tdhn.load_dhn(path, arch, hidden or tdhn.HIDDEN, "cpu")
     rng = np.random.default_rng(1)
     one = rng.uniform(0, 1, (9, 7)).astype(np.float32)
     many = rng.uniform(0, 1, (3, 6, 5)).astype(np.float32)
@@ -173,11 +173,11 @@ def test_dhn_matches_jax(arch, source, tmp_path):
 
 def test_dhn_file_must_fit_the_architecture():
     with pytest.raises(RuntimeError, match="size mismatch"):
-        tdhn.load_dhn(GRU, "gru", 16)
+        tdhn.load_dhn(GRU, "gru", 16, "cpu")
     with pytest.raises(KeyError):
-        tdhn.load_dhn(GRU, "sinkhorn")
+        tdhn.load_dhn(GRU, "sinkhorn", device="cpu")
     with pytest.raises(FileNotFoundError):
-        tdhn.load_dhn("weights/no_such_dhn.msgpack", "gru", 32)
+        tdhn.load_dhn("weights/no_such_dhn.msgpack", "gru", 32, "cpu")
     with pytest.raises(ValueError, match="unknown dhn arch"):
         tdhn.build_dhn("lstm")
 
@@ -246,7 +246,7 @@ def test_deepmot_streams_match_the_vmapped_jax_step():
     tlbr, score, valid = (np.stack([np.stack([st[t][k] for st in streams])
                                     for t in range(n_ticks)])
                           for k in range(3))
-    t_step, t_cfg = t_build(TS.TrackerConfig(**kw))
+    t_step, t_cfg = t_build(TS.TrackerConfig(**kw), "cpu")
     j_step, j_cfg = j_build(JS.TrackerConfig(**kw))
     assert vars(t_cfg) == vars(j_cfg)
     t_slabs = TS.TrackSlab(*(x[None].repeat((s,) + (1,) * x.dim())
@@ -379,7 +379,7 @@ def _recorded_deepmot_run(n_frames=8):
     import chip_smoke
 
     kw = {**BASE, "tracker": "deepmot", "track_buffer": 6, **HEADS["gru_h32"]}
-    step, cfg = t_build(TS.TrackerConfig(**kw))
+    step, cfg = t_build(TS.TrackerConfig(**kw), "cpu")
     pipe = types.SimpleNamespace(step=step, tcfg=TS.TrackerConfig(**kw))
     kept = chip_smoke.recording_dhn(pipe)
     slab, dets, slabs, results = TS.init_slab(cfg, "cpu"), [], [], []
@@ -416,7 +416,7 @@ def test_chip_smoke_dhn_replay_holds_the_dhn_on_the_kept_costs():
     moved = scores.clone()
     moved[0, 0] += 2 * chip_smoke.DHN_SCORE_TOL
     with pytest.raises(AssertionError, match="max .score difference"):
-        chip_smoke.dhn_scores_check(t_build(pipe.tcfg)[0].keywords["dhn"],
+        chip_smoke.dhn_scores_check(t_build(pipe.tcfg, "cpu")[0].keywords["dhn"],
                                     comp, moved)
 
 
@@ -430,7 +430,7 @@ def test_chip_smoke_path_solves_keeps_the_newest_problems():
     solvers = (assignment.masked_assignment_square,
                assignment.masked_assignment_auction)
     kw = {**BASE, "tracker": "strongsort", "feature_dim": 24}
-    step, cfg = t_build(TS.TrackerConfig(**kw))
+    step, cfg = t_build(TS.TrackerConfig(**kw), "cpu")
     slab = TS.init_slab(cfg, "cpu")
     with chip_smoke.path_solves(2) as kept:
         for tlbr, score, valid, feature, _ in feature_stream(5, n_frames=4):

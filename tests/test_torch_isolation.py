@@ -48,7 +48,9 @@ def test_port_imports_no_jax():
                     "train.metrics", "parallel", "parallel.train_step",
                     "utils.checkpoint", "utils.logging",
                     "utils.artifacts", "utils.timer", "cli.train",
-                    "cli.test"):
+                    "cli.test", "models.ibin", "train.rank_losses",
+                    "train.dhn_train", "train.autoanchor",
+                    "train.evolve"):
             assert "yolov7_tracker_tpu_torch." + new in names, new
         print("BAD", bad)
     """)
@@ -86,6 +88,51 @@ def test_entry_points_need_a_device():
     """)
     assert proc.returncode == 0, proc.stderr
     assert "OK" in proc.stdout
+
+
+def test_loaders_need_a_device(tmp_path):
+    """The loaders and converters that put weights or state on a device
+    default to the card as the entry points do: without a GPU and without
+    a device they raise, before reading anything."""
+    proc = _run("""
+        import numpy as np, pytest
+        from yolov7_tracker_tpu_torch.models.from_jax import slab_from_numpy
+        from yolov7_tracker_tpu_torch.models.zoo import get_spec
+        from yolov7_tracker_tpu_torch.parallel.train_step import (
+            train_state_from_jax)
+        from yolov7_tracker_tpu_torch.reid.aflink import load_postlinker
+        from yolov7_tracker_tpu_torch.reid.dhn import load_dhn
+        from yolov7_tracker_tpu_torch.train import dhn_train
+        from yolov7_tracker_tpu_torch.trackers.registry import build_tracker
+        from yolov7_tracker_tpu_torch.trackers.slab import TrackerConfig
+        calls = [
+            lambda: load_dhn("weights/dhn_h32.msgpack", "gru", 32),
+            lambda: load_postlinker("no_such_file.msgpack"),
+            lambda: build_tracker(TrackerConfig("sort")),
+            lambda: slab_from_numpy([np.zeros(1)] * 3),
+            lambda: train_state_from_jax(None, get_spec("yolov7-tiny")),
+            lambda: dhn_train.build_trainer("sinkhorn"),
+            lambda: dhn_train.main(["--steps", "1", "--arch", "sinkhorn",
+                                    "--out", "unused.msgpack"]),
+        ]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+        print("OK")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert "OK" in proc.stdout
+
+
+def test_chip_smoke_train2_only_fails_without_a_card():
+    """The phase-11 run of chip_smoke.py (the rest of training) needs the
+    card as the full run does."""
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--train2-only"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and '"ok"' not in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -123,7 +123,7 @@ def _populated(n_frames=9):
     frame's detections."""
     step, cfg = build_tracker(TS.TrackerConfig(
         tracker="bytetrack", conf_thresh=0.5, capacity=16, det_capacity=24,
-        track_buffer=3))
+        track_buffer=3), "cpu")
     slabs, dets = [], []
     for seed in range(N_STREAMS):
         slab = TS.init_slab(cfg, "cpu")
@@ -202,7 +202,7 @@ def test_stacked_step_equals_loop_over_streams():
     """The whole ByteTrack step, both stage-1 solvers, 6 frames."""
     step, cfg = build_tracker(TS.TrackerConfig(
         tracker="bytetrack", conf_thresh=0.5, capacity=16, det_capacity=24,
-        track_buffer=3))
+        track_buffer=3), "cpu")
     streams = [_stream(seed, n_frames=6, n_obj=7 + seed)
                for seed in range(N_STREAMS)]
     for kw in ({}, {"solve_stage1": masked_assignment}):
@@ -268,7 +268,7 @@ def test_process_multistream_matches_jax(jpipe, port):
         removed += int((before & ~t_slabs.occupied).sum())
     assert int(t_slabs.next_id.min()) >= 3 and removed >= 1
     # each package goes on from the other's state (models/from_jax.py)
-    from_j = slab_from_numpy(jax.tree.map(np.asarray, j_slabs))
+    from_j = slab_from_numpy(jax.tree.map(np.asarray, j_slabs), "cpu")
     from_t = JS.TrackSlab(*(jnp.asarray(x) for x in slab_to_numpy(t_slabs)))
     j_next, j_out = jpipe.process_multistream(from_t, frames[0])
     t_next, t_out = port.process_multistream(from_j, frames[0])

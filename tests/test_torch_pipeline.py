@@ -210,7 +210,7 @@ def test_detections_cut_keeps_the_jax_rows_on_tied_scores():
     jpipe = JPipeline.__new__(JPipeline)
     jpipe.step, jpipe.tcfg = jbuild(JS.TrackerConfig(**kw))
     port = TrackingPipeline.__new__(TrackingPipeline)
-    port.step, port.tcfg = tbuild(TrackerConfig(**kw))
+    port.step, port.tcfg = tbuild(TrackerConfig(**kw), "cpu")
     port.device = torch.device("cpu")
     want = jpipe.run_sequence_detections(dets, 5)
     got = port.run_sequence_detections(dets, 5)

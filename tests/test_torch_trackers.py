@@ -88,7 +88,7 @@ def run_both(cfg_kw, frames, check_features=True, solve_stage1=None):
     the step's own). Returns (rows emitted, the port's last slab)."""
     cfg = JS.TrackerConfig(**cfg_kw)
     j_step, j_cfg = j_build(cfg)
-    t_step, t_cfg = t_build(TS.TrackerConfig(**cfg_kw))
+    t_step, t_cfg = t_build(TS.TrackerConfig(**cfg_kw), "cpu")
     assert vars(t_cfg) == vars(j_cfg)
     j_slab, t_slab = JS.init_slab(j_cfg), TS.init_slab(t_cfg, "cpu")
     n_rows = 0
@@ -169,10 +169,10 @@ def test_resolved_configs_match_jax():
         for extra in ({}, {"feature_dim": 512}, {"kalman_format": "naive"}):
             kw = dict(tracker=tracker, **extra)
             _, j_cfg = j_build(JS.TrackerConfig(**kw))
-            _, t_cfg = t_build(TS.TrackerConfig(**kw))
+            _, t_cfg = t_build(TS.TrackerConfig(**kw), "cpu")
             assert vars(t_cfg) == vars(j_cfg), kw
     with pytest.raises(KeyError, match="unknown tracker"):
-        t_build(TS.TrackerConfig(tracker="nope"))
+        t_build(TS.TrackerConfig(tracker="nope"), "cpu")
 
 
 def _random_slab(rng, t=12, f=6, h=3):
@@ -209,7 +209,7 @@ def test_list_order_helpers_match_jax(seed):
     rng = np.random.default_rng(seed)
     j_np = _random_slab(rng)
     j_slab = JS.TrackSlab(*(jnp.asarray(x) for x in j_np))
-    t_slab = slab_from_numpy(j_np)
+    t_slab = slab_from_numpy(j_np, "cpu")
     j_slab = JS.rebase_seq_keys(j_slab)
     t_slab = TS.rebase_seq_keys(t_slab)
     np.testing.assert_array_equal(t_slab.ins_seq.numpy(), j_slab.ins_seq)
@@ -236,7 +236,7 @@ def test_list_order_helpers_match_jax(seed):
 def test_appearance_functions_match_jax(seed):
     rng = np.random.default_rng(seed)
     j_np = _random_slab(rng)
-    t_slab = slab_from_numpy(j_np)
+    t_slab = slab_from_numpy(j_np, "cpu")
     j_slab = JS.TrackSlab(*(jnp.asarray(x) for x in j_np))
     tf = rng.standard_normal((12, 6)).astype(np.float32)
     df = rng.standard_normal((9, 6)).astype(np.float32)
@@ -313,7 +313,7 @@ def test_track_scan_multi_matches_jax(tracker):
     feature = feature[..., :fd]
     shape = (n_ticks, s, 24)
 
-    t_step, t_cfg = t_build(TS.TrackerConfig(**kw))
+    t_step, t_cfg = t_build(TS.TrackerConfig(**kw), "cpu")
     slabs = TS.TrackSlab(*(x[None].repeat((s,) + (1,) * x.dim())
                            for x in TS.init_slab(t_cfg, "cpu")))
     t_outs = []

@@ -57,7 +57,7 @@ def reference():
 def _run(t_spec, fresh, batches, start, **kw):
     cfg = tts.OptConfig(**OPT)
     state = tts.train_state_from_jax(fresh._replace(step=np.int32(start)),
-                                     t_spec, cfg)
+                                     t_spec, cfg, "cpu")
     step = tts.make_train_step(t_spec, img_size=IMG, hyp=tloss.Hyp(**HYP),
                                opt_cfg=cfg, **kw)
     out = []
@@ -72,12 +72,13 @@ def _run(t_spec, fresh, batches, start, **kw):
 
 def _want(t_spec, jax_state):
     return tts.train_state_from_jax(jax_state, t_spec,
-                                    tts.OptConfig(**OPT)).state_dict()
+                                    tts.OptConfig(**OPT), "cpu").state_dict()
 
 
 def test_converted_state_round_trip(reference):
     t_spec, fresh, _, _ = reference
-    state = tts.train_state_from_jax(fresh, t_spec, tts.OptConfig(**OPT))
+    state = tts.train_state_from_jax(fresh, t_spec, tts.OptConfig(**OPT),
+                                     "cpu")
     sd = state.state_dict()
     assert sd["step"] == 0 and sd["ema_count"] == 0
     assert all(float(v.abs().max()) == 0 for v in sd["momentum"].values())
@@ -185,7 +186,7 @@ def test_sgd_groups_and_update_match_jax(reference):
     want_params = jax.tree.map(lambda p, u: np.asarray(p + u),
                                fresh.params, upd)
     state = tts.train_state_from_jax(
-        fresh._replace(opt_state=bufs), t_spec, tc)
+        fresh._replace(opt_state=bufs), t_spec, tc, "cpu")
     named = dict(state.model.named_parameters())
     from yolov7_tracker_tpu_torch.models.from_jax import jax_params_to_torch
     for name, g in jax_params_to_torch(grads).items():

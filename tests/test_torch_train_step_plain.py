@@ -43,7 +43,7 @@ def test_steps_without_accumulation_match_jax(reference, run):
     cfg = tts.OptConfig(**OPT)
     assert not tts.accumulating(cfg)
     state = tts.train_state_from_jax(fresh._replace(step=np.int32(start)),
-                                     t_spec, cfg)
+                                     t_spec, cfg, "cpu")
     assert state.grad_acc() is None
     step = tts.make_train_step(t_spec, img_size=IMG, hyp=tloss.Hyp(),
                                opt_cfg=cfg)
@@ -52,7 +52,8 @@ def test_steps_without_accumulation_match_jax(reference, run):
         for k, v in jmetrics.items():
             np.testing.assert_allclose(float(metrics[k]), v, rtol=LOSS_RTOL,
                                        err_msg=f"step {i} {k}")
-        want = tts.train_state_from_jax(jstate, t_spec, cfg).state_dict()
+        want = tts.train_state_from_jax(jstate, t_spec, cfg,
+                                        "cpu").state_dict()
         state_within(state.state_dict(), want, TOL)
         assert state.ema_count == i + 1
         assert all(p.grad is None for p in state.model.parameters())

@@ -17,8 +17,8 @@ covers the kinds the port builds:
   deploy form (rbr_reparam), which is folded back into the dense branch
   with an identity BN, a zero 1x1 branch and, where the module has an
   identity branch, a zero identity BN;
-- the Detect / IDetect / IAuxDetect heads (m, m2, ia, im) and DetectV8
-  (cv2 / cv3 towers).
+- the Detect / IDetect / IAuxDetect / IBin heads (m, m2, ia, im) and
+  DetectV8 (cv2 / cv3 towers).
 
 ``state_dict_from_reference_ckpt`` unpickles a full reference checkpoint
 (``{'model' | 'ema': nn.Module}``, what the reference's train.py writes),
@@ -37,7 +37,7 @@ from .from_jax import check_state_dict
 from .spec import CSP_KINDS, ModelSpec
 
 BN_EPS = 1e-5
-_HEADS = ("Detect", "IDetect", "IAuxDetect")
+_HEADS = ("Detect", "IDetect", "IAuxDetect", "IBin")
 
 
 def _strip(key: str) -> str:

@@ -95,9 +95,13 @@ def check_state_dict(sd: Mapping[str, torch.Tensor], spec: ModelSpec
                              f"{tuple(v.shape)}")
 
 
-def slab_from_numpy(slab_np, device="cpu") -> TrackSlab:
+def slab_from_numpy(slab_np, device=None) -> TrackSlab:
     """A TrackSlab (or any tuple in its field order) of numpy leaves, e.g.
-    the JAX package's slab fetched to the host, as the port's TrackSlab."""
+    the JAX package's slab fetched to the host, as the port's TrackSlab on
+    ``device`` (None: the card; raises without one)."""
+    from .. import resolve_device
+
+    device = resolve_device(device)
     leaves = tuple(slab_np)
     if len(leaves) != len(TrackSlab._fields):
         raise ValueError(f"expected {len(TrackSlab._fields)} slab fields, "
@@ -240,6 +244,60 @@ def dhn_state_dict(variables_np: Mapping, arch: str
                 _gru_cell(sd, params[gru][f"l{layer}_{way}"], gru,
                           f"_l{layer}{tail}")
     return sd
+
+
+def _dense(sd, name) -> dict:
+    return {"bias": sd[f"{name}.bias"].detach().cpu().numpy().astype(
+                np.float32),
+            "kernel": sd[f"{name}.weight"].detach().cpu().numpy().astype(
+                np.float32).T.copy()}
+
+
+def _flax_gru_cell(sd, gru, suffix) -> dict:
+    """One layer and direction of nn.GRU -> one Flax GRUCell (the inverse
+    of ``_gru_cell``). Raises if the r / z hidden biases are not zero:
+    Flax's GRUCell has none."""
+    f32 = lambda t: t.detach().cpu().numpy().astype(np.float32)  # noqa: E731
+    w_ih = f32(sd[f"{gru}.weight_ih{suffix}"]).T        # (in, 3H), r z n
+    w_hh = f32(sd[f"{gru}.weight_hh{suffix}"]).T
+    b_ih = f32(sd[f"{gru}.bias_ih{suffix}"])
+    b_hh = f32(sd[f"{gru}.bias_hh{suffix}"])
+    h = b_hh.shape[0] // 3
+    if b_hh[:2 * h].any():
+        raise ValueError(f"{gru}.bias_hh{suffix}: the r / z hidden biases "
+                         "are not zero, which a Flax GRUCell cannot hold")
+    cell = {}
+    for j, g in enumerate("rzn"):
+        cell[f"i{g}"] = {"bias": b_ih[j * h:(j + 1) * h].copy(),
+                         "kernel": w_ih[:, j * h:(j + 1) * h].copy()}
+        cell[f"h{g}"] = {"kernel": w_hh[:, j * h:(j + 1) * h].copy()}
+    cell["hn"]["bias"] = b_hh[2 * h:].copy()
+    return {k: dict(sorted(cell[k].items())) for k in sorted(cell)}
+
+
+def dhn_variables(state_dict: Mapping, arch: str) -> dict:
+    """The port's DHN state_dict -> the JAX DHN's variables {"params": ...}
+    with numpy leaves (the inverse of ``dhn_state_dict``), in the key order
+    of the JAX module's init; ``utils/flax_msgpack.save_variables`` writes
+    them as the JAX package's ``checkpoint.save_variables`` does."""
+    if arch == "sinkhorn":
+        params = {"log_tau": state_dict["log_tau"].detach().cpu().numpy()
+                  .astype(np.float32)}
+        for name in ("cell_1", "cell_2", "cell_out"):
+            params[name] = _dense(state_dict, name)
+        return {"params": params}
+    if arch != "gru":
+        raise ValueError(f"unknown dhn arch {arch!r}; have gru|sinkhorn")
+    params = {}
+    for gru in ("lstm_row", "lstm_col"):
+        params[gru] = {
+            f"l{layer}_{way}": _flax_gru_cell(state_dict, gru,
+                                              f"_l{layer}{tail}")
+            for layer in (0, 1)
+            for way, tail in (("fwd", ""), ("bwd", "_reverse"))}
+    for name in ("hidden2tag_1", "hidden2tag_2", "hidden2tag_3"):
+        params[name] = _dense(state_dict, name)
+    return {"params": params}
 
 
 def _postlinker_flax_path(prefix: str) -> tuple:

@@ -8,7 +8,8 @@ of its dense branch, its 1x1 branch padded to 3x3 and, where it has one,
 its identity branch as a 3x3 identity kernel through its BN (the
 reference's fuse_repvgg_block); and IDetect's ImplicitA/ImplicitM fold
 into the lead head convs (``im * conv(x + ia)`` == a 1x1 conv with kernel
-k*im and bias (b + k.ia)*im).
+k*im and bias (b + k.ia)*im), IAuxDetect's and IBin's alike: the fold is
+keyed by the ``head_ia_{i}`` names.
 """
 
 from __future__ import annotations

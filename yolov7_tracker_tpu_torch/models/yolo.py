@@ -2,10 +2,12 @@
 yolov7_tracker_tpu/models/yolo.py, inference path).
 
 The forward pass replays the spec's layer DAG like the JAX module. The
-anchor heads (Detect, IDetect, IAuxDetect) return the RAW lead head
+anchor heads (Detect, IDetect, IAuxDetect, IBin) return the RAW lead head
 levels, each (B, ny, nx, na, no) pre-sigmoid, which is what the
-pipeline's score-first NMS consumes; the anchor-free DetectV8 head returns
-its decoded (B, N, 5 + nc) predictions, which go through the plain NMS.
+pipeline's score-first NMS consumes (IBin's, whose w and h are SigmoidBin
+logits, through ``decode_levels`` and the plain NMS); the anchor-free
+DetectV8 head returns its decoded (B, N, 5 + nc) predictions, which go
+through the plain NMS.
 Input is the JAX layout (B, H, W, 3) in [0, 1]; inside, tensors are NCHW.
 Layers that feed only IAuxDetect's auxiliary heads are skipped: at
 inference the JAX module computes them and then drops their outputs
@@ -30,10 +32,11 @@ from torch import nn
 
 from . import blocks
 from . import spec as spec_mod
+from .ibin import sigmoid_bin_decode
 from .spec import ModelSpec
 
-HEAD_KINDS = ("Detect", "IDetect", "IAuxDetect", "DetectV8")
-_IMPLICIT_HEADS = ("IDetect", "IAuxDetect")
+HEAD_KINDS = ("Detect", "IDetect", "IAuxDetect", "IBin", "DetectV8")
+_IMPLICIT_HEADS = ("IDetect", "IAuxDetect", "IBin")
 _PLAIN_KINDS = ("MP", "SP", "ReOrg", "Upsample", "Concat", "Shortcut")
 # the biased output convs of the heads: what the bias prior and the head
 # sharpening write, and what random_state_dict's gain leaves alone
@@ -258,7 +261,11 @@ def decode_levels(raw: List[torch.Tensor], spec: ModelSpec) -> torch.Tensor:
     """The anchor heads' inference decode (JAX yolo.py:407-431): raw lead
     levels (B, ny, nx, na, no) -> (B, N, no) [xywh pixels, obj, class
     scores] in float32 (float64 stays float64), levels and then (y, x,
-    anchor) in order."""
+    anchor) in order. IBin (JAX yolo.py:412-425) gives (B, N, nc + 5):
+    w and h are the SigmoidBin decode times the anchor; its sigmoid and
+    residuals run in the levels' dtype, as the JAX module decodes in the
+    model's, and the sums with the float32 grid, bins and anchors
+    promote."""
     anchors = torch.as_tensor(spec.anchors_per_level(), dtype=torch.float32,
                               device=raw[0].device)
     out = []
@@ -269,6 +276,11 @@ def decode_levels(raw: List[torch.Tensor], spec: ModelSpec) -> torch.Tensor:
             torch.arange(nx, dtype=torch.float32, device=p.device),
             indexing="ij")
         grid = torch.stack([gx, gy], dim=-1)[:, :, None, :]
+        if spec.head_kind == "IBin":
+            out.append(_decode_ibin(p, grid, anchors[i],
+                                    float(spec.strides[i])).reshape(
+                b, ny * nx * na, spec.nc + 5))
+            continue
         y = torch.sigmoid(p.to(torch.promote_types(p.dtype,
                                                    torch.float32)))
         xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * float(spec.strides[i])
@@ -278,12 +290,27 @@ def decode_levels(raw: List[torch.Tensor], spec: ModelSpec) -> torch.Tensor:
     return torch.cat(out, dim=1)
 
 
+def _decode_ibin(p, grid, anchors, stride: float):
+    """One IBin level (B, ny, nx, na, nc + 47) -> (B, ny, nx, na, nc + 5)
+    [xy, w, h, obj, cls]."""
+    n_bin = spec_mod.BIN_COUNT + 1
+    y = torch.sigmoid(p)
+    xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
+    pw = sigmoid_bin_decode(y[..., 2:2 + n_bin]) * anchors[..., 0]
+    ph = sigmoid_bin_decode(y[..., 2 + n_bin:2 + 2 * n_bin]) * anchors[..., 1]
+    return torch.cat([xy, pw[..., None], ph[..., None],
+                      y[..., 2 + 2 * n_bin:].to(xy.dtype)], dim=-1)
+
+
 def init_head_biases(state_dict, spec: ModelSpec) -> None:
     """Detection-head bias prior (models/yolo.py:353-368): obj
     log(8 / (640/stride)^2), cls log(0.6 / (nc - 0.99)); DetectV8 (JAX
-    yolo.py:515-529): box logits 1, cls log(5 / nc / (640/stride)^2).
+    yolo.py:515-529): box logits 1, cls log(5 / nc / (640/stride)^2);
+    IBin none, as in JAX (the bin layout has no plain obj / cls slots).
     In place."""
     nl, na, nc = spec.nl, spec.na, spec.nc
+    if spec.head_kind == "IBin":
+        return
     if spec.head_kind == "DetectV8":
         for i, s in enumerate(spec.strides):
             state_dict[f"head_cv2_{i}_2.bias"].fill_(1.0)
@@ -331,7 +358,9 @@ def sharpen_heads(state_dict, spec: ModelSpec, seed: int = 1,
     (bench.py:46-72): scale the head kernels, raise the objectness and
     class logits, jitter the class logits per anchor. DetectV8 has no
     objectness: its box and class kernels are scaled and its class logits
-    raised by ``obj_boost`` and jittered. In place, unfused layout."""
+    raised by ``obj_boost`` and jittered. IBin's objectness and class
+    logits sit after its two bin heads (``obj_index``). In place, unfused
+    layout."""
     g = torch.Generator().manual_seed(seed)
     if spec.head_kind == "DetectV8":
         for i in range(spec.nl):
@@ -344,6 +373,13 @@ def sharpen_heads(state_dict, spec: ModelSpec, seed: int = 1,
         name = f"head_m{'2' if i >= spec.nl else ''}_{i % spec.nl}"
         state_dict[f"{name}.weight"].mul_(sharpen)
         b = state_dict[f"{name}.bias"].view(spec.na, spec.no)
-        b[:, 4] += obj_boost
-        b[:, 5:] += obj_boost + jitter * (
-            2.0 * torch.rand((spec.na, spec.no - 5), generator=g) - 1.0)
+        obj = obj_index(spec)
+        b[:, obj] += obj_boost
+        b[:, obj + 1:] += obj_boost + jitter * (
+            2.0 * torch.rand((spec.na, spec.nc), generator=g) - 1.0)
+
+
+def obj_index(spec: ModelSpec) -> int:
+    """The objectness channel of an anchor head's raw level; the class
+    logits follow it. 4, or 2 + 2 * (BIN_COUNT + 1) = 46 for IBin."""
+    return spec.no - spec.nc - 1

@@ -220,6 +220,13 @@ def make_train_state(spec: ModelSpec, opt_cfg: OptConfig = OptConfig(),
         raise NotImplementedError(
             "DetectV8 has no training loss in the JAX package (its "
             "train_step sends every non-aux head to the anchor loss)")
+    if spec.head_kind == "IBin":
+        raise NotImplementedError(
+            "IBin trains only through train.loss.compute_loss_bin_ota: the "
+            "JAX package's train_step sends every non-aux head to the "
+            "anchor loss, which reads IBin's bin logits as objectness and "
+            "class (it raises for nc > 1 and trains the wrong channels at "
+            "nc = 1)")
     model = YoloV7(spec, fused=False)
     model.load_state_dict(state_dict if state_dict is not None
                           else random_state_dict(spec, seed=seed))
@@ -236,11 +243,15 @@ def make_train_state(spec: ModelSpec, opt_cfg: OptConfig = OptConfig(),
 
 def train_state_from_jax(state_np, spec: ModelSpec,
                          opt_cfg: OptConfig = OptConfig(),
-                         device="cpu") -> TrainState:
+                         device=None) -> TrainState:
     """The JAX TrainState with numpy leaves (``jax.tree.map(np.asarray,
     state)``) as the port's: parameters and BN statistics through
     models/from_jax, and the EMA, momentum buffers and gradient sum
-    through the same renaming."""
+    through the same renaming, on ``device`` (None: the card; raises
+    without one)."""
+    from .. import resolve_device
+
+    device = resolve_device(device)
     sd = jax_variables_to_torch({"params": state_np.params,
                                  "batch_stats": state_np.batch_stats}, spec)
     state = make_train_state(spec, opt_cfg, device=device, state_dict=sd)

@@ -2,8 +2,8 @@
 yolov7_tracker_tpu/pipeline.py).
 
   uint8 frames --> device_preprocess --> YoloV7 --> nms_from_raw (the
-      anchor heads) or nms (DetectV8's decoded boxes) --> scale_coords
-      --> DetSlab (+ ReID features: device crops and the DeepSORT CNN or
+      anchor heads) or nms (IBin's and DetectV8's decoded boxes)
+      --> scale_coords --> DetSlab (+ ReID features: device crops and the DeepSORT CNN or
       OSNet; + the GMC warp: ECC on the device or ORB on the host)
       --> tracker slab step --> FrameOutput
 
@@ -49,7 +49,7 @@ from . import resolve_device
 from .data import letterbox
 from .models import zoo
 from .models.fuse import fuse_state_dict
-from .models.yolo import YoloV7, random_state_dict
+from .models.yolo import YoloV7, decode_levels, random_state_dict
 from .ops import nms as nms_mod
 from .ops.assignment import masked_assignment
 from .reid import (build_reid, float32_exact, load_reid_state_dict,
@@ -193,11 +193,15 @@ class TrackingPipeline:
 
     def nms(self, out):
         """The detector's output -> (dets (B, max_det, 6), counts (B,)),
-        by head kind as in the JAX pipeline: the anchor heads' raw levels
-        through the score-first ``nms_from_raw``, DetectV8's decoded
-        predictions (float32) through ``nms``."""
+        by head kind as in the JAX pipeline: the raw levels of Detect,
+        IDetect and IAuxDetect through the score-first ``nms_from_raw``;
+        IBin's levels decoded (``decode_levels``: bin-decoded w, h) and
+        DetectV8's decoded predictions, both cast to float32, through
+        ``nms``."""
         p = self.pcfg
-        if self.spec.head_kind == "DetectV8":
+        if self.spec.head_kind in ("IBin", "DetectV8"):
+            if self.spec.head_kind == "IBin":
+                out = decode_levels(out, self.spec)
             return nms_mod.nms(out.float(), p.conf_thres, p.iou_thres,
                                max_det=p.max_det, top_k=p.nms_top_k)
         return nms_mod.nms_from_raw(

@@ -74,12 +74,15 @@ class PostLinker(nn.Module):
         return torch.softmax(z, dim=1)
 
 
-def load_postlinker(path: str, device="cpu") -> PostLinker:
+def load_postlinker(path: str, device=None) -> PostLinker:
     """A PostLinker from a Flax msgpack file of the JAX package's
-    variables (params and batch_stats), on ``device``, in eval mode."""
+    variables (params and batch_stats), on ``device`` (None: the card;
+    raises without one), in eval mode."""
+    from .. import resolve_device
     from ..models.from_jax import postlinker_state_dict
     from ..utils.flax_msgpack import load_variables
 
+    device = resolve_device(device)
     model = PostLinker()
     model.load_state_dict(postlinker_state_dict(load_variables(path), model))
     return model.to(device).eval()

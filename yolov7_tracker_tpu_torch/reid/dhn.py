@@ -148,14 +148,17 @@ def uncompact(mat: torch.Tensor, rperm, cperm) -> torch.Tensor:
 
 
 def load_dhn(path: str, arch: str, hidden: int = HIDDEN,
-             device="cpu") -> nn.Module:
+             device=None) -> nn.Module:
     """A trained DHN from a Flax msgpack file (the JAX package's
-    ``save_variables`` / train/dhn_train.py output) on ``device``, in eval
-    mode. Raises if the file is missing or its variables do not fit
-    ``build_dhn(arch, hidden)``."""
+    ``save_variables`` / train/dhn_train.py output, or the port's) on
+    ``device`` (None: the card; raises without one), in eval mode. Raises
+    if the file is missing or its variables do not fit ``build_dhn(arch,
+    hidden)``."""
+    from .. import resolve_device
     from ..models.from_jax import dhn_state_dict
     from ..utils.flax_msgpack import load_variables
 
+    device = resolve_device(device)
     model = build_dhn(arch, hidden)
     model.load_state_dict(dhn_state_dict(load_variables(path), arch))
     model = model.to(device).eval()

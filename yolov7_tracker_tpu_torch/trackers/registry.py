@@ -48,14 +48,18 @@ def resolve_config(cfg: S.TrackerConfig) -> S.TrackerConfig:
     return cfg
 
 
-def build_tracker(cfg: S.TrackerConfig, device="cpu"
+def build_tracker(cfg: S.TrackerConfig, device=None
                   ) -> Tuple[Callable, S.TrackerConfig]:
     """Return (step fn ``(slab, det_slab) -> (slab, FrameOutput)``, the
     resolved config). Every step also takes ``solve_stage1``: the solver
     of its first association stage (deepsort: of every cascade level).
     deepmot with ``cfg.dhn_weights`` loads its DHN here, once, onto
-    ``device`` (the pipeline passes its own); without them it matches on
-    the raw cost, as the JAX package does."""
+    ``device`` (the pipeline passes its own; None: the card, and without
+    one this raises); without them it matches on the raw cost, as the JAX
+    package does."""
+    from .. import resolve_device
+
+    device = resolve_device(device)
     cfg = resolve_config(cfg)
     kw = {}
     if cfg.tracker == "deepmot" and cfg.dhn_weights:

@@ -1,6 +1,6 @@
 """SimOTA detection loss in batched masked form (port of
 yolov7_tracker_tpu/train/loss.py; reference utils/loss.py ComputeLoss,
-ComputeLossOTA and ComputeLossAuxOTA).
+ComputeLossOTA, ComputeLossAuxOTA and ComputeLossBinOTA).
 
 As in the JAX module, the candidate set is a static (T, nl, na, 5-offsets)
 grid per image with a validity mask, so nothing has a data-dependent
@@ -23,7 +23,10 @@ ranks come from stable argsorts and ties go to the lower index, as in
 JAX. Two matches on one objectness cell keep the larger IoU (the JAX
 module's max-scatter, ``scatter_reduce(..., "amax")`` here).
 
-Not ported: ``compute_loss_bin_ota``, which needs the IBin head.
+``compute_loss_bin_ota`` is the IBin head's loss: SimOTA on bin-decoded
+candidate boxes, the SigmoidBin w / h losses, CIoU on the target-bin
+decode and objectness / class at the shifted channels. As in JAX it is a
+library function: the train step does not route to it.
 """
 
 from __future__ import annotations
@@ -34,7 +37,9 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models.spec import ModelSpec
+from ..models.ibin import (BIN_MAX, BIN_MIN, _REG_SCALE, _STEP, bin_centers,
+                           sigmoid_bin_decode)
+from ..models.spec import BIN_COUNT, ModelSpec
 from ..ops.boxes import bbox_iou, iou_matrix_xyxy, xywh_to_xyxy
 
 
@@ -166,7 +171,8 @@ def _candidate_grid(layer_meta, strides, anchors_px, txywh, tmask, hyp,
 @torch.no_grad()
 def simota_costs(preds_flat, layer_meta, strides: Sequence[int],
                  anchors_px, targets, tmask, img_size: int, nc: int,
-                 hyp: Hyp, topk: int = 10, g: float = 0.5):
+                 hyp: Hyp, topk: int = 10, g: float = 0.5,
+                 bin_wh: bool = False):
     """The inputs of SimOTA's selection: the (B, T, C) cost (1e9 where a
     candidate is invalid), the (B, T) sum of the top-k IoUs whose integer
     part is dynamic-k, and the (B, T, nl, na, 5) candidate cells gi, gj.
@@ -197,7 +203,16 @@ def simota_costs(preds_flat, layer_meta, strides: Sequence[int],
                                 dim=-1)
     pxy = ((torch.sigmoid(fg[..., :2]) * 2.0 - 0.5 + grid_per_slot)
            * stride_per_slot[:, None])
-    pwh = (torch.sigmoid(fg[..., 2:4]) * 2.0) ** 2 * anch_per_slot
+    if bin_wh:
+        n_bin = BIN_COUNT + 1
+        pw, ph = (torch.clamp(sigmoid_bin_decode(torch.sigmoid(
+            fg[..., 2 + k * n_bin:2 + (k + 1) * n_bin])), BIN_MIN, BIN_MAX)
+            for k in (0, 1))
+        pwh = torch.stack([pw, ph], dim=-1) * anch_per_slot
+        obj_idx = 2 + 2 * n_bin
+    else:
+        pwh = (torch.sigmoid(fg[..., 2:4]) * 2.0) ** 2 * anch_per_slot
+        obj_idx = 4
     pxyxy = xywh_to_xyxy(torch.cat([pxy, pwh], dim=-1))
 
     txyxy = xywh_to_xyxy(txywh)                       # (B, T, 4)
@@ -207,8 +222,8 @@ def simota_costs(preds_flat, layer_meta, strides: Sequence[int],
 
     top_sum = torch.topk(pair_iou, min(topk, c), dim=-1).values.sum(-1)
 
-    obj_sig = torch.sigmoid(fg[..., 4])
-    cls_sig = torch.sigmoid(fg[..., 5:])
+    obj_sig = torch.sigmoid(fg[..., obj_idx])
+    cls_sig = torch.sigmoid(fg[..., obj_idx + 1:])
     y = torch.sqrt(torch.clamp(cls_sig * obj_sig[..., None],
                                1e-8, 1 - 1e-8))[:, None]   # (B, 1, C, nc)
     # one (B, T, C, nc) temporary, as in JAX: onehot * log(y) + (1 -
@@ -223,17 +238,21 @@ def simota_costs(preds_flat, layer_meta, strides: Sequence[int],
 @torch.no_grad()
 def simota_assign(preds_flat, layer_meta, strides: Sequence[int],
                   anchors_px, targets, tmask, img_size: int, nc: int,
-                  hyp: Hyp, topk: int = 10, g: float = 0.5):
+                  hyp: Hyp, topk: int = 10, g: float = 0.5,
+                  bin_wh: bool = False):
     """SimOTA over a batch (JAX ``simota_assign`` vmapped over images).
 
     preds_flat (B, C_total, no) all levels' flattened raw preds,
     layer_meta [(ny, nx, base)], anchors_px (nl, na, 2) float32 pixels,
     targets (B, T, 5) [cls, x, y, w, h] normalised, tmask (B, T) bool.
+    bin_wh: the IBin layout (ComputeLossBinOTA build_targets,
+    utils/loss.py:1017-1024): candidate w / h SigmoidBin-decoded and
+    clipped to [BIN_MIN, BIN_MAX], objectness and class after the bins.
     Returns (B, T, nl, na, 5) arrays: ``matched`` (bool), ``matched_gt``
     (the target index), ``gi`` and ``gj`` (the candidate's cell)."""
     cost, top_sum, gi, gj = simota_costs(
         preds_flat, layer_meta, strides, anchors_px, targets, tmask,
-        img_size, nc, hyp, topk, g)
+        img_size, nc, hyp, topk, g, bin_wh)
     t_cap = targets.shape[1]
     dev = cost.device
     dynamic_k = torch.clamp_min(top_sum.to(torch.int32), 1)
@@ -267,11 +286,32 @@ def _flatten_preds(preds: List[torch.Tensor]):
     return torch.cat(flat, dim=1), metas
 
 
+def _bin_training(logits, target, m, n_m):
+    """SigmoidBin.training_loss (utils/loss.py:90-118) of one value (w or
+    h): the BCE of the BIN_COUNT bin logits against the bin nearest the
+    target (argmin: the first on ties), summed over the matches, and the
+    decode biased to that bin (the sigmoided residual plus its centre,
+    clipped to [BIN_MIN, BIN_MAX])."""
+    bins = bin_centers(logits.device)
+    reg = (torch.sigmoid(logits[..., 0]) * _REG_SCALE
+           - _REG_SCALE / 2.0) * _STEP
+    idx = torch.argmin(torch.abs(target[..., None] - bins), dim=-1)
+    bce = _bce(logits[..., 1:], _one_hot(idx, BIN_COUNT).to(logits.dtype))
+    loss_sum = torch.where(m[..., None], bce, 0.0).sum()
+    decoded = torch.clamp(reg + bins[idx], BIN_MIN, BIN_MAX)
+    return loss_sum / (n_m * BIN_COUNT), decoded
+
+
 def _layer_loss_terms(p, li, assign, targets, spec, img_size, hyp, cp, cn,
-                      gr: float = 1.0):
+                      gr: float = 1.0, bin_wh: bool = False):
     """One level's (box, objectness BCE mean, cls) terms. gr blends the
-    objectness target: (1 - gr) + gr * iou (model.gr, loss.py:476)."""
+    objectness target: (1 - gr) + gr * iou (model.gr, loss.py:476).
+    bin_wh: the IBin head's terms (JAX ``_layer_loss_terms_bin``,
+    ComputeLossBinOTA __call__, utils/loss.py:882-950): the box term adds
+    the SigmoidBin w and h losses, its CIoU takes the target-bin decode,
+    and objectness and class sit after the bins."""
     na, nc, no = spec.na, spec.nc, spec.no
+    obj = 2 + 2 * (BIN_COUNT + 1) if bin_wh else 4
     b, ny, nx, _, _ = p.shape
     dev = p.device
     m = assign["matched"][:, :, li]                   # (B, T, na, 5)
@@ -296,13 +336,23 @@ def _layer_loss_terms(p, li, assign, targets, spec, img_size, hyp, cp, cn,
     grid = torch.stack([gi, gj], dim=-1).float()
     t_box = torch.cat([t_grid[..., :2] - grid, t_grid[..., 2:]], dim=-1)
 
+    n_m = torch.clamp_min(m.sum(), 1)
     pxy = torch.sigmoid(ps[..., :2]) * 2.0 - 0.5
-    pwh = (torch.sigmoid(ps[..., 2:4]) * 2.0) ** 2 * anchors_grid[
-        None, None, :, None, :]
+    anc = anchors_grid[None, None, :, None, :]
+    if bin_wh:
+        n_bin = BIN_COUNT + 1
+        w_loss, pw = _bin_training(ps[..., 2:2 + n_bin],
+                                   t_box[..., 2] / anc[..., 0], m, n_m)
+        h_loss, ph = _bin_training(ps[..., 2 + n_bin:obj],
+                                   t_box[..., 3] / anc[..., 1], m, n_m)
+        pwh = torch.stack([pw * anc[..., 0], ph * anc[..., 1]], dim=-1)
+    else:
+        pwh = (torch.sigmoid(ps[..., 2:4]) * 2.0) ** 2 * anc
     iou = bbox_iou(torch.cat([pxy, pwh], dim=-1), t_box, xywh=True,
                    ciou=True)
-    n_m = torch.clamp_min(m.sum(), 1)
     lbox_i = torch.where(m, 1.0 - iou, 0.0).sum() / n_m
+    if bin_wh:
+        lbox_i = w_loss + h_loss + lbox_i
 
     # objectness targets: the matched IoUs max-scattered into the grid
     val = torch.where(m, (1.0 - gr) + gr * torch.clamp_min(iou.detach(), 0.0),
@@ -310,7 +360,7 @@ def _layer_loss_terms(p, li, assign, targets, spec, img_size, hyp, cp, cn,
     tobj = torch.zeros((b, ny * nx * na), dtype=val.dtype, device=dev)
     tobj = tobj.scatter_reduce(1, flat_b, val.reshape(b, -1), "amax",
                                include_self=True)
-    obj_i = _bce(p[..., 4].reshape(b, -1), tobj, pos_weight=hyp.obj_pw
+    obj_i = _bce(p[..., obj].reshape(b, -1), tobj, pos_weight=hyp.obj_pw
                  ).mean()
 
     lcls_i = 0.0
@@ -318,7 +368,7 @@ def _layer_loss_terms(p, li, assign, targets, spec, img_size, hyp, cp, cn,
         tcls_sel = torch.gather(targets[:, :, 0].to(torch.int32), 1,
                                 mgt_b).reshape(m.shape)
         t_one = torch.where(_one_hot(tcls_sel, nc), cp, cn)
-        cls_bce = _bce(ps[..., 5:], t_one, pos_weight=hyp.cls_pw)
+        cls_bce = _bce(ps[..., obj + 1:], t_one, pos_weight=hyp.cls_pw)
         lcls_i = torch.where(m[..., None], cls_bce, 0.0).sum() / (n_m * nc)
     return lbox_i, obj_i, lcls_i
 
@@ -419,4 +469,31 @@ def compute_loss_aux_ota(preds: List[torch.Tensor], targets, tmask,
         lbox = lbox + lb + w_aux * lb_a
         lobj = lobj + (ob + w_aux * ob_a) * balance[li]
         lcls = lcls + lc + w_aux * lc_a
+    return _total(lbox, lobj, lcls, hyp, bsz)
+
+
+def compute_loss_bin_ota(preds: List[torch.Tensor], targets, tmask,
+                         spec: ModelSpec, img_size: int, hyp: Hyp = Hyp()):
+    """ComputeLossBinOTA (utils/loss.py:849-1176) for the IBin head:
+    SimOTA on bin-decoded candidate boxes, then per level the SigmoidBin
+    w / h losses + CIoU + objectness and class at the shifted channels.
+    preds: nl x (B, ny, nx, na, nc + 47) raw IBin levels (float32). As in
+    JAX, the reference builds it from no shipped cfg and the train step
+    does not route to it."""
+    nl = spec.nl
+    anchors_px = _anchors(spec, preds[0].device)
+    bsz = preds[0].shape[0]
+    preds_flat, metas = _flatten_preds(preds)
+    assign = simota_assign(preds_flat, metas, spec.strides, anchors_px,
+                           targets, tmask, img_size, spec.nc, hyp,
+                           bin_wh=True)
+    cp, cn = smooth_bce(hyp.label_smoothing)
+    balance = _balance(nl)
+    lbox = lobj = lcls = 0.0
+    for li, p in enumerate(preds):
+        lb, ob, lc = _layer_loss_terms(p, li, assign, targets, spec,
+                                       img_size, hyp, cp, cn, bin_wh=True)
+        lbox = lbox + lb
+        lobj = lobj + ob * balance[li]
+        lcls = lcls + lc
     return _total(lbox, lobj, lcls, hyp, bsz)
