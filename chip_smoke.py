@@ -219,6 +219,31 @@ Phases, each of which must pass:
                 reloaded by load_dhn, and deepmot (128 x 48) on phase 3's
                 frames with it (K2 twice a frame). Prints the train2 JSON
                 line.
+ 12. models  -- the last model-side modules (no new kernel: none of this
+                JAX code reaches Pallas). (a) int8 serving: phase 3's w6
+                (1088 px, batch 8) fused and quantized (models/quant.py),
+                calibrated as cli/track.py --quant int8 does on the first
+                4 frames, through offline ByteTrack (128 / 300) on phase
+                3's 16 frames: the int8 tree re-made on the host equals
+                the card's buffers bit for bit, the CPU's calibration
+                within float32 noise; K2 twice a frame, the path's last
+                two problems re-solved by the plain version; ms/frame and
+                its parts beside the bf16 w6's; the int8 detector on one
+                frame card vs CPU (float32 input) within ZOO_REL_TOL of
+                each raw part; a CPU replay with the same ids; int8 vs
+                bf16 correlation and confidence difference. (b) TTA
+                (forward_tta) on the w6 at 1280 px, batch 8, bf16, then
+                NMS; (c) two seeded yolov7 through ensemble_apply in each
+                mode, then NMS; both float32 card vs CPU on one frame
+                within ZOO_REL_TOL of each decoded part. (d) torch.export
+                of the fused bf16 w6 (1280 px, batch 8), saved and
+                loaded: program vs eager within 1e-6 of each part, export
+                s, flops and memory (export_compiled_stats). (e) the JAX
+                package's tail test cfgs (TAIL_CFGS) at 640 px, batch 8:
+                card vs CPU and fused vs unfused, float32, ZOO_REL_TOL;
+                bf16 ms. (f) cli/detect.py's loop on 16 frames, yolov7 at
+                640 px, float32: card vs CPU the same counts and classes,
+                boxes as detect_check says. Prints the models JSON line.
 Then K2 on the offline path's last stage-1 and stage-2/3 problems and on
 the last tick's 2S problems, K1 on step_frame's last problem and K3 on the
 last tick's are timed (ms, us per sweep, bound) and profiled (where a
@@ -226,7 +251,8 @@ solve's cycles go, by the profiling builds, which no path uses), and the
 problems are written to chiprun_out/chip_smoke/k2_problems.pt and
 square_problems.pt.
 It prints the trackers JSON line, the train JSON line, the train2 JSON
-line, the kernel JSON line, the card's name and power limit, and last
+line, the models JSON line, the kernel JSON line, the card's name and
+power limit, and last
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, if
 there is no CUDA device or if any phase fails. It imports nothing of JAX.
 
@@ -247,6 +273,11 @@ runs phase 10 alone and prints its JSON line, no result line.
     python3 chip_smoke.py --train2-only
 
 builds K2 and runs phase 11 alone, and prints its JSON line, no result
+line.
+
+    python3 chip_smoke.py --models-only
+
+builds K2 and runs phase 12 alone, and prints its JSON line, no result
 line.
 """
 
@@ -3103,6 +3134,13 @@ def output_parts(out, spec, hw):
                                        lvl[..., 4:5], lvl[..., 5:])]
 
 
+def parts_rel(a, b):
+    """The worst over matching parts of max |a - b| over max(1, max |b|)."""
+    return max(float((x.float() - y.float()).abs().max())
+               / max(1.0, float(y.float().abs().max()))
+               for x, y in zip(a, b))
+
+
 def zoo_detector_checks(pipe, sd, frame, dev, keep=None):
     """One letterboxed frame through the detector in float32 (TF32 off):
     the fused model on the card against the same on the CPU, and the fused
@@ -3143,13 +3181,9 @@ def zoo_detector_checks(pipe, sd, frame, dev, keep=None):
         t[key] = time.time() - t0
         del model
 
-    def rel(a, b):
-        return max(float((x - y).abs().max()) / max(1.0, float(
-            y.abs().max())) for x, y in zip(a, b))
-
-    res = {"card_vs_cpu": rel(outs["card"], outs["cpu"]),
-           "fused_vs_unfused": rel(outs["card"], outs["unfused"]),
-           "bf16_vs_cpu": rel(outs["bf16"], outs["cpu"]),
+    res = {"card_vs_cpu": parts_rel(outs["card"], outs["cpu"]),
+           "fused_vs_unfused": parts_rel(outs["card"], outs["unfused"]),
+           "bf16_vs_cpu": parts_rel(outs["bf16"], outs["cpu"]),
            "largest_part": max(float(o.abs().max()) for o in outs["cpu"]),
            "cpu_forward_s": t["cpu"]}
     finite = all(bool(torch.isfinite(o).all()) for o in outs["card"])
@@ -4699,6 +4733,649 @@ def train2_phase(dev, sd=None):
     return rec, {"ibin": rec["ibin"]["k2_launches"], **dhn_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the last model-side modules -- int8 serving (models/quant.py,
+# PipelineConfig.quant), TTA and ensembles, torch.export, the zoo's tail
+# blocks and cli/detect.py's detection loop
+# ---------------------------------------------------------------------------
+
+INT8_FRAMES_CALIB = 4         # cli/track.py --quant int8's calibration
+MODELS_IMG = 1280             # (b)-(d)
+# (c): each member is phase 3's recipe (random_state_dict at
+# DETECTOR_GAIN, sharpen_heads), as (b)'s w6. With phase 9's calibrated
+# heads (spread 14) the decoded scores, compared absolutely (their largest
+# is 1), carry the heads' gain on the body's float32 noise: 1.09e-4 card
+# vs CPU on an H100, where the raw logits part by 1e-5.
+DETECT_RUN = (14.0, -34.0)    # (f): ZOO_RUNS' yolov7 spread and boost
+EXPORT_REL_TOL = 1e-6         # (d): exported program vs eager, each part
+TAIL_IMG = 640                # (e)
+DETECT_IMG = 640              # (f)
+# (e): the JAX package's own test cfgs of the tail (tests/
+# test_blocks_extended.py EXT_CFG, SWIN_CFG, OREPA_CFG, ROBUST_CFG), as
+# rows; Foldcut on the channel axis as the JAX package runs it
+TAIL_ANCHORS = [[10, 13, 16, 30, 33, 23], [30, 61, 62, 45, 59, 119]]
+TAIL_CFGS = {
+    "ghost": (8, TAIL_ANCHORS, [
+        [-1, 1, "Focus", [16, 3]], [-1, 1, "DWConv", [24, 3, 2]],
+        [-1, 1, "GhostConv", [32, 1, 1]], [-1, 1, "Ghost", [32, 3, 1]],
+        [-1, 2, "GhostCSPA", [32]], [-1, 1, "Conv", [48, 3, 2]],
+        [-1, 2, "RepResCSPA", [48]], [-1, 1, "Contract", [2]],
+        [-1, 1, "Conv", [64, 1, 1]], [-1, 2, "RepResCSPC", [64]],
+        [-1, 1, "Expand", [2]], [-1, 1, "Conv", [32, 1, 1]],
+        [-1, 1, "GhostSPPCSPC", [32]], [-1, 2, "GhostCSPB", [32]],
+        [-2, 1, "Conv", [32, 1, 1]], [[-1, -2], 1, "Concat", [1]],
+        [-1, 1, "RepResCSPB", [48]],
+        [[16, 9], 1, "Detect", ["nc", "anchors"]]]),
+    "swin": (4, TAIL_ANCHORS[:1], [
+        [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "Conv", [64, 3, 2]],
+        [-1, 2, "STCSPA", [64]], [-1, 1, "Conv", [64, 3, 2]],
+        [-1, 2, "ST2CSPC", [64]],
+        [-1, 1, "SwinTransformerBlock", [64, 2, 2]],
+        [-1, 1, "SwinTransformer2Block", [64, 2, 1]],
+        [-1, 2, "STCSPB", [64]], [[7], 1, "Detect", ["nc", "anchors"]]]),
+    "orepa": (4, TAIL_ANCHORS[:1], [
+        [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "RepConv_OREPA", [32, 3, 1]],
+        [-1, 1, "RepConv_OREPA", [64, 3, 2]], [-1, 1, "Conv", [64, 1, 1]],
+        [[3], 1, "Detect", ["nc", "anchors"]]]),
+    "robust": (4, TAIL_ANCHORS[:1], [
+        [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "RobustConv", [32, 7, 1]],
+        [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "RobustConv2", [32, 5, 2]],
+        [[-1, -2], 1, "Chuncat", [1]], [-1, 1, "Foldcut", [1]],
+        [-1, 1, "Conv", [64, 1, 1]], [[6], 1, "Detect", ["nc", "anchors"]]]),
+}
+
+
+def decoded_parts(y):
+    """Decoded predictions (B, N, no) cut into xy, wh, objectness and
+    class-score parts."""
+    return [y[..., :2], y[..., 2:4], y[..., 4:5], y[..., 5:]]
+
+
+def canvas_of(frames, size, spec, dev):
+    """``frames`` letterboxed as TrackingPipeline does at img_size
+    ``size``: (B, H, W, 3) float32 in [0, 1] on ``dev``."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.data import letterbox
+
+    src_hw = tuple(frames[0].shape[:2])
+    _, (uw, uh), (dw, dh) = letterbox.letterbox_params(
+        src_hw, (size, size), stride=max(spec.strides))
+    out_hw = (uh + int(round(dh - 0.1)) + int(round(dh + 0.1)),
+              uw + int(round(dw - 0.1)) + int(round(dw + 0.1)))
+    img, _ = letterbox.device_preprocess(
+        torch.from_numpy(np.stack(frames)).to(dev), src_hw, out_hw,
+        unpad_hw=(uh, uw))
+    return img.float()
+
+
+def eval_model(spec, sd, dev, dtype, fused=True):
+    """YoloV7 with ``sd`` loaded, on ``dev`` in ``dtype``, eval mode."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models.yolo import YoloV7
+
+    model = YoloV7(spec, fused=fused)
+    model.load_state_dict(sd)
+    model = model.to(dev, dtype).eval()
+    if torch.device(dev).type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model
+
+
+def int8_serving(dev, sd, pipe):
+    """12a: phase 3's w6 (1088 px, batch 8) fused and quantized, calibrated
+    on the first 4 frames as cli/track.py --quant int8 does, through
+    offline ByteTrack (128 / 300) on phase 3's 16 frames."""
+    import dataclasses
+
+    import torch
+
+    from yolov7_tracker_tpu_torch.cli.track import calibration_frames
+    from yolov7_tracker_tpu_torch.models import quant
+    from yolov7_tracker_tpu_torch.models.blocks import QuantConv
+    from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
+    from yolov7_tracker_tpu_torch.models.yolo import YoloV7, decoded
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.pipeline import TrackingPipeline
+    from yolov7_tracker_tpu_torch.trackers import bytetrack
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    spec = pipe.spec
+    frames = offline_frames()
+    calib = calibration_frames(iter(frames), pipe.pcfg.img_size,
+                               INT8_FRAMES_CALIB)
+    t0 = time.time()
+    qpipe = TrackingPipeline(
+        dataclasses.replace(pipe.pcfg, quant="int8"),
+        S.TrackerConfig(tracker="bytetrack", conf_thresh=0.5, capacity=128,
+                        det_capacity=300),
+        state_dict=sd, spec=spec, device=dev, quant_calib=calib)
+    torch.cuda.synchronize()
+    quantize_s = time.time() - t0
+    # the int8 tree: the card's calibration again, then quantize_state_dict
+    # on the host, equals the pipeline's buffers bit for bit; the CPU's
+    # calibration of the same frames lands within float32 noise
+    fused = fuse_state_dict(sd)
+    absmax_card = quant.calibrate(spec, fused, calib, dev)
+    t0 = time.time()
+    absmax_cpu = quant.calibrate(spec, fused, calib, "cpu")
+    cpu_calib_s = time.time() - t0
+    tree = quant.quantize_state_dict(spec, fused, absmax=absmax_card)
+    held = {k: v.cpu() for k, v in qpipe.model.state_dict().items()}
+    unequal = [k for k, v in tree.items() if not torch.equal(held[k], v)]
+    absmax_rel = max(abs(absmax_cpu[k] - v) / max(v, 1e-12)
+                     for k, v in absmax_card.items())
+    n_quant = sum(isinstance(m, QuantConv) for m in qpipe.model.modules())
+    if unequal or sorted(absmax_card) != sorted(absmax_cpu):
+        raise AssertionError(f"12a: int8 tree differs from the pipeline's "
+                             f"in {unequal[:5]}")
+    log(f"12a: {n_quant} convs quantized in {quantize_s:.1f} s (card "
+        f"calibration on {INT8_FRAMES_CALIB} frames included); the int8 "
+        f"tree re-made on the host equals the card's buffers bit for bit; "
+        f"absmax CPU vs card max relative {absmax_rel:.2e} (CPU "
+        f"calibration {cpu_calib_s:.1f} s)")
+
+    t0 = time.time()
+    qpipe.run_sequence(iter(frames[:8]))        # warm-up, not counted
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    batches, dets, slabs, solves = [], [], [], []
+    detect, step = qpipe.detect_batch, qpipe.step
+    solve = bytetrack.solve_assignment
+
+    def recording_detect(frames_u8):
+        out = detect(frames_u8)
+        batches.append(tuple(t.clone() for t in out))
+        return out
+
+    def recording_step(slab, det, **kw):
+        dets.append(S.DetSlab(*(x.clone() for x in det)))
+        slabs.append(S.TrackSlab(*(x.clone() for x in slab)))
+        return step(slab, det, **kw)
+
+    def recording_solve(cost, rm, cm, th):
+        solves.append((cost.float().clone(), rm.clone(), cm.clone(),
+                       torch.as_tensor(th, dtype=torch.float32,
+                                       device=cost.device).clone()))
+        return solve(cost, rm, cm, th)
+
+    qpipe.detect_batch, qpipe.step = recording_detect, recording_step
+    bytetrack.solve_assignment = recording_solve
+    torch.cuda.synchronize()
+    auction.LAUNCHES = 0
+    t0 = time.time()
+    try:
+        results, slab = qpipe.run_sequence_stateful(iter(frames))
+        torch.cuda.synchronize()
+    finally:
+        bytetrack.solve_assignment = solve
+    wall = time.time() - t0
+    launches = auction.LAUNCHES
+    del qpipe.detect_batch
+    qpipe.step = step
+    n = len(frames)
+    counts = torch.cat([b[3] for b in batches]).float().cpu()
+    tracks = [len(r[1]) for r in results]
+    if launches != 2 * n or max(tracks) < 1 or not bool(torch.isfinite(
+            torch.cat([b[0] for b in batches])).all()):
+        raise AssertionError(f"12a: {launches} K2 launches in {n} frames, "
+                             f"tracks a frame {tracks}")
+    worst = compare(auction, solves[-2:], dev)
+    if worst != 0:
+        raise AssertionError("12a: K2 differs from its plain version on "
+                             "the int8 path's last problems")
+    f1 = np.stack(frames[8:])
+    parts_q = breakdown(qpipe, f1, batches[-1], dev)
+    parts_b = breakdown(pipe, f1, batches[-1], dev)
+
+    # the int8 detector, card against CPU on the same letterboxed frame
+    # (float32 input): each raw part within ZOO_REL_TOL of its largest
+    img = letterboxed(qpipe, frames[:1], "cpu")
+    cpu_model = YoloV7(spec, fused="int8")
+    cpu_model.load_state_dict(held)
+    cpu_model.eval()
+    with torch.no_grad():
+        card_out = [o.float().cpu() for o in qpipe.model(img.to(dev))]
+        t0 = time.time()
+        cpu_out = cpu_model(img)
+        cpu_fwd_s = time.time() - t0
+    hw = tuple(img.shape[1:3])
+    card_vs_cpu = parts_rel(output_parts(card_out, spec, hw),
+                            output_parts(cpu_out, spec, hw))
+    if not card_vs_cpu <= ZOO_REL_TOL:
+        q_flips(qpipe.model, cpu_model, img, dev)
+        raise AssertionError(f"12a: int8 detector card vs CPU "
+                             f"{card_vs_cpu:.3e} > {ZOO_REL_TOL}")
+    t0 = time.time()
+    replay_on_cpu(qpipe, dets, slabs, results, "int8")
+    replay_s = time.time() - t0
+    # int8 against the bf16 detector on phase 3's second batch
+    img8 = letterboxed(qpipe, frames[8:], dev).to(torch.bfloat16)
+    with torch.no_grad():
+        y_q = decoded(qpipe.model, img8).double().cpu().numpy()
+        y_b = decoded(pipe.model, img8).double().cpu().numpy()
+    corr = float(np.corrcoef(y_q.ravel(), y_b.ravel())[0, 1])
+    conf_diff = float(np.abs(y_q[..., 4] - y_b[..., 4]).max())
+    rec = {"ms_per_frame": wall / n * 1e3, "frames": n,
+           "img_size": pipe.pcfg.img_size, "quantized_convs": n_quant,
+           "quantize_s": quantize_s, "warm_up_s": warm_s,
+           "absmax_cpu_vs_card_rel": absmax_rel, "k2_launches": launches,
+           "k2_path_max_abs_err": float(worst),
+           "nms_survivors_per_frame": float(counts.mean()),
+           "tracks_per_frame_mean": float(np.mean(tracks)),
+           "ids": int(slab.next_id), "int8": parts_q, "bf16": parts_b,
+           "card_vs_cpu": card_vs_cpu, "cpu_forward_s": cpu_fwd_s,
+           "cpu_replay": "same ids, boxes 1e-2", "cpu_replay_s": replay_s,
+           "int8_vs_bf16_corr": corr, "int8_vs_bf16_conf_max_abs": conf_diff}
+    log(f"12a int8 w6 on {card_line()}: {wall / n * 1e3:.2f} ms/frame over "
+        f"{n} frames, {launches} K2 launches (last two problems == plain), "
+        f"NMS survivors/frame {float(counts.mean()):.1f}, tracks/frame "
+        f"mean {np.mean(tracks):.1f}; detector {parts_q['detector_ms']:.2f}"
+        f" ms/frame (bf16 {parts_b['detector_ms']:.2f}), NMS "
+        f"{parts_q['nms_ms']:.2f} (bf16 {parts_b['nms_ms']:.2f}), step "
+        f"{parts_q['step_ms']:.2f}; card vs CPU {card_vs_cpu:.2e} (float32 "
+        f"input, tolerance {ZOO_REL_TOL}); CPU replay same ids; int8 vs "
+        f"bf16 correlation {corr:.5f}, confidence max |diff| {conf_diff:.4f}")
+    del qpipe, cpu_model
+    return rec
+
+
+def q_flips(card_model, cpu_model, img, dev):
+    """Where the int8 model's card and CPU runs part: each QuantConv's
+    quantized input on both, in the order the forward reaches them; logs
+    the first convs with a different q (how many elements, the largest
+    input difference) and whether the card's accumulation of the CPU's q
+    equals the CPU's."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models.blocks import (QuantConv,
+                                                        quant_accumulate)
+
+    seen = {}
+
+    def keep(model, key):
+        hooks = []
+        for name, m in model.named_modules():
+            if isinstance(m, QuantConv):
+                hooks.append(m.register_forward_pre_hook(
+                    lambda mod, args, name=name: seen.setdefault(
+                        name, {}).__setitem__(
+                        key, (args[0].float().cpu(),
+                              mod.quantize(args[0]).cpu()))))
+        return hooks
+
+    hooks = keep(card_model, "card") + keep(cpu_model, "cpu")
+    with torch.no_grad():
+        card_model(img.to(dev))
+        cpu_model(img)
+    for h in hooks:
+        h.remove()
+    cpu_mods = dict(cpu_model.named_modules())
+    shown = 0
+    for name, runs in seen.items():
+        (x1, q1), (x2, q2) = runs["card"], runs["cpu"]
+        flips = int((q1 != q2).sum())
+        if flips and shown < 4:
+            m = cpu_mods[name]
+            acc_card = quant_accumulate(q2.to(dev), m.weight.to(dev),
+                                        m.stride, m.padding, m.groups).cpu()
+            acc_cpu = quant_accumulate(q2, m.weight, m.stride, m.padding,
+                                       m.groups)
+            log(f"12a: {name}: q differs in {flips} of {q1.numel()} "
+                f"elements, input max |card - CPU| "
+                f"{float((x1 - x2).abs().max()):.3g}; the card's "
+                f"accumulation of the CPU's q equals the CPU's: "
+                f"{bool(torch.equal(acc_card, acc_cpu))}")
+            shown += 1
+    log(f"12a: {sum(int((r['card'][1] != r['cpu'][1]).any()) for r in seen.values())} "
+        f"of {len(seen)} QuantConvs see a different q")
+
+
+def tta_check(dev, sd, frames):
+    """12b: forward_tta on the fused w6 at MODELS_IMG, batch 8, bf16, then
+    NMS; one frame in float32 card against CPU, each part within
+    ZOO_REL_TOL. Returns (record, the bf16 model, the canvas)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
+    from yolov7_tracker_tpu_torch.models.tta import forward_tta
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    spec = zoo.get_spec("yolov7-w6", nc=80)
+    fused = fuse_state_dict(sd)
+    img = canvas_of(frames, MODELS_IMG, spec, dev)
+    model = eval_model(spec, fused, dev, torch.bfloat16)
+    x = img.to(torch.bfloat16)
+    with torch.no_grad():
+        pred = forward_tta(model, x)
+        dets, counts = nms_mod.nms(pred.float(), 0.01, 0.45, max_det=300)
+        t_tta = cuda_ms(lambda: forward_tta(model, x), 3)
+        t_nms = cuda_ms(lambda: nms_mod.nms(pred.float(), 0.01, 0.45,
+                                            max_det=300), 2)
+        outs = {}
+        for d in (dev, "cpu"):
+            m32 = eval_model(spec, fused, d, torch.float32)
+            outs[d] = forward_tta(m32, img[:1].to(d)).cpu()
+            del m32
+    rel = parts_rel(decoded_parts(outs[dev]), decoded_parts(outs["cpu"]))
+    b = img.shape[0]
+    if not (rel <= ZOO_REL_TOL and bool(torch.isfinite(pred).all())):
+        raise AssertionError(f"12b: TTA card vs CPU {rel:.3e}")
+    rec = {"ms_per_frame": t_tta / b, "nms_ms_per_frame": t_nms / b,
+           "candidates": int(pred.shape[1]), "canvas_hw": list(img.shape[1:3]),
+           "nms_survivors_per_frame": float(counts.float().mean()),
+           "card_vs_cpu": rel}
+    log(f"12b TTA (w6, 3 scales x flips, {MODELS_IMG} px, batch {b}, "
+        f"bf16) on {card_line()}: {t_tta / b:.2f} ms/frame, "
+        f"{pred.shape[1]} candidates, NMS {t_nms / b:.2f} ms/frame "
+        f"({float(counts.float().mean()):.1f} survivors); float32 card vs "
+        f"CPU {rel:.2e}")
+    return rec, model, img
+
+
+def ensembles_check(dev, frames):
+    """12c: two seeded yolov7 (nc 80, phase 3's recipe) at MODELS_IMG,
+    batch 8, bf16, through ensemble_apply in each mode, then NMS; float32
+    card against CPU on one frame."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
+    from yolov7_tracker_tpu_torch.models.yolo import (ensemble_apply,
+                                                      random_state_dict,
+                                                      sharpen_heads)
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    spec = zoo.get_spec("yolov7", nc=80)
+    img = canvas_of(frames, MODELS_IMG, spec, dev)
+    weights = []
+    for seed in (0, 1):
+        sd = random_state_dict(spec, seed=seed, gain=DETECTOR_GAIN)
+        sharpen_heads(sd, spec, seed=seed + 1)
+        weights.append(fuse_state_dict(sd))
+    members = [eval_model(spec, w, dev, torch.bfloat16) for w in weights]
+    x = img.to(torch.bfloat16)
+    rec = {}
+    with torch.no_grad():
+        for mode in ("nms", "mean", "max"):
+            pred = ensemble_apply(members, x, mode)
+            _, counts = nms_mod.nms(pred.float(), 0.01, 0.45, max_det=300)
+            t = cuda_ms(lambda: ensemble_apply(members, x, mode), 3)
+            t_nms = cuda_ms(lambda: nms_mod.nms(pred.float(), 0.01, 0.45,
+                                                max_det=300), 2)
+            rec[mode] = {"ms_per_frame": t / img.shape[0],
+                         "nms_ms_per_frame": t_nms / img.shape[0],
+                         "candidates": int(pred.shape[1]),
+                         "nms_survivors_per_frame": float(
+                             counts.float().mean())}
+        for d in (dev, "cpu"):
+            m32 = [eval_model(spec, w, d, torch.float32) for w in weights]
+            for mode in rec:
+                rec[mode][d if d == "cpu" else "card"] = ensemble_apply(
+                    m32, img[:1].to(d), mode).cpu()
+            del m32
+    for mode, r in rec.items():
+        r["card_vs_cpu"] = parts_rel(decoded_parts(r.pop("card")),
+                                     decoded_parts(r.pop("cpu")))
+        if not r["card_vs_cpu"] <= ZOO_REL_TOL:
+            raise AssertionError(f"12c: ensemble {mode} card vs CPU "
+                                 f"{r['card_vs_cpu']:.3e}")
+    log(f"12c ensembles (2 x yolov7, {MODELS_IMG} px, batch "
+        f"{img.shape[0]}, bf16) on {card_line()}: " + ", ".join(
+            f"{m} {r['ms_per_frame']:.2f} ms/frame + NMS "
+            f"{r['nms_ms_per_frame']:.2f} ({r['nms_survivors_per_frame']:.1f}"
+            f" survivors), card vs CPU {r['card_vs_cpu']:.2e}"
+            for m, r in rec.items()))
+    del members
+    return rec
+
+
+def export_check(model, img):
+    """12d: torch.export of the fused bf16 w6 at MODELS_IMG, batch 8,
+    saved and loaded back; the program against the eager module on the
+    card, each decoded part within EXPORT_REL_TOL; the stats."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models import export
+    from yolov7_tracker_tpu_torch.models.yolo import decoded
+
+    x = img.to(torch.bfloat16)
+    hw = tuple(img.shape[1:3])
+    tmp = tempfile.mkdtemp(prefix="export_")
+    try:
+        t0 = time.time()
+        path = export.export_program(model, hw, os.path.join(tmp, "w6.pt2"),
+                                     batch=x.shape[0], dtype=torch.bfloat16)
+        export_s = time.time() - t0
+        size_mb = os.path.getsize(path) / 1e6
+        t0 = time.time()
+        program = export.load_program(path)
+        load_s = time.time() - t0
+        with torch.no_grad():
+            got = program(x)
+            want = decoded(model, x)
+            t_prog = cuda_ms(lambda: program(x), 3)
+            t_eager = cuda_ms(lambda: decoded(model, x), 3)
+        stats = export.export_compiled_stats(model, hw, x.shape[0],
+                                             torch.bfloat16)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    diff = float((got.float() - want.float()).abs().max())
+    rel = parts_rel(decoded_parts(got), decoded_parts(want))
+    if not rel <= EXPORT_REL_TOL:
+        raise AssertionError(f"12d: exported program vs eager {rel:.3e}")
+    rec = {"export_s": export_s, "load_s": load_s, "file_mb": size_mb,
+           "max_abs_diff": diff, "rel": rel,
+           "program_ms_per_frame": t_prog / x.shape[0],
+           "eager_ms_per_frame": t_eager / x.shape[0], **stats}
+    log(f"12d export (fused w6, {MODELS_IMG} px, batch {x.shape[0]}, bf16) "
+        f"on {card_line()}: torch.export + save {export_s:.1f} s "
+        f"({size_mb:.0f} MB), load {load_s:.1f} s; program vs eager max "
+        f"|diff| {diff:.3g} (relative {rel:.2e}); program "
+        f"{t_prog / x.shape[0]:.2f} ms/frame, eager "
+        f"{t_eager / x.shape[0]:.2f}; flops {stats['flops']:.4g}, "
+        f"memory {stats['memory_mb']:.1f} MB")
+    return rec
+
+
+def tail_check(dev, frames):
+    """12e: the JAX package's tail test cfgs at TAIL_IMG, batch 8, seeded
+    weights: float32 (TF32 off) card against CPU and fused against
+    unfused on the card, each raw part within ZOO_REL_TOL; the fused bf16
+    forward timed."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
+    from yolov7_tracker_tpu_torch.models.spec import parse_yaml_cfg
+    from yolov7_tracker_tpu_torch.models.yolo import random_state_dict
+
+    rec = {}
+    for name, (nc, anchors, rows) in TAIL_CFGS.items():
+        spec = parse_yaml_cfg({"nc": nc, "depth_multiple": 1.0,
+                               "width_multiple": 1.0, "anchors": anchors,
+                               "backbone": rows, "head": []}, name=name)
+        img = canvas_of(frames, TAIL_IMG, spec, "cpu")
+        sd = random_state_dict(spec, seed=0)
+        fused = fuse_state_dict(sd)
+        hw = tuple(img.shape[1:3])
+        outs = {}
+        t0 = time.time()
+        with torch.no_grad():
+            for key, d, state, f in (("card", dev, fused, True),
+                                     ("cpu", "cpu", fused, True),
+                                     ("unfused", dev, sd, False)):
+                out = eval_model(spec, state, d, torch.float32, f)(
+                    img.to(d))
+                outs[key] = output_parts([o.cpu() for o in out], spec, hw)
+            m16 = eval_model(spec, fused, dev, torch.bfloat16)
+            x16 = img.to(dev, torch.bfloat16)
+            t16 = cuda_ms(lambda: m16(x16), 3)
+        r = {"card_vs_cpu": parts_rel(outs["card"], outs["cpu"]),
+             "fused_vs_unfused": parts_rel(outs["card"], outs["unfused"]),
+             "largest_part": max(float(p.abs().max()) for p in outs["cpu"]),
+             "bf16_ms_per_frame": t16 / img.shape[0],
+             "check_s": time.time() - t0}
+        rec[name] = r
+        if not (r["card_vs_cpu"] <= ZOO_REL_TOL
+                and r["fused_vs_unfused"] <= ZOO_REL_TOL
+                and all(bool(torch.isfinite(p).all()) for p in outs["card"])):
+            raise AssertionError(f"12e: {name} {r}")
+    log(f"12e tail cfgs ({TAIL_IMG} px, batch {len(frames)}) on "
+        f"{card_line()}: " + ", ".join(
+            f"{n} card vs CPU {r['card_vs_cpu']:.2e}, fused vs unfused "
+            f"{r['fused_vs_unfused']:.2e}, bf16 {r['bf16_ms_per_frame']:.2f} "
+            f"ms/frame" for n, r in rec.items()))
+    return rec
+
+
+def detect_check(dev, frames):
+    """12f: cli/detect.py's loop (detect_images) on 16 in-memory 1080x1920
+    frames with yolov7 (nc 80) at DETECT_IMG, float32, its seeded weights
+    calibrated on the frames as in phase 9 (DETECT_RUN) and read from a
+    file as --weights takes it: the card against --device cpu, the same
+    counts and classes, the boxes before the loop rounds them to whole
+    pixels (post_process_v7's round) within ZOO_REL_TOL of the frame's
+    largest coordinate, as phase 9 holds a detector's parts, and the
+    rounded boxes equal but where a coordinate sits that close to a half
+    pixel. (1e-3 px would ask 5e-7 of a 1920 px frame, below the float32
+    noise of yolov7's body: an H100 read 7.9e-3 px against the CPU.)"""
+    import torch
+
+    from yolov7_tracker_tpu_torch.cli import detect
+    from yolov7_tracker_tpu_torch.data import letterbox
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.yolo import random_state_dict
+
+    spec = zoo.get_spec("yolov7", nc=80)
+    img = canvas_of(frames[:8], DETECT_IMG, spec, dev)
+    weights = standardize_heads(
+        spec, calibrate_detector_bn(spec, random_state_dict(spec, seed=0),
+                                    img, ZOO_BN_SCALE), img, *DETECT_RUN)
+    del img
+    tmp = tempfile.mkdtemp(prefix="detect_")
+    try:
+        path = os.path.join(tmp, "yolov7.pt")
+        torch.save(weights, path)
+        runs, secs, unrounded = {}, {}, {}
+        scale = letterbox.scale_coords_device
+
+        def keeping(coords, img1_hw, img0_hw, do_round=True):
+            kept.append(scale(coords, img1_hw, img0_hw, do_round=False))
+            return scale(coords, img1_hw, img0_hw, do_round)
+
+        for d in (str(dev), "cpu"):
+            pipe = detect.build_pipeline(detect.parse_args([
+                "--source", tmp, "--model", "yolov7", "--weights", path,
+                "--img_size", str(DETECT_IMG), "--dtype", "float32",
+                "--device", d]))
+            list(detect.detect_images(pipe, frames[:1]))     # warm-up
+            kept = []
+            letterbox.scale_coords_device = keeping
+            try:
+                t0 = time.time()
+                runs[d] = list(detect.detect_images(pipe, frames))
+                secs[d] = time.time() - t0
+            finally:
+                letterbox.scale_coords_device = scale
+            unrounded[d] = [k[0].cpu().numpy() for k in kept]
+            del pipe
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    from scipy.optimize import linear_sum_assignment
+
+    worst, worst_rel, at_ties, reordered = 0.0, 0.0, 0, 0
+    for k, ((b1, s1, c1, n1), (b2, s2, c2, n2)) in enumerate(
+            zip(runs[str(dev)], runs["cpu"])):
+        if n1 != n2 or sorted(c1) != sorted(c2):
+            raise AssertionError(f"12f: card {n1} detections, CPU {n2}")
+        u1, u2 = unrounded[str(dev)][k][:n1], unrounded["cpu"][k][:n1]
+        # NMS lists by score: two boxes whose scores tie within float32
+        # noise may come in either order, so pair the card's with the
+        # CPU's (same class, nearest box)
+        dist = np.abs(u1[:, None] - u2[None]).max(-1) + 1e9 * (
+            c1[:, None] != c2[None])
+        rows, cols = linear_sum_assignment(dist)
+        reordered += int((rows != cols).sum())
+        tol = ZOO_REL_TOL * max(1.0, float(np.abs(u2).max(initial=0.0)))
+        far = float(dist[rows, cols].max(initial=0.0))
+        worst = max(worst, far)
+        worst_rel = max(worst_rel, far * ZOO_REL_TOL / tol)
+        off = b1[rows] != b2[cols]
+        at_ties += int(off.sum())
+        frac = np.abs(u2[cols][off] - np.floor(u2[cols][off]))
+        if far > tol or (np.abs(frac - 0.5) > tol).any():
+            raise AssertionError(
+                f"12f: frame {k}: boxes {far:.3g} px apart, or rounded "
+                f"apart away from a half pixel: card {b1[rows][off.any(1)].tolist()} "
+                f"{u1[rows][off.any(1)].tolist()}, CPU "
+                f"{b2[cols][off.any(1)].tolist()} "
+                f"{u2[cols][off.any(1)].tolist()}")
+    counts = [r[3] for r in runs[str(dev)]]
+    if sum(counts) == 0:
+        raise AssertionError("12f: no detection in any frame")
+    rec = {"frames": len(frames), "img_size": DETECT_IMG,
+           "detections": counts, "box_max_abs_px": worst,
+           "box_max_rel": worst_rel,
+           "rounded_at_half_pixel": at_ties,
+           "listed_in_another_order": reordered,
+           "ms_per_frame": secs[str(dev)] / len(frames) * 1e3,
+           "cpu_ms_per_frame": secs["cpu"] / len(frames) * 1e3}
+    log(f"12f detection loop (yolov7, {DETECT_IMG} px, float32, one image "
+        f"a call) on {card_line()}: {rec['ms_per_frame']:.2f} ms/frame "
+        f"(CPU {rec['cpu_ms_per_frame']:.0f}), detections/frame "
+        f"{np.mean(counts):.1f}; card vs CPU same counts and classes, "
+        f"boxes within {worst:.3g} px ({worst_rel:.2e} of the frame's "
+        f"largest coordinate) before rounding, {at_ties} rounded "
+        f"coordinates a pixel apart at a half pixel, {reordered} "
+        f"detections listed in another order (a score tie)")
+    return rec
+
+
+def models_phase(dev, sd=None, pipe=None):
+    """Phase 12: (a) int8 serving, (b) TTA, (d) export, (c) ensembles,
+    (e) the tail cfgs, (f) the detection loop. ``sd``, ``pipe``: phase
+    3's weights and bf16 pipeline (built here when not given). Float32
+    checks run with TF32 off. Returns (record, {path: K2 launches})."""
+    import torch
+
+    t0 = time.time()
+    if pipe is None:
+        sd, pipe = build_w6(dev)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frames = offline_frames()
+    rec, times = {}, {}
+
+    def timed(key, fn):
+        t1 = time.time()
+        out = fn()
+        times[key] = time.time() - t1
+        torch.cuda.empty_cache()
+        return out
+
+    try:
+        rec["int8"] = timed("int8", lambda: int8_serving(dev, sd, pipe))
+        rec["tta"], model, img = timed(
+            "tta", lambda: tta_check(dev, sd, frames[8:]))
+        rec["export"] = timed("export", lambda: export_check(model, img))
+        del model, img
+        rec["ensembles"] = timed("ensembles",
+                                 lambda: ensembles_check(dev, frames[8:]))
+        rec["tail"] = timed("tail", lambda: tail_check(dev, frames[8:]))
+        rec["detect"] = timed("detect", lambda: detect_check(dev, frames))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rec["part_s"] = times
+    rec["phase_s"] = time.time() - t0
+    log(f"phase 12 {rec['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items()) + ")")
+    return rec, {"int8": rec["int8"]["k2_launches"]}
+
 def build_kernels(mods):
     """One nvcc per build, all started together; mods: (module, source,
     load_library arguments). Raises if a build failed."""
@@ -4798,6 +5475,9 @@ def main(argv=None):
     ap.add_argument("--train2-only", action="store_true",
                     help="only phase 11 (the IBin head and its loss, the "
                          "rank losses, the DHN trainer)")
+    ap.add_argument("--models-only", action="store_true",
+                    help="only phase 12 (int8 serving, TTA, ensembles, "
+                         "export, the zoo's tail, the detection loop)")
     ap.add_argument("--problems", default="",
                     help="with --square-only or --k2-only: the "
                          "square_problems.pt or k2_problems.pt written by a "
@@ -4827,6 +5507,12 @@ def main(argv=None):
         train2, k2_train2 = train2_phase(dev)
         print(json.dumps({"train2": train2, "k2_launches": k2_train2}))
         log("train2-only run done (not the smoke run: no result line)")
+        return 0
+    if args.models_only:
+        build_kernels([(auction, SOURCE, ())])
+        models, k2_models = models_phase(dev)
+        print(json.dumps({"models": models, "k2_launches": k2_models}))
+        log("models-only run done (not the smoke run: no result line)")
         return 0
     t0 = time.time()
     build_kernels([(auction, SOURCE, ()), (square, SOURCE_SQUARE, ()),
@@ -4861,6 +5547,7 @@ def main(argv=None):
     log(f"phase 9 {time.time() - t9:.1f} s")
     train = train_phase(dev)
     train2, k2_train2 = train2_phase(dev, sd)
+    models, k2_models = models_phase(dev, sd, pipe)
 
     # K2 on the last frame's two solves, as the main path gave them, and on
     # the serving path's stages 2+3: one launch of B = 2 S problems
@@ -4889,6 +5576,7 @@ def main(argv=None):
               "launches_detect_per_frame": k2_detect_every,
               "launches_zoo": k2_zoo,
               "launches_train2": k2_train2,
+              "launches_models": k2_models,
               "max_abs_err": float(worst), "library_ms": None, **t1,
               **{f"{k}_b2": v for k, v in t2.items()},
               **{f"{k}_serving": v for k, v in t16.items()}}
@@ -4919,6 +5607,7 @@ def main(argv=None):
     print(json.dumps({"trackers": trackers}))
     print(json.dumps({"train": train}))
     print(json.dumps({"train2": train2}))
+    print(json.dumps({"models": models}))
     print(json.dumps({"kernels": [rec_k1, record, rec_k3]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -990,3 +990,100 @@ def test_dhn_trainer_on_the_card_feeds_deepmot(card, tmp_path):
         slab, _ = step(slab, _card_dets(cfg, rng, t, card))
     assert auction.LAUNCHES - before == 12
     assert int(slab.next_id) > 1
+
+
+# ---------------------------------------------------------------------------
+# int8 serving and the zoo's tail on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_int8_accumulation_on_the_card_is_exact(card):
+    """A 3x3 conv over 640 int8 channels near +127 (sums near 9e7, past
+    2^24): the card's float64 accumulation equals the CPU's bit for bit,
+    and both equal the integer sums, which a float32 conv does not
+    give."""
+    from yolov7_tracker_tpu_torch.models.blocks import quant_accumulate
+
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.integers(100, 128, (2, 640, 6, 7)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.integers(100, 128, (8, 640, 3, 3)).astype(
+        np.int8))
+    w[::2] *= -1
+    cpu = quant_accumulate(q, w, 1, 1, 1)
+    got = quant_accumulate(q.to(card), w.to(card), 1, 1, 1).cpu()
+    assert torch.equal(got, cpu)
+    exact = torch.nn.functional.conv2d(q.long().double(), w.double(), None,
+                                       1, 1)
+    assert torch.equal(cpu, exact) and float(cpu.abs().max()) > 2 ** 24
+    f32 = torch.nn.functional.conv2d(q.to(card), w.float().to(card), None,
+                                     1, 1).cpu()
+    assert (f32.double() != got).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yolov7-tiny", "yolov7-w6"])
+def test_int8_detector_on_the_card_equals_the_cpu(card, full_float32, name):
+    """The int8 model (calibrated on the CPU) on the card against the
+    same state on the CPU, float32 input: each raw part within
+    chip_smoke's ZOO_REL_TOL (the activations after a QuantConv are
+    rounded from float64, so q is the same on both devices)."""
+    from chip_smoke import ZOO_REL_TOL, output_parts
+    from yolov7_tracker_tpu_torch.models import quant, zoo
+    from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
+    from yolov7_tracker_tpu_torch.models.yolo import (YoloV7,
+                                                      random_state_dict)
+
+    spec = zoo.get_spec(name, nc=80)
+    fused = fuse_state_dict(random_state_dict(spec, seed=0, gain=1.4))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (2, 256, 320, 3)).astype(np.float32))
+    sd = quant.quantize_state_dict(spec, fused, calib_batches=[x[:1]],
+                                   device="cpu")
+    outs = {}
+    for dev in ("cpu", card):
+        model = YoloV7(spec, fused="int8")
+        model.load_state_dict(sd)
+        model = model.to(dev).eval()
+        with torch.no_grad():
+            outs[str(dev)] = output_parts(
+                [o.cpu() for o in model(x.to(dev))], spec, (256, 320))
+    rel = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+              for a, b in zip(outs[str(card)], outs["cpu"]))
+    assert rel <= ZOO_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ghost", "swin", "orepa", "robust"])
+def test_tail_cfgs_on_the_card_equal_the_cpu(card, full_float32, name):
+    """chip_smoke's tail cfgs (the JAX package's own test cfgs) at 256 x
+    320, seeded weights: float32 on the card equals the CPU, fused and
+    unfused, within ZOO_REL_TOL of each raw part."""
+    from chip_smoke import TAIL_CFGS, ZOO_REL_TOL, output_parts
+    from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
+    from yolov7_tracker_tpu_torch.models.spec import parse_yaml_cfg
+    from yolov7_tracker_tpu_torch.models.yolo import (YoloV7,
+                                                      random_state_dict)
+
+    nc, anchors, rows = TAIL_CFGS[name]
+    spec = parse_yaml_cfg({"nc": nc, "depth_multiple": 1.0,
+                           "width_multiple": 1.0, "anchors": anchors,
+                           "backbone": rows, "head": []}, name=name)
+    sd = random_state_dict(spec, seed=0)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (2, 256, 320, 3)).astype(np.float32))
+    outs = {}
+    for key, dev, fused in (("cpu", "cpu", True), ("card", card, True),
+                            ("unfused", card, False)):
+        model = YoloV7(spec, fused=fused)
+        model.load_state_dict(fuse_state_dict(sd) if fused else sd)
+        model = model.to(dev).eval()
+        with torch.no_grad():
+            outs[key] = output_parts([o.cpu() for o in model(x.to(dev))],
+                                     spec, (256, 320))
+
+    def rel(key):
+        return max(float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())) for a, b in zip(outs[key], outs["cpu"]))
+
+    assert rel("card") <= ZOO_REL_TOL and rel("unfused") <= ZOO_REL_TOL

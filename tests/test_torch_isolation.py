@@ -50,7 +50,8 @@ def test_port_imports_no_jax():
                     "utils.artifacts", "utils.timer", "cli.train",
                     "cli.test", "models.ibin", "train.rank_losses",
                     "train.dhn_train", "train.autoanchor",
-                    "train.evolve"):
+                    "train.evolve", "cli.detect", "data.converters",
+                    "models.tta", "models.export", "models.quant"):
             assert "yolov7_tracker_tpu_torch." + new in names, new
         print("BAD", bad)
     """)
@@ -84,6 +85,12 @@ def test_entry_points_need_a_device():
             train.main(["--data", "data/coco.yaml", "--epochs", "1"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             test.main(["--data", "data/coco.yaml", "--weights", "x.pt"])
+        from yolov7_tracker_tpu_torch.cli import detect
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            detect.main(["--source", "data", "--save_dir", "unused"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            track.main(["--dataset", "mot", "--track_eval", "false",
+                        "--quant", "int8"])
         print("OK")
     """)
     assert proc.returncode == 0, proc.stderr
@@ -96,6 +103,7 @@ def test_loaders_need_a_device(tmp_path):
     a device they raise, before reading anything."""
     proc = _run("""
         import numpy as np, pytest
+        from yolov7_tracker_tpu_torch.models import quant
         from yolov7_tracker_tpu_torch.models.from_jax import slab_from_numpy
         from yolov7_tracker_tpu_torch.models.zoo import get_spec
         from yolov7_tracker_tpu_torch.parallel.train_step import (
@@ -114,6 +122,7 @@ def test_loaders_need_a_device(tmp_path):
             lambda: dhn_train.build_trainer("sinkhorn"),
             lambda: dhn_train.main(["--steps", "1", "--arch", "sinkhorn",
                                     "--out", "unused.msgpack"]),
+            lambda: quant.calibrate(get_spec("yolov7-tiny"), {}, []),
         ]
         for call in calls:
             with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -176,6 +185,18 @@ def test_chip_smoke_train_only_fails_without_a_card():
     """The phase-10 run of chip_smoke.py (training and the detector test)
     needs the card as the full run does."""
     proc = subprocess.run([sys.executable, "chip_smoke.py", "--train-only"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_models_only_fails_without_a_card():
+    """The phase-12 run of chip_smoke.py (int8 serving, TTA, ensembles,
+    export, the zoo's tail, the detection loop) needs the card as the full
+    run does."""
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--models-only"],
                           cwd=REPO, capture_output=True, text=True,
                           timeout=300,
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})

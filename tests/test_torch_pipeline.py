@@ -172,8 +172,8 @@ def test_track_cli_defaults_match_jax():
     assert {"data_format", "split_txt", "detect_per_frame", "detections",
             "nms_thresh", "save_images", "save_videos",
             "track_eval"} <= set(shared)
-    # the JAX CLI's options the port leaves out: int8 waits for its model
-    assert set(j) - set(t) == {"quant"}
+    # every option of the JAX CLI is the port's too, --quant among them
+    assert set(j) - set(t) == set() and "quant" in shared
     assert {k: t[k] for k in shared} == {k: j[k] for k in shared}
     assert t["tracker"] == "sort"
     for name in ("mot", "mot17", "uavdt", "visdrone"):

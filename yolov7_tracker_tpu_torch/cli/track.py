@@ -10,6 +10,8 @@ Usage:
     python -m yolov7_tracker_tpu_torch.cli.track --dataset mot17 \
         --tracker deepmot --dhn_path weights/dhn_h32.msgpack \
         --dhn_hidden 32
+    python -m yolov7_tracker_tpu_torch.cli.track --dataset mot17 \
+        --quant int8                 # W8A8 detector, calibrated on frames
 
 Per sequence: frames -> device letterbox -> YOLOv7 -> NMS (-> ReID crops
 and CNN, GMC warp) -> the tracker's slab step (deepmot: the DHN on the
@@ -111,6 +113,11 @@ def parse_args(argv=None):
     p.add_argument("--track_eval", type=lambda s: s.lower() != "false",
                    default=True,
                    help="score the run against the config's TRACK_EVAL gt")
+    p.add_argument("--quant", type=str, default="none",
+                   choices=("none", "int8"),
+                   help="int8: W8A8 static-PTQ detector (models/quant.py), "
+                        "calibrated on the first 4 frames of the first "
+                        "sequence")
     p.add_argument("--detector_batch", type=int, default=8)
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
@@ -199,9 +206,32 @@ def evaluate_run(dataset, track_eval_cfg, folder):
     return table
 
 
+def calibration_frames(frames, img_size: int, n: int = 4):
+    """The int8 calibration batch of the JAX CLI (cli/track.py:187-206):
+    the first ``n`` frames (uint8 BGR, as read) over 255, resized to a
+    square ``img_size`` with jax.image.resize's antialiased bilinear
+    (data/letterbox.resize_linear); None when no frame comes."""
+    import torch
+
+    from ..data.letterbox import resize_linear
+
+    first = []
+    for frame in frames:
+        first.append(frame)
+        if len(first) >= n:
+            break
+    if not first:
+        return None
+    arr = torch.from_numpy(np.stack(first)).float() / 255.0
+    return [resize_linear(arr, img_size, img_size, antialias=True)]
+
+
 def main(argv=None):
     opts = parse_args(argv)
     cfgs = load_dataset_config(opts)
+    from .. import resolve_device
+
+    device = resolve_device(opts.device)     # no card: raise before reading
 
     from ..data import sequence as seqmod
     from ..data import writer
@@ -220,7 +250,7 @@ def main(argv=None):
         conf_thres=0.01, iou_thres=0.45, detector_batch=opts.detector_batch,
         dtype=opts.dtype, gmc_method=gmc, reid=reid,
         reid_capacity=opts.reid_capacity,
-        detect_per_frame=opts.detect_per_frame)
+        detect_per_frame=opts.detect_per_frame, quant=opts.quant)
     tcfg = TrackerConfig(
         tracker=opts.tracker, kalman_format=opts.kalman_format,
         conf_thresh=opts.conf_thresh, iou_thresh=opts.iou_thresh,
@@ -238,20 +268,25 @@ def main(argv=None):
     state_dict = (load_detector_weights(opts.model_path, spec,
                                         opts.trust_model_path)
                   if opts.model_path else None)
+    seqs = seqmod.discover_sequences(
+        cfgs.get("DATASET_ROOT", "."), split=opts.split,
+        seqs=[s for s in (cfgs.get("CERTAIN_SEQS") or []) if s] or None,
+        ignore_seqs=[s for s in (cfgs.get("IGNORE_SEQS") or []) if s],
+        data_format=opts.data_format, split_txt=opts.split_txt or None)
+    quant_calib = None
+    if opts.quant == "int8" and seqs:
+        quant_calib = calibration_frames(seqmod.iter_frames(seqs[0]),
+                                         opts.img_size)
     pipe = TrackingPipeline(pcfg, tcfg, state_dict=state_dict, spec=spec,
-                            device=opts.device,
-                            reid_state_dict=reid_state_dict)
+                            device=device,
+                            reid_state_dict=reid_state_dict,
+                            quant_calib=quant_calib)
     linker = None
     if opts.aflink:
         from ..reid.aflink import load_postlinker
 
         linker = load_postlinker(opts.aflink, pipe.device)
 
-    seqs = seqmod.discover_sequences(
-        cfgs.get("DATASET_ROOT", "."), split=opts.split,
-        seqs=[s for s in (cfgs.get("CERTAIN_SEQS") or []) if s] or None,
-        ignore_seqs=[s for s in (cfgs.get("IGNORE_SEQS") or []) if s],
-        data_format=opts.data_format, split_txt=opts.split_txt or None)
     folder = os.path.join(
         opts.output_dir, f"{opts.tracker}_{time.strftime('%Y%m%d_%H%M%S')}")
     seq_fps = []

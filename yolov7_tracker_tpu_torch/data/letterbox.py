@@ -35,14 +35,20 @@ def letterbox_params(shape_hw: Tuple[int, int], new_shape: Tuple[int, int],
     return r, new_unpad, (dw / 2, dh / 2)
 
 
-def linear_resize_weights(in_size: int, out_size: int) -> np.ndarray:
+def linear_resize_weights(in_size: int, out_size: int,
+                          antialias: bool = False) -> np.ndarray:
     """(in_size, out_size) float32 triangle-kernel weights of
-    jax.image.resize(method="linear", antialias=False) along one axis."""
+    jax.image.resize(method="linear") along one axis. antialias=True is
+    jax.image.resize's default: when it shrinks, the kernel widens by
+    the inverse scale (a low-pass filter), which F.interpolate's bilinear
+    does not do in the same way."""
     inv_scale = np.float32(1.0 / (out_size / in_size))
     sample = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5))
               * inv_scale - np.float32(0.0) - np.float32(0.5))
     x = np.abs(sample[None, :]
                - np.arange(in_size, dtype=np.float32)[:, None])
+    if antialias:
+        x = x / np.maximum(inv_scale, np.float32(1.0))
     w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
     total = w.sum(axis=0, keepdims=True, dtype=np.float32)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
@@ -52,20 +58,23 @@ def linear_resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def _weights_on(in_size: int, out_size: int, device: torch.device,
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, antialias: bool) -> torch.Tensor:
     """linear_resize_weights on the device, built once per camera geometry
     (a 1920 -> 1088 matrix takes tens of ms to build on the host)."""
-    return torch.as_tensor(linear_resize_weights(in_size, out_size),
+    return torch.as_tensor(linear_resize_weights(in_size, out_size,
+                                                 antialias),
                            device=device, dtype=dtype)
 
 
-def resize_linear(x: torch.Tensor, uh: int, uw: int) -> torch.Tensor:
-    """Bilinear (B, H, W, C) -> (B, uh, uw, C) in x's dtype."""
+def resize_linear(x: torch.Tensor, uh: int, uw: int,
+                  antialias: bool = False) -> torch.Tensor:
+    """Bilinear (B, H, W, C) -> (B, uh, uw, C) in x's dtype, as
+    jax.image.resize(..., "linear", antialias=antialias)."""
     b, h, w, c = x.shape
-    wh = _weights_on(h, uh, x.device, x.dtype)
-    ww = _weights_on(w, uw, x.device, x.dtype)
+    wh = _weights_on(h, uh, x.device, x.dtype, antialias)
+    ww = _weights_on(w, uw, x.device, x.dtype, antialias)
     y = torch.matmul(wh.T, x.reshape(b, h, w * c))          # (B, uh, W*C)
     y = y.reshape(b, uh, w, c).permute(0, 1, 3, 2)          # (B, uh, C, W)
     y = torch.matmul(y, ww)                                 # (B, uh, C, uw)

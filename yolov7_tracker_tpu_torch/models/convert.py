@@ -18,7 +18,17 @@ covers the kinds the port builds:
   with an identity BN, a zero 1x1 branch and, where the module has an
   identity branch, a zero identity BN;
 - the Detect / IDetect / IAuxDetect / IBin heads (m, m2, ia, im) and
-  DetectV8 (cv2 / cv3 towers).
+  DetectV8 (cv2 / cv3 towers);
+- the zoo's tail (JAX convert.py:237-293): GhostConv (cv1, cv2), Ghost
+  (conv.0 / conv.2, and conv.1 / shortcut.0 / shortcut.1 at stride 2),
+  GhostSPPCSPC and the GhostCSP inner, the Swin v1 / v2 blocks and their
+  ST(2)CSP wrappers (Linear weights stay (out, in); v2's ``qkv.weight``
+  becomes the Flax-layout ``qkv_kernel``), RepConv_OREPA in training form
+  (deploy form raises, as in JAX), RobustConv and RobustConv2. JAX reads
+  the reference's ConvTranspose2d weight (in, out, kh, kw) as a Flax
+  (kh, kw, in, out) kernel, which Flax applies unflipped, i.e. flipped
+  in torch's terms; the port converts it the same way, so it computes
+  what the JAX package computes for such a checkpoint.
 
 ``state_dict_from_reference_ckpt`` unpickles a full reference checkpoint
 (``{'model' | 'ema': nn.Module}``, what the reference's train.py writes),
@@ -38,6 +48,11 @@ from .spec import CSP_KINDS, ModelSpec
 
 BN_EPS = 1e-5
 _HEADS = ("Detect", "IDetect", "IAuxDetect", "IBin")
+_STCSP = ("STCSPA", "STCSPB", "STCSPC", "ST2CSPA", "ST2CSPB", "ST2CSPC")
+_OREPA_LEAVES = ("weight_rbr_origin", "weight_rbr_avg_conv",
+                 "weight_rbr_pfir_conv", "weight_rbr_1x1_kxk_idconv1",
+                 "weight_rbr_1x1_kxk_conv2", "weight_rbr_gconv_dw",
+                 "weight_rbr_gconv_pw", "vector")
 
 
 def _strip(key: str) -> str:
@@ -96,6 +111,57 @@ def convert_state_dict(sd: Mapping[str, torch.Tensor], spec: ModelSpec
         if f"{s}.rbr_identity.weight" in src:
             bn(f"{dst}.rbr_identity", f"{s}.rbr_identity")
 
+    def ghost_conv(dst, s):
+        conv_bn(f"{dst}.cv1", f"{s}.cv1")
+        conv_bn(f"{dst}.cv2", f"{s}.cv2")
+
+    def ghost_block(dst, s):
+        ghost_conv(f"{dst}.conv0", f"{s}.conv.0")
+        ghost_conv(f"{dst}.conv2", f"{s}.conv.2")
+        if f"{s}.conv.1.conv.weight" in src:          # stride 2
+            conv_bn(f"{dst}.conv1", f"{s}.conv.1")
+            conv_bn(f"{dst}.shortcut0", f"{s}.shortcut.0")
+            conv_bn(f"{dst}.shortcut1", f"{s}.shortcut.1")
+
+    def copy(dst, s, *leaves):
+        for leaf in leaves:
+            out[f"{dst}.{leaf}"] = src[f"{s}.{leaf}"].clone()
+
+    def swin_block(dst, s, n_layers, v2):
+        if f"{s}.conv.conv.weight" in src:
+            conv_bn(f"{dst}.conv", f"{s}.conv")
+        for j in range(n_layers):
+            d, b = f"{dst}.blocks{j}", f"{s}.blocks.{j}"
+            for norm in ("norm1", "norm2"):
+                copy(f"{d}.{norm}", f"{b}.{norm}", "weight", "bias")
+            copy(f"{d}.mlp_fc1", f"{b}.mlp.fc1", "weight", "bias")
+            copy(f"{d}.mlp_fc2", f"{b}.mlp.fc2", "weight", "bias")
+            copy(f"{d}.attn.proj", f"{b}.attn.proj", "weight", "bias")
+            if v2:
+                out[f"{d}.attn.qkv_kernel"] = src[
+                    f"{b}.attn.qkv.weight"].T.contiguous()
+                copy(f"{d}.attn", f"{b}.attn", "q_bias", "v_bias",
+                     "logit_scale")
+                copy(f"{d}.attn.cpb_fc1", f"{b}.attn.cpb_mlp.0", "weight",
+                     "bias")
+                copy(f"{d}.attn.cpb_fc2", f"{b}.attn.cpb_mlp.2", "weight")
+            else:
+                copy(f"{d}.attn.qkv", f"{b}.attn.qkv", "weight", "bias")
+                copy(f"{d}.attn", f"{b}.attn",
+                     "relative_position_bias_table")
+
+    def orepa(dst, s):
+        if f"{s}.rbr_reparam.weight" in src:
+            raise NotImplementedError(
+                f"{s}: deploy-form RepConv_OREPA checkpoints are not "
+                "supported (nor in the JAX converter)")
+        copy(f"{dst}.rbr_dense", f"{s}.rbr_dense", *_OREPA_LEAVES)
+        bn(f"{dst}.rbr_dense.bn", f"{s}.rbr_dense.bn")
+        copy(f"{dst}.rbr_1x1_conv", f"{s}.rbr_1x1.conv", "weight")
+        bn(f"{dst}.rbr_1x1_bn", f"{s}.rbr_1x1.bn")
+        if f"{s}.rbr_identity.weight" in src:
+            bn(f"{dst}.rbr_identity", f"{s}.rbr_identity")
+
     for l in spec.layers:
         i, k = l.index, l.kind
         name, pre = f"layer{i}", f"{i}"
@@ -121,13 +187,13 @@ def convert_state_dict(sd: Mapping[str, torch.Tensor], spec: ModelSpec
                         conv_bn(f"{name}.{cv}", f"{pre}.{cv}")
         elif k in CSP_KINDS:
             variant, inner = CSP_KINDS[k][:2]
-            if inner == "ghost":
-                raise NotImplementedError(f"layer {i}: {k!r} is not ported "
-                                          "yet")
             for j in range(1, 5 if variant == "c" else 4):
                 conv_bn(f"{name}.cv{j}", f"{pre}.cv{j}")
             for j in range(l.args[0]):
                 d, s = f"{name}.m{j}", f"{pre}.m.{j}"
+                if inner == "ghost":
+                    ghost_block(d, s)
+                    continue
                 conv_bn(f"{d}.cv1", f"{s}.cv1")
                 if inner == "bottleneck":
                     conv_bn(f"{d}.cv2", f"{s}.cv2")
@@ -165,9 +231,38 @@ def convert_state_dict(sd: Mapping[str, torch.Tensor], spec: ModelSpec
                     for imp in ("ia", "im"):
                         out[f"head_{imp}_{h}.implicit"] = src[
                             f"{pre}.{imp}.{h}.implicit"].reshape(-1).clone()
+        elif k == "GhostConv":
+            ghost_conv(name, pre)
+        elif k == "Ghost":
+            ghost_block(name, pre)
+        elif k == "GhostSPPCSPC":
+            for j in range(1, 8):
+                ghost_conv(f"{name}.cv{j}", f"{pre}.cv{j}")
+        elif k in ("SwinTransformerBlock", "SwinTransformer2Block"):
+            swin_block(name, pre, l.args[1], k == "SwinTransformer2Block")
+        elif k in _STCSP:
+            for j in range(1, 5 if k.endswith("C") else 4):
+                conv_bn(f"{name}.cv{j}", f"{pre}.cv{j}")
+            swin_block(f"{name}.m", f"{pre}.m", l.args[0],
+                       k.startswith("ST2"))
+        elif k == "RepConv_OREPA":
+            orepa(name, pre)
+        elif k == "RobustConv":
+            conv_bn(f"{name}.conv_dw", f"{pre}.conv_dw")
+            copy(f"{name}.conv1x1", f"{pre}.conv1x1", "weight", "bias")
+            copy(name, pre, "gamma")
+        elif k == "RobustConv2":
+            conv_bn(f"{name}.conv_strided", f"{pre}.conv_strided")
+            # (in, out, kh, kw) read as Flax's (kh, kw, in, out), then
+            # the bridge's (out, in, kh, kw)
+            out[f"{name}.conv_deconv.weight"] = src[
+                f"{pre}.conv_deconv.weight"].permute(1, 0, 2, 3).contiguous()
+            copy(f"{name}.conv_deconv", f"{pre}.conv_deconv", "bias")
+            copy(name, pre, "gamma")
         elif k not in ("MP", "SP", "ReOrg", "Upsample", "Concat",
-                       "Shortcut"):
-            raise NotImplementedError(f"layer {i}: {k!r} is not ported yet")
+                       "Shortcut", "Contract", "Expand", "Chuncat",
+                       "Foldcut"):
+            raise NotImplementedError(f"layer {i}: unknown kind {k!r}")
     check_state_dict(out, spec)
     return out
 

@@ -4,8 +4,13 @@
 tree of ``yolov7_tracker_tpu.models.yolo.build_model`` as NUMPY arrays,
 before ``fuse_variables``, and returns the unfused state_dict of
 ``YoloV7(spec, fused=False)``: Flax (kh, kw, cin, cout) kernels become
-(cout, cin, kh, kw), BN scale/bias/mean/var and the implicit vectors
-carry across under the same module path. The port then folds them
+(cout, cin, kh, kw) (a ConvTranspose's (kh, kw, in, out) too:
+blocks.FlaxConvTranspose reads it so), Dense (in, out) kernels torch's
+(out, in), BN and LayerNorm scale/bias/mean/var and the implicit vectors
+carry across under the same module path, and raw parameters keep their
+name and layout (OREPA's OIHW branch kernels and ``vector``, Swin's
+``qkv_kernel``, ``q_bias``, ``v_bias``, ``logit_scale`` and bias table,
+LayerScale ``gamma``, MultiheadAttention's ``in_proj_*``). The port then folds them
 itself (models/fuse.py), so both packages compute the same detector.
 ``slab_from_numpy`` / ``slab_to_numpy`` carry tracker state across: the
 two packages' TrackSlabs have the same fields, so a slab of numpy leaves
@@ -50,8 +55,9 @@ def jax_params_to_torch(params_np: Mapping) -> Dict[str, torch.Tensor]:
     for path, leaf in _flatten(params_np):
         arr = np.asarray(leaf, np.float32)
         if path[-1] == "kernel":
-            arr = arr.transpose(3, 2, 0, 1)
-        sd[".".join(path[:-1] + (_PARAM_LEAF[path[-1]],))] = torch.tensor(arr)
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        leaf_name = _PARAM_LEAF.get(path[-1], path[-1])
+        sd[".".join(path[:-1] + (leaf_name,))] = torch.tensor(arr)
     return sd
 
 

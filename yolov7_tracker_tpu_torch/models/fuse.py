@@ -10,6 +10,13 @@ reference's fuse_repvgg_block); and IDetect's ImplicitA/ImplicitM fold
 into the lead head convs (``im * conv(x + ia)`` == a 1x1 conv with kernel
 k*im and bias (b + k.ia)*im), IAuxDetect's and IBin's alike: the fold is
 keyed by the ``head_ia_{i}`` names.
+
+What JAX's ``_fuse_node`` does not fold stays as it is here: RepConv_OREPA
+(its BNs have no ``conv`` beside them, and the block has no fused form),
+CrossConv's ``cv{1,2}_bn`` and MixConv2d's ``bn``. JAX's fuse_variables
+then drops every BN statistic, so its fused OREPA model cannot run; the
+port keeps those statistics, and its fused model runs the block in its
+training form.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ def fuse_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     out = dict(sd)
     for key in [k for k in sd if k.endswith(".bn.weight")]:
         prefix = key[:-len(".bn.weight")]
+        if f"{prefix}.conv.weight" not in sd:
+            continue            # a BN with no conv beside it: OREPA's
         out[f"{prefix}.conv.weight"], out[f"{prefix}.conv.bias"] = _fold(
             sd[f"{prefix}.conv.weight"], sd, f"{prefix}.bn")
         _pop_bn(out, f"{prefix}.bn")

@@ -37,7 +37,10 @@ from .spec import ModelSpec
 
 HEAD_KINDS = ("Detect", "IDetect", "IAuxDetect", "IBin", "DetectV8")
 _IMPLICIT_HEADS = ("IDetect", "IAuxDetect", "IBin")
-_PLAIN_KINDS = ("MP", "SP", "ReOrg", "Upsample", "Concat", "Shortcut")
+_PLAIN_KINDS = ("MP", "SP", "ReOrg", "Upsample", "Concat", "Shortcut",
+                "Contract", "Expand", "Chuncat", "Foldcut")
+_STCSP_KINDS = ("STCSPA", "STCSPB", "STCSPC", "ST2CSPA", "ST2CSPB",
+                "ST2CSPC")
 # the biased output convs of the heads: what the bias prior and the head
 # sharpening write, and what random_state_dict's gain leaves alone
 _HEAD_OUT = re.compile(r"head_m2?_\d+\.|head_cv[23]_\d+_2\.")
@@ -69,8 +72,8 @@ def _in_channels(spec: ModelSpec, layer) -> int:
     return spec.layers[layer.frm[0]].c_out if layer.index > 0 else 3
 
 
-def _layer_module(spec: ModelSpec, l, fused: bool):
-    """The nn.Module of one spec layer (JAX yolo.py:118-214), or None for
+def _layer_module(spec: ModelSpec, l, fused):
+    """The nn.Module of one spec layer (JAX yolo.py:118-243), or None for
     the kinds without parameters."""
     c1, c2, a = _in_channels(spec, l), l.c_out, l.args
     if l.kind == "Conv":
@@ -103,18 +106,45 @@ def _layer_module(spec: ModelSpec, l, fused: bool):
         return blocks.SPPF(c1, c2, k=a[0], fused=fused)
     if l.kind == "Focus":
         return blocks.Focus(c1, c2, k=a[0], s=a[1], fused=fused)
+    if l.kind == "RepConv_OREPA":       # no fused form (JAX yolo.py:134)
+        return blocks.RepConvOREPA(c1, c2, a[1])
+    if l.kind == "RobustConv":
+        return blocks.RobustConv(c1, c2, a[0], a[1], fused=fused)
+    if l.kind == "RobustConv2":
+        return blocks.RobustConv2(c1, c2, a[0], a[1], fused=fused)
+    if l.kind == "GhostSPPCSPC":
+        return blocks.GhostSPPCSPC(c1, c2, fused=fused)
+    if l.kind == "GhostConv":
+        return blocks.GhostConv(c1, c2, k=a[0], s=a[1], fused=fused)
+    if l.kind == "Ghost":
+        return blocks.Ghost(c1, c2, k=a[0], s=a[1], fused=fused)
+    if l.kind in ("SwinTransformerBlock", "SwinTransformer2Block"):
+        v2 = l.kind == "SwinTransformer2Block"
+        return blocks.SwinBlock(c1, c2, a[0], a[1], ws=7 if v2 else 8,
+                                v2=v2, fused=fused)
+    if l.kind in _STCSP_KINDS:
+        return blocks.STCSP(c1, c2, n=a[0], variant=l.kind[-1].lower(),
+                            v2=l.kind.startswith("ST2"), fused=fused)
     if l.kind in _PLAIN_KINDS:
         return None
-    raise NotImplementedError(
-        f"layer {l.index}: {l.kind!r} is not ported yet")
+    raise NotImplementedError(f"layer {l.index}: unknown kind {l.kind!r}")
+
 
 
 class YoloV7(nn.Module):
-    def __init__(self, spec: ModelSpec, fused: bool = False):
+    """fused: False (training form), True (BN, RepConv and ia / im
+    folded: models/fuse.py) or "int8" (the folded model with every
+    ConvBnAct and RepConv outside the heads in W8A8 form, models/
+    quant.py). The int8 model's float parameters stay float32, as the
+    JAX pipeline leaves them (pipeline.py:144-160); a layer that holds
+    some, and each head, takes its input promoted to float32, as Flax
+    promotes a bf16 input against float32 parameters."""
+
+    def __init__(self, spec: ModelSpec, fused=False):
         super().__init__()
         if spec.head_kind not in HEAD_KINDS:
             raise NotImplementedError(
-                f"head {spec.head_kind!r} is not ported yet")
+                f"unknown head {spec.head_kind!r}")
         self.spec = spec
         self.fused = fused
         head = spec.layers[-1]
@@ -125,12 +155,16 @@ class YoloV7(nn.Module):
             if l.index in needed:
                 needed.update(x for x in l.frm if x >= 0)
         self._needed = needed
+        self._float_in = set()
         for l in spec.layers[:-1]:
             m = _layer_module(spec, l, fused)
             if m is not None:
                 self.add_module(f"layer{l.index}", m)
+                # a QuantConv holds buffers: a parameter left is float
+                if fused == blocks.INT8 and any(True for _ in m.parameters()):
+                    self._float_in.add(l.index)
         if spec.head_kind == "DetectV8":
-            self._build_v8_head(fused)
+            self._build_v8_head(bool(fused))
             return
         na, no = spec.na, spec.no
         for i, src in enumerate(head.frm):
@@ -161,10 +195,15 @@ class YoloV7(nn.Module):
                 self.add_module(f"head_{br}_{i}_2",
                                 nn.Conv2d(cw, cout, 1, bias=True))
 
-    def forward(self, x, training: bool = False):
+    def forward(self, x, training: bool = False, every_layer: bool = False):
         """x: (B, H, W, 3) in [0, 1] -> the anchor heads' nl raw levels
         (B, ny, nx, na, no), or DetectV8's decoded predictions (B, N,
         5 + nc) [xywh, obj = 1, class scores] in float32.
+
+        every_layer=True also computes the layers that feed only the
+        auxiliary heads, as the JAX module does at inference (what
+        models/quant.calibrate needs to see every conv); the output is
+        the same.
 
         training=True is the JAX module's training call of the anchor
         heads: every layer runs, and every head's raw level comes back, nl
@@ -184,10 +223,12 @@ class YoloV7(nn.Module):
         saved = {}
         y = x
         for l in spec.layers[:-1]:
-            if not training and l.index not in self._needed:
+            if not (training or every_layer) and l.index not in self._needed:
                 continue
             inp = x if l.index == 0 else (
                 y if l.frm[0] == l.index - 1 else saved[l.frm[0]])
+            if l.index in self._float_in:
+                inp = inp.float()
             if l.kind == "MP":
                 y = blocks.mp(inp, l.args[0])
             elif l.kind == "SP":
@@ -196,9 +237,16 @@ class YoloV7(nn.Module):
                 y = blocks.reorg(inp)
             elif l.kind == "Upsample":
                 y = blocks.upsample_nearest(inp, l.args[0])
-            elif l.kind in ("Concat", "Shortcut"):
+            elif l.kind == "Contract":
+                y = blocks.contract(inp, l.args[0])
+            elif l.kind == "Expand":
+                y = blocks.expand(inp, l.args[0])
+            elif l.kind == "Foldcut":
+                y = blocks.foldcut(inp)
+            elif l.kind in ("Concat", "Shortcut", "Chuncat"):
                 parts = [y if i == l.index - 1 else saved[i] for i in l.frm]
                 y = (torch.cat(parts, dim=1) if l.kind == "Concat"
+                     else blocks.chuncat(parts) if l.kind == "Chuncat"
                      else functools.reduce(torch.add, parts))
             else:
                 y = getattr(self, f"layer{l.index}")(inp)
@@ -206,6 +254,8 @@ class YoloV7(nn.Module):
                 saved[l.index] = y
         heads = self._head_from if training else self._head_from[:spec.nl]
         feats = [saved[src] if src in saved else y for src in heads]
+        if self.fused == blocks.INT8:
+            feats = [f.float() for f in feats]
         if spec.head_kind == "DetectV8":
             return self._decode_v8(feats)
         raw = []
@@ -255,6 +305,33 @@ class YoloV7(nn.Module):
                 torch.ones_like(score[..., :1]), score],
                 dim=-1).reshape(b, ny * nx, 5 + spec.nc))
         return torch.cat(out, dim=1)
+
+
+def decoded(model: YoloV7, x: torch.Tensor) -> torch.Tensor:
+    """The inference output of the JAX module (its ``decoded``): (B, N,
+    no) [xywh pixels, obj, class scores], from DetectV8's head as it is
+    or from the anchor heads' raw levels through ``decode_levels``."""
+    out = model(x)
+    return out if model.spec.head_kind == "DetectV8" else decode_levels(
+        out, model.spec)
+
+
+def ensemble_apply(members, x: torch.Tensor, mode: str = "nms"
+                   ) -> torch.Tensor:
+    """Output-space ensemble (JAX yolo.py:592-614; models/experimental.py
+    Ensemble): every YoloV7 in ``members`` on the same input, their
+    decoded (B, N, no) predictions concatenated along the candidate axis
+    ('nms', for NMS to merge) or reduced elementwise ('mean', 'max';
+    members of one topology)."""
+    ys = [decoded(m, x) for m in members]
+    if mode == "nms":
+        return torch.cat(ys, dim=1)
+    stacked = torch.stack(ys)
+    if mode == "mean":
+        return stacked.mean(0)
+    if mode == "max":
+        return stacked.amax(0)
+    raise ValueError(f"unknown ensemble mode {mode!r}")
 
 
 def decode_levels(raw: List[torch.Tensor], spec: ModelSpec) -> torch.Tensor:
@@ -331,7 +408,11 @@ def random_state_dict(spec: ModelSpec, seed: int = 0, gain: float = 1.0):
     ``gain`` scales the std of every conv kernel but the heads' output
     convs: at 1.0 the signal of a deep model (yolov7-w6) dies out through
     its SiLU layers and the heads emit their biases whatever the image
-    shows."""
+    shows. The tail blocks' other leaves: Dense kernels and OREPA's
+    branch kernels lecun-normal as the convs, OREPA's ``vector`` around
+    its init rows, Swin's bias tables N(0, 0.02), and LayerScale
+    ``gamma`` in [0.5, 1.5] rather than 1e-6, so that seeded weights let
+    the image through those blocks."""
     g = torch.Generator().manual_seed(seed)
     model = YoloV7(spec, fused=False)
     sd = {k: v.clone() for k, v in model.state_dict().items()}
@@ -347,6 +428,20 @@ def random_state_dict(spec: ModelSpec, seed: int = 0, gain: float = 1.0):
             v.copy_(base + 0.02 * torch.randn(v.shape, generator=g))
         elif k.endswith(".bias") and head_out:
             v.zero_()
+        elif ((k.endswith("weight") and v.dim() == 2)
+              or k.endswith(("qkv_kernel", "in_proj_weight"))
+              or ".weight_rbr_" in k):
+            fan_in = v.shape[0] if k.endswith("qkv_kernel") else v[0].numel()
+            std = gain * math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std, generator=g)
+        elif k.endswith(".vector"):
+            base = torch.tensor([0.25, 0.25, 0.0, 0.5, 0.5]
+                                + [0.0] * (v.shape[0] - 5))
+            v.copy_(base[:, None] + 0.1 * torch.randn(v.shape, generator=g))
+        elif k.endswith("relative_position_bias_table"):
+            v.copy_(0.02 * torch.randn(v.shape, generator=g))
+        elif k.endswith(".gamma"):
+            v.copy_(0.5 + torch.rand(v.shape, generator=g))
     init_head_biases(sd, spec)
     return sd
 

@@ -32,8 +32,12 @@ the streaming modes one crop gather and one ReID forward serve the S
 frames of a tick. GMC differs between the modes: the sequence modes take
 the warps from the pipeline's own estimator (ECC or ORB); the streaming
 modes take the caller's warps (identity by default) and refuse a pipeline
-with its own GMC, which the JAX package would ignore there. Not in the
-port yet: int8, the width-packed front and spatial sharding.
+with its own GMC, which the JAX package would ignore there.
+
+``quant="int8"`` serves the W8A8 detector (models/quant.py), calibrated
+on ``quant_calib`` (synthetic batches when None); its float parameters
+stay float32 whatever ``dtype`` says, as in the JAX pipeline. Not in the
+port: the width-packed front (a TPU layout) and spatial sharding.
 """
 
 from __future__ import annotations
@@ -84,6 +88,9 @@ class PipelineConfig:
     detect_per_frame: int = 1      # detect on every k-th frame of the
                                    # sequence modes; the others run the
                                    # predict-only step
+    quant: str = "none"            # "none" | "int8": W8A8 static-PTQ
+                                   # detector (models/quant.py); needs
+                                   # fuse=True
 
 
 def pack_frame_output(outs: S.FrameOutput) -> torch.Tensor:
@@ -106,13 +113,15 @@ class TrackingPipeline:
     ReID model's weights (a torchreid / reference checkpoint's state_dict,
     loaded by reid.load_reid_state_dict); None means seeded random
     weights. device: None = the GPU (raises if there is none); pass "cpu"
-    to run on the CPU.
+    to run on the CPU. quant_calib: the int8 mode's calibration batches,
+    (B, H, W, 3) float images in [0, 1].
     """
 
     def __init__(self, pcfg: PipelineConfig, tcfg: S.TrackerConfig,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  spec=None, device=None, seed: int = 0,
-                 reid_state_dict: Optional[Dict[str, torch.Tensor]] = None):
+                 reid_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 quant_calib=None):
         self.device = resolve_device(device)
         self.pcfg = pcfg
         self.spec = spec or zoo.get_spec(pcfg.model, nc=pcfg.nc)
@@ -122,9 +131,22 @@ class TrackingPipeline:
             state_dict = fuse_state_dict(state_dict)
         self.dtype = (torch.bfloat16 if pcfg.dtype == "bfloat16"
                       else torch.float32)
-        model = YoloV7(self.spec, fused=pcfg.fuse)
+        if pcfg.quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant {pcfg.quant!r}; have none|int8")
+        fused = pcfg.fuse
+        params_dtype = self.dtype
+        if pcfg.quant == "int8":
+            if not pcfg.fuse:
+                raise ValueError("quant='int8' requires fuse=True")
+            from .models import quant as quant_mod
+
+            state_dict = quant_mod.quantize_state_dict(
+                self.spec, state_dict, calib_batches=quant_calib,
+                device=self.device)
+            fused, params_dtype = "int8", torch.float32
+        model = YoloV7(self.spec, fused=fused)
         model.load_state_dict(state_dict)
-        model = model.to(self.device, self.dtype).eval()
+        model = model.to(self.device, params_dtype).eval()
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         self.model = model
