@@ -244,6 +244,30 @@ Phases, each of which must pass:
                 bf16 ms. (f) cli/detect.py's loop on 16 frames, yolov7 at
                 640 px, float32: card vs CPU the same counts and classes,
                 boxes as detect_check says. Prints the models JSON line.
+ 13. parallel -- the parallel layer (no new kernel; K3 and K2 run on every
+                rank of (a)), each path at world 1 through NCCL (this
+                process) and at world 2 with both ranks on the one card
+                through gloo (spawned; gloo copies card tensors through
+                the host, so these runs are not under
+                set_sync_debug_mode("error"), and their times are a
+                correctness check's, not a scaling result). (a) ByteTrack
+                (128 / 300) sharded over the ranks on S = 8 streams of w6
+                detections (phase 3's frames, stream s offset by 2 s
+                frames): slabs and outputs bit for bit one process's
+                track_scan_multi, K3 and K2 once a frame on every rank
+                (counts set to 0 just before the run, read just after),
+                each rank's last stage-1 and stages-2+3 problems equal to
+                the plain versions'; ms a frame. (b) w6 (nc=80) at 1088 px
+                height-sharded on 1080x1920 frames: in float32 the raw
+                levels within PAR_LEVEL_TOL of each part's largest against
+                the unsharded model, the same NMS counts as detect_batch;
+                bf16 ms a frame beside detect_batch's. (c) w6 at 320 px in
+                float64, global batch 2, two steps (carry, apply): world 2
+                within PAR_TRAIN_TOL of world 1 (parameters, BN
+                statistics, EMA, momentum), the ranks bit for bit equal;
+                then bf16 at 1280 px, global batch 8: ms a step (median of
+                steps 4-12) and peak memory a rank. Prints the parallel
+                JSON line.
 Then K2 on the offline path's last stage-1 and stage-2/3 problems and on
 the last tick's 2S problems, K1 on step_frame's last problem and K3 on the
 last tick's are timed (ms, us per sweep, bound) and profiled (where a
@@ -251,8 +275,8 @@ solve's cycles go, by the profiling builds, which no path uses), and the
 problems are written to chiprun_out/chip_smoke/k2_problems.pt and
 square_problems.pt.
 It prints the trackers JSON line, the train JSON line, the train2 JSON
-line, the models JSON line, the kernel JSON line, the card's name and
-power limit, and last
+line, the models JSON line, the parallel JSON line, the kernel JSON line,
+the card's name and power limit, and last
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, if
 there is no CUDA device or if any phase fails. It imports nothing of JAX.
 
@@ -279,6 +303,11 @@ line.
 
 builds K2 and runs phase 12 alone, and prints its JSON line, no result
 line.
+
+    python3 chip_smoke.py --parallel-only
+
+builds K2 and K3 and runs phase 13 alone (phase 3's w6 built for it), and
+prints its JSON line, no result line.
 """
 
 from __future__ import annotations
@@ -3369,9 +3398,10 @@ def train_instruments(around=None, weights=None, start_step=0):
     make, make_state = ts.make_train_step, ts.make_train_state
 
     def seeded_state(spec, opt_cfg=ts.OptConfig(), seed=0, device=None,
-                     state_dict=None):
+                     state_dict=None, mesh=None):
         state = make_state(spec, opt_cfg, seed, device,
-                           state_dict if state_dict is not None else weights)
+                           state_dict if state_dict is not None else weights,
+                           mesh=mesh)
         state.step = start_step
         return state
 
@@ -5376,6 +5406,398 @@ def models_phase(dev, sd=None, pipe=None):
         f"{k} {v:.1f}" for k, v in times.items()) + ")")
     return rec, {"int8": rec["int8"]["k2_launches"]}
 
+# ---------------------------------------------------------------------------
+# phase 13: the parallel layer (parallel/{mesh,tracking,spatial}.py and the
+# data-parallel train step)
+# ---------------------------------------------------------------------------
+
+PAR_STREAMS = 8               # (a): ByteTrack streams over the ranks
+PAR_FRAMES = 16
+PAR_LEVEL_TOL = 1e-4          # (b): float32 raw levels, of each part's largest
+PAR_TIMED_FRAMES = 8          # (b): bf16 frames timed after 2 warm-ups
+PAR_TRAIN_TOL = 1e-6          # (c): float64, of each tensor's largest
+PAR_TIMED_BATCH = 8           # (c): the global batch of the bf16 steps
+PAR_TIMED_STEPS = 12
+PAR_IMG = 1088                # (b): phase 3's letterbox size
+# the two runs of each path: both ranks on the one card (gloo), one rank
+# (NCCL)
+PAR_WORLDS = (("world2_gloo", ["cuda:0", "cuda:0"]),
+              ("world1_nccl", ["cuda:0"]))
+
+
+def par_streams(pipe, frames):
+    """(a)'s input: phase 3's 16 frames through the w6 detector, stream s
+    taking frame (t + 2 s) % 16 at step t, as (T, S, 300, ...) numpy
+    arrays of DetSlab's fields."""
+    import torch
+
+    dets = []
+    for k in range(0, len(frames), 8):
+        boxes, score, cls, counts = pipe.detect_batch(np.stack(frames[k:k + 8]))
+        dets += [pipe.dets_to_slab(boxes[b], score[b], cls[b], counts[b])
+                 for b in range(boxes.shape[0])]
+    n = len(dets)
+    order = [[(t + 2 * s) % n for s in range(PAR_STREAMS)]
+             for t in range(PAR_FRAMES)]
+    fields = []
+    for f in range(5):
+        x = torch.stack([torch.stack([dets[i][f] for i in row])
+                         for row in order])
+        fields.append(x.cpu().numpy())
+    warp = np.broadcast_to(np.eye(2, 3, dtype=np.float32),
+                           (PAR_FRAMES, PAR_STREAMS, 2, 3)).copy()
+    return tuple(fields) + (warp,)
+
+
+def par_dets(dets, dev):
+    import torch
+
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    return S.DetSlab(*(torch.as_tensor(x, device=dev) for x in dets))
+
+
+def state_digest(state, dev):
+    """An exact digest of a TrainState's parameters, BN statistics, EMA,
+    momentum and gradient sum: each tensor's bits as integers, weighted by
+    position and summed (wrapping); two replicas are bit for bit equal
+    where their digests are (and, but for a collision, only there)."""
+    import torch
+
+    sd = state.state_dict()
+    tensors = [t for sec in ("model", "ema", "momentum", "grad_acc")
+               for t in (sd[sec] or {}).values() if t.is_floating_point()]
+    out = []
+    for t in tensors:
+        bits = t.detach().contiguous().view(
+            {8: torch.int64, 4: torch.int32, 2: torch.int16}[t.element_size()]
+        ).reshape(-1).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 1009 + 1
+        out.append((bits * w).sum())
+    return torch.stack(out).to(dev)
+
+
+def par_track(mesh, inp):
+    """(a) on this rank: the sharded ByteTrack scan (128 / 300) once to
+    warm up, then with the K3 / K2 counts set to 0 just before and read
+    just after, timed, and this rank's last stage-1 and stages-2+3
+    problems re-solved by the plain versions."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import auction
+    from yolov7_tracker_tpu_torch.ops import auction_square as square
+    from yolov7_tracker_tpu_torch.parallel import mesh as M
+    from yolov7_tracker_tpu_torch.parallel.tracking import (
+        make_sharded_tracker, stack_slabs)
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+    from yolov7_tracker_tpu_torch.trackers.registry import build_tracker
+
+    dev = mesh.device
+    step, cfg = build_tracker(S.TrackerConfig(
+        tracker="bytetrack", conf_thresh=0.5, capacity=128,
+        det_capacity=300), dev)
+    dets = par_dets(inp["dets"], dev)
+    tracker = make_sharded_tracker(step, mesh)
+    slabs0 = stack_slabs(cfg, PAR_STREAMS, dev)
+    tracker(slabs0, dets)
+    torch.cuda.synchronize()
+    auction.LAUNCHES = 0
+    square.LAUNCHES_K3 = 0
+    with path_solves(1) as kept:
+        t0 = time.time()
+        slabs, outs = tracker(slabs0, dets)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3 / PAR_FRAMES
+    launches = torch.tensor([[square.LAUNCHES_K3, auction.LAUNCHES]],
+                            device=dev)
+    path_solves_check(kept, f"13a {mesh.backend} rank {mesh.rank}", dev)
+    return {"ms_per_frame": ms,
+            "launches": M.gather_tensor(mesh, launches).tolist(),
+            "slabs": [x.cpu() for x in slabs],
+            "outs": [x.cpu() for x in outs]}
+
+
+def par_pipe(sd, dtype, dev):
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                   TrackingPipeline)
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    return TrackingPipeline(
+        PipelineConfig(model="yolov7-w6", nc=80, img_size=PAR_IMG,
+                       detector_batch=1, dtype=dtype, fuse=True),
+        S.TrackerConfig(tracker="bytetrack", capacity=128, det_capacity=300),
+        state_dict=sd, spec=zoo.get_spec("yolov7-w6", nc=80), device=dev)
+
+
+def par_spatial(mesh, inp):
+    """(b) on this rank: w6 (1088 px) height-sharded; in float32 the raw
+    levels of one frame and its detections, in bf16 ms a frame (median of
+    PAR_TIMED_FRAMES after 2 warm-ups)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.parallel.spatial import (
+        make_spatial_detector)
+
+    dev = mesh.device
+    sd = torch.load(inp["w6"], weights_only=True)
+    frames = inp["frames"]
+    pipe = par_pipe(sd, "float32", dev)
+    with torch.no_grad():
+        raw = make_spatial_detector(pipe.model, mesh)(
+            letterboxed(pipe, frames[:1], dev))
+    counts = pipe.detect_batch_spatial(frames[:1], mesh)[3]
+    del pipe
+    pipe = par_pipe(sd, "bfloat16", dev)
+    times = []
+    for k in range(PAR_TIMED_FRAMES + 2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pipe.detect_batch_spatial(frames[k % len(frames)][None], mesh)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    return {"raw": [r.cpu() for r in raw], "counts": counts.tolist(),
+            "bf16_ms_per_frame": float(np.median(times[2:]))}
+
+
+def par_train(mesh, inp, parity_out):
+    """(c) on this rank: two float64 steps of w6 at TRAIN_PARITY_IMG px
+    (global batch 2) from ni = TRAIN_PARITY_NI (carry, apply), the final
+    state's digest gathered from every rank, rank 0's state written to
+    ``parity_out``; then bf16 steps at TRAIN_IMG px on the global batch of
+    PAR_TIMED_BATCH: ms a step (median of steps 4-12), peak memory."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.parallel import mesh as M
+    from yolov7_tracker_tpu_torch.parallel import train_step as ts
+
+    dev = mesh.device
+    spec = zoo.get_spec("yolov7-w6", nc=80)
+    sd = torch.load(inp["parity"], weights_only=True)
+    cfg = ts.OptConfig(batch_size=2)
+    state = float64_state(ts.make_train_state(spec, cfg, state_dict=sd,
+                                              mesh=mesh))
+    state.step = TRAIN_PARITY_NI
+    step = ts.make_train_step(spec, img_size=TRAIN_PARITY_IMG, opt_cfg=cfg,
+                              mesh=mesh)
+    losses = []
+    for x, t, m in inp["parity_batches"]:
+        x, t, m = M.shard_batch(mesh, (x, t, m))
+        metrics = step(state, x.to(dev, torch.float64), t.to(dev), m.to(dev))
+        losses.append({k: float(v) for k, v in metrics.items()})
+    digests = M.gather_tensor(mesh, state_digest(state, dev)[None])
+    if mesh.rank == 0:
+        want = state.state_dict()
+        torch.save({sec: {k: v.cpu() for k, v in want[sec].items()}
+                    for sec in ("model", "ema", "momentum")}, parity_out)
+    ema_count = state.ema_count
+    del state, step
+    torch.cuda.empty_cache()
+
+    data = MemoryDataset(3 * PAR_TIMED_BATCH, TRAIN_IMG, seed=2)
+    batches = [to_input(b, torch.device("cpu"))
+               for b in data.batches(PAR_TIMED_BATCH)]
+    cfg = ts.OptConfig(batch_size=PAR_TIMED_BATCH, epochs=1,
+                       steps_per_epoch=PAR_TIMED_STEPS)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = ts.make_train_state(spec, cfg, state_dict=sd, mesh=mesh)
+    state.step = TRAIN_START_NI
+    step = ts.make_train_step(spec, img_size=TRAIN_IMG, opt_cfg=cfg,
+                              compute_dtype="bfloat16", mesh=mesh)
+    times = []
+    for i in range(PAR_TIMED_STEPS):
+        x, t, m = (v.to(dev) for v in M.shard_batch(mesh, batches[i % 3]))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        metrics = step(state, x, t, m)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+        assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del state, step
+    torch.cuda.empty_cache()
+    return {"parity_losses": losses, "ema_count": ema_count,
+            "digests": digests.tolist(),
+            "bf16_ms_per_step": float(np.median(times[3:])),
+            "bf16_steps_ms": times,
+            "peak_gib_per_rank": M.gather_tensor(
+                mesh, torch.tensor([peak / 2 ** 30], device=dev)).tolist()}
+
+
+def parallel_rank(mesh, path, parity_out):
+    """Phase 13 on one rank of a world: (a), (b), (c) in turn. Returns the
+    rank's record (rank 0's comes back to the launcher)."""
+    import torch
+
+    inp = torch.load(path, weights_only=False)
+    t0 = time.time()
+    rec = {"world": mesh.size, "backend": mesh.backend,
+           "track": par_track(mesh, inp)}
+    t1 = time.time()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        rec["spatial"] = par_spatial(mesh, inp)
+    t2 = time.time()
+    rec["train"] = par_train(mesh, inp, parity_out)
+    rec["seconds"] = {"a": t1 - t0, "b": t2 - t1, "c": time.time() - t2}
+    return rec
+
+
+def levels_rel(got, want):
+    """The worst |got - want| over the raw levels' parts (xy, wh,
+    objectness, class), each as a share of the part's largest |value|."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a = a.to(b.device).float()
+        for sl in (slice(0, 2), slice(2, 4), slice(4, 5), slice(5, None)):
+            pb = b[..., sl].float()
+            worst = max(worst, float((a[..., sl] - pb).abs().max()
+                                     / pb.abs().max()))
+    return worst
+
+
+def parallel_phase(dev, sd, pipe):
+    """Phase 13: the parallel layer on the one card, each path twice: at
+    world 1 through NCCL (this process) and at world 2 with both ranks on
+    the card through gloo (spawned; gloo copies card tensors through the
+    host, so these runs are not under set_sync_debug_mode("error"), and
+    their times are a correctness check's, not a scaling result).
+    (a) ByteTrack (128 / 300) sharded over the ranks, S = 8 streams of w6
+    detections: outputs and slabs bit for bit one process's
+    track_scan_multi, K3 and K2 once a frame on every rank, each rank's
+    last problems equal to the plain versions'. (b) w6 at 1088 px on
+    1080x1920 frames height-sharded: in float32 the raw levels within
+    PAR_LEVEL_TOL of each part's largest against the unsharded model and
+    the same NMS counts as detect_batch; bf16 ms a frame beside
+    detect_batch's. (c) data-parallel training: w6 at TRAIN_PARITY_IMG px
+    in float64, world 2 against world 1 on the same global batch of 2
+    after two steps (carry, apply) within PAR_TRAIN_TOL of each tensor's
+    largest value (parameters, BN statistics, EMA, momentum), the ranks'
+    states bit for bit equal (state_digest); then bf16 at TRAIN_IMG px on
+    a global batch of PAR_TIMED_BATCH: ms a step and peak memory a rank.
+    Returns (record, {"k3": launches, "k2": launches} by world)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.parallel import mesh as M
+
+    t0 = time.time()
+    frames = offline_frames()
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        dets = par_streams(pipe, frames)
+        spec = zoo.get_spec("yolov7-w6", nc=80)
+        torch.save(sd, os.path.join(root, "w6.pt"))
+        torch.save(parity_weights(spec), os.path.join(root, "parity.pt"))
+        data = MemoryDataset(4, TRAIN_PARITY_IMG, seed=1)
+        inp = {"dets": dets, "frames": np.stack(frames[:4]),
+               "w6": os.path.join(root, "w6.pt"),
+               "parity": os.path.join(root, "parity.pt"),
+               "parity_batches": [to_input(b, torch.device("cpu"))
+                                  for b in data.batches(2)]}
+        path = os.path.join(root, "inputs.pt")
+        torch.save(inp, path)
+        runs = {}
+        for name, devices in PAR_WORLDS:
+            out = os.path.join(root, f"{name}_parity.pt")
+            t1 = time.time()
+            runs[name] = M.launch(parallel_rank, len(devices), devices, path,
+                                  out)
+            runs[name]["launch_seconds"] = time.time() - t1
+            log(f"13 {name}: {runs[name]['seconds']}, launch "
+                f"{runs[name]['launch_seconds']:.1f} s")
+
+        # (a) against one process's scan on the card (a warm-up, then the
+        # timed run)
+        pipe.track_scan_multi(pipe.init_multistream(PAR_STREAMS),
+                              par_dets(dets, dev))
+        torch.cuda.synchronize()
+        t1 = time.time()
+        slabs, outs = pipe.track_scan_multi(
+            pipe.init_multistream(PAR_STREAMS), par_dets(dets, dev))
+        torch.cuda.synchronize()
+        one_ms = (time.time() - t1) * 1e3 / PAR_FRAMES
+        rec = {"a_one_process_ms_per_frame": one_ms}
+        for name, r in runs.items():
+            for a, b in zip(r["track"]["slabs"] + r["track"]["outs"],
+                            list(slabs) + list(outs)):
+                if not torch.equal(a.to(dev), b):
+                    raise AssertionError(f"13a {name}: the sharded scan "
+                                         "differs from track_scan_multi")
+            n = r["world"]
+            want = [[PAR_FRAMES, PAR_FRAMES]] * n
+            if r["track"]["launches"] != want:
+                raise AssertionError(f"13a {name}: K3 / K2 launches "
+                                     f"{r['track']['launches']}, want {want}")
+            rec[f"a_{name}_ms_per_frame"] = r["track"]["ms_per_frame"]
+        valid = int(outs.valid.sum())
+        assert valid > 0, "13a: no track on the streams"
+        rec["a_valid_outputs"] = valid
+
+        # (b) against the unsharded model and detect_batch
+        p32 = par_pipe(sd, "float32", dev)
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                         allow_tf32=False):
+            want = p32.model(letterboxed(p32, frames[:1], dev))
+            counts = p32.detect_batch(np.stack(frames[:1]))[3].tolist()
+        del p32
+        for name, r in runs.items():
+            err = levels_rel(r["spatial"]["raw"], want)
+            rec[f"b_{name}_level_rel_err"] = err
+            rec[f"b_{name}_bf16_ms_per_frame"] = r["spatial"][
+                "bf16_ms_per_frame"]
+            if err > PAR_LEVEL_TOL or r["spatial"]["counts"] != counts:
+                raise AssertionError(
+                    f"13b {name}: levels {err} (tolerance {PAR_LEVEL_TOL}), "
+                    f"counts {r['spatial']['counts']} vs {counts}")
+        rec["b_counts"] = counts
+        times = []
+        for k in range(PAR_TIMED_FRAMES + 2):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            pipe.detect_batch(frames[k % 4][None])
+            torch.cuda.synchronize()
+            times.append((time.time() - t1) * 1e3)
+        rec["b_detect_batch_bf16_ms_per_frame"] = float(np.median(times[2:]))
+
+        # (c) world 2 against world 1
+        w1 = torch.load(os.path.join(root, "world1_nccl_parity.pt"),
+                        weights_only=True)
+        w2 = torch.load(os.path.join(root, "world2_gloo_parity.pt"),
+                        weights_only=True)
+        err, where = state_rel_diff(w2, w1, ("model", "ema", "momentum"))
+        rec["c_float64_world2_vs_world1_rel_err"] = err
+        rec["c_worst_tensor"] = where
+        if err > PAR_TRAIN_TOL:
+            raise AssertionError(f"13c: world 2 parts from world 1 by {err} "
+                                 f"at {where}")
+        for name, r in runs.items():
+            t = r["train"]
+            digests = t["digests"]
+            if any(d != digests[0] for d in digests):
+                raise AssertionError(f"13c {name}: the replicas differ")
+            if t["ema_count"] != 1:
+                raise AssertionError(f"13c {name}: ema_count {t['ema_count']}")
+            rec[f"c_{name}_losses"] = t["parity_losses"]
+            rec[f"c_{name}_bf16_ms_per_step"] = t["bf16_ms_per_step"]
+            rec[f"c_{name}_peak_gib_per_rank"] = t["peak_gib_per_rank"]
+        for k in runs["world1_nccl"]["train"]["parity_losses"][-1]:
+            a = runs["world2_gloo"]["train"]["parity_losses"][-1][k]
+            b = runs["world1_nccl"]["train"]["parity_losses"][-1][k]
+            if abs(a - b) > TRAIN_REL_TOL * abs(b):
+                raise AssertionError(f"13c: loss {k} {a} vs {b}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.time() - t0
+    rec["card"] = card_line()
+    log(f"phase 13: {json.dumps(rec)}")
+    launches = {name: {"k3": [x[0] for x in r["track"]["launches"]],
+                       "k2": [x[1] for x in r["track"]["launches"]]}
+                for name, r in runs.items()}
+    return rec, launches
+
+
 def build_kernels(mods):
     """One nvcc per build, all started together; mods: (module, source,
     load_library arguments). Raises if a build failed."""
@@ -5478,6 +5900,9 @@ def main(argv=None):
     ap.add_argument("--models-only", action="store_true",
                     help="only phase 12 (int8 serving, TTA, ensembles, "
                          "export, the zoo's tail, the detection loop)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="only phase 13 (sharded tracking, height-sharded "
+                         "detection, data-parallel training)")
     ap.add_argument("--problems", default="",
                     help="with --square-only or --k2-only: the "
                          "square_problems.pt or k2_problems.pt written by a "
@@ -5514,6 +5939,14 @@ def main(argv=None):
         print(json.dumps({"models": models, "k2_launches": k2_models}))
         log("models-only run done (not the smoke run: no result line)")
         return 0
+    if args.parallel_only:
+        # built here, before any rank starts: every rank loads these
+        build_kernels([(auction, SOURCE, ()), (square, SOURCE_SQUARE, ())])
+        sd, pipe = build_w6(dev)
+        parallel, launches_par = parallel_phase(dev, sd, pipe)
+        print(json.dumps({"parallel": parallel, "launches": launches_par}))
+        log("parallel-only run done (not the smoke run: no result line)")
+        return 0
     t0 = time.time()
     build_kernels([(auction, SOURCE, ()), (square, SOURCE_SQUARE, ()),
                    (auction, SOURCE, (True,)),
@@ -5548,6 +5981,9 @@ def main(argv=None):
     train = train_phase(dev)
     train2, k2_train2 = train2_phase(dev, sd)
     models, k2_models = models_phase(dev, sd, pipe)
+    t13 = time.time()
+    parallel, launches_par = parallel_phase(dev, sd, pipe)
+    log(f"phase 13 {time.time() - t13:.1f} s")
 
     # K2 on the last frame's two solves, as the main path gave them, and on
     # the serving path's stages 2+3: one launch of B = 2 S problems
@@ -5577,6 +6013,8 @@ def main(argv=None):
               "launches_zoo": k2_zoo,
               "launches_train2": k2_train2,
               "launches_models": k2_models,
+              "launches_parallel": {w: v["k2"]
+                                    for w, v in launches_par.items()},
               "max_abs_err": float(worst), "library_ms": None, **t1,
               **{f"{k}_b2": v for k, v in t2.items()},
               **{f"{k}_serving": v for k, v in t16.items()}}
@@ -5600,6 +6038,8 @@ def main(argv=None):
               "launches": k3_launches,
               "launches_serving_reid": k3_serve_reid,
               "launches_deepmot_s8": k3_deepmot,
+              "launches_parallel": {w: v["k3"]
+                                    for w, v in launches_par.items()},
               "max_abs_err": float(worst_sq),
               "library_ms": None, **on_tick,
               "seeded_batches": {str(b): t for b, t in t_k3.items()}}
@@ -5608,6 +6048,7 @@ def main(argv=None):
     print(json.dumps({"train": train}))
     print(json.dumps({"train2": train2}))
     print(json.dumps({"models": models}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": [rec_k1, record, rec_k3]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1087,3 +1087,149 @@ def test_tail_cfgs_on_the_card_equal_the_cpu(card, full_float32, name):
             b.abs().max())) for a, b in zip(outs[key], outs["cpu"]))
 
     assert rel("card") <= ZOO_REL_TOL and rel("unfused") <= ZOO_REL_TOL
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer on one card: two ranks share it over gloo (a
+# correctness check: gloo moves the card's tensors through the host)
+# ---------------------------------------------------------------------------
+
+PAR_TRACK = dict(tracker="bytetrack", conf_thresh=0.5, capacity=16,
+                 det_capacity=16, track_buffer=3)
+
+
+def _launch_on(devices, body, *args):
+    """``body`` on one rank a device (gloo where a card repeats, NCCL for
+    one)."""
+    import datetime
+
+    from yolov7_tracker_tpu_torch.parallel import mesh as M
+
+    return M.launch(body, len(devices), devices, *args,
+                    timeout=datetime.timedelta(seconds=300))
+
+
+def _suite_on_the_card(card, tmp_path, cases):
+    from tests import torch_parallel_ranks as ranks
+
+    path = str(tmp_path / "cases.pt")
+    torch.save(cases, path)
+    return _launch_on([f"{card}:0"] * 2, ranks.suite, path)
+
+
+@pytest.mark.cuda
+def test_sharded_tracking_on_one_card(card, tmp_path):
+    """8 ByteTrack streams on two ranks of one card: each rank launches K3
+    (stage 1) and K2 (stages 2 + 3) once a frame for its 4 streams, and
+    the gathered slabs and outputs equal one process's track_scan_multi
+    on the card, bit for bit."""
+    from tests import torch_parallel_ranks as ranks
+    from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                   TrackingPipeline)
+    from yolov7_tracker_tpu_torch.trackers import slab as TS
+
+    auction.load_library()          # built once, before the ranks start
+    auction_square.load_library()
+    dets = ranks.det_streams(8, 12)
+    got = _suite_on_the_card(card, tmp_path, {
+        "track": {"cfg": PAR_TRACK, "dets": dets}})
+    assert got["world"] == (2, "gloo")
+    assert got["track"]["launches"].tolist() == [[12, 12], [12, 12]]
+    pipe = TrackingPipeline(PipelineConfig(model="yolov7-tiny", nc=1,
+                                           img_size=64, dtype="float32"),
+                            TS.TrackerConfig(**PAR_TRACK), device=card)
+    slabs, outs = pipe.track_scan_multi(
+        pipe.init_multistream(8),
+        TS.DetSlab(*(torch.from_numpy(x).to(card) for x in dets)))
+    for name, a, b in zip(TS.TrackSlab._fields + TS.FrameOutput._fields,
+                          got["track"]["slabs"] + got["track"]["outs"],
+                          tuple(slabs) + tuple(outs)):
+        assert torch.equal(a.to(card), b), name
+    assert int(outs.valid.sum()) > 200
+
+
+@pytest.mark.cuda
+def test_spatial_detection_on_one_card(card, full_float32, tmp_path):
+    """yolov7-tiny (nc 4, seeded, heads sharpened) height-sharded over two
+    ranks of one card in float32: the raw levels within 1e-4 of each
+    level's largest value against the unsharded model, and
+    detect_batch_spatial with detect_batch's counts and boxes."""
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.yolo import (random_state_dict,
+                                                      sharpen_heads)
+    from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                   TrackingPipeline)
+    from yolov7_tracker_tpu_torch.trackers.slab import TrackerConfig
+
+    spec = zoo.get_spec("yolov7-tiny", nc=4)
+    sd = random_state_dict(spec, seed=3)
+    sharpen_heads(sd, spec)
+    pcfg = dict(model="yolov7-tiny", nc=4, img_size=256, detector_batch=1,
+                dtype="float32", conf_thres=0.01)
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 255, (1, 240, 320, 3), np.uint8)
+    imgs = rng.uniform(0, 1, (1, 256, 256, 3)).astype(np.float32)
+    got = _suite_on_the_card(card, tmp_path, {"spatial": {
+        "model": "yolov7-tiny", "nc": 4, "pipe": pcfg, "state_dict": sd,
+        "imgs": imgs, "frames": frames}})["spatial"]
+    pipe = TrackingPipeline(PipelineConfig(**pcfg),
+                            TrackerConfig(capacity=16, det_capacity=16),
+                            state_dict=sd, spec=spec, device=card)
+    with torch.no_grad():
+        want = pipe.model(torch.from_numpy(imgs).to(card))
+    for a, b in zip(got["raw"], want):
+        assert float((a.to(card) - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    want = [x.cpu().numpy() for x in pipe.detect_batch(frames)]
+    got = [x.cpu().numpy() for x in got["detect"]]
+    np.testing.assert_array_equal(got[3], want[3])
+    n = int(want[3][0])
+    assert n > 10
+    np.testing.assert_allclose(np.sort(got[1][0, :n]),
+                               np.sort(want[1][0, :n]), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_data_parallel_train_step_on_one_card(card, tmp_path):
+    """Two train steps (ni 1003: accumulation carries, then applies) of the
+    narrow IAuxDetect model on a global batch of 4, float32 (TF32 off):
+    two ranks sharing the card (gloo) against one rank (NCCL). The ranks'
+    states equal bit for bit; against one rank, parameters, EMA,
+    momentum, gradient sum and BN statistics within 1e-4 of each tensor's
+    largest value, losses within 1e-4 relative."""
+    from tests import torch_parallel_ranks as ranks
+    from tests.torch_train_cfgs import narrow_aux_cfg, seeded_batch
+    from yolov7_tracker_tpu_torch.models.spec import parse_yaml_cfg
+    from yolov7_tracker_tpu_torch.parallel import train_step as ts
+
+    cfg = narrow_aux_cfg()
+    opt = dict(batch_size=16, nominal_batch=64, epochs=2, steps_per_epoch=4)
+    sd = ts.make_train_state(parse_yaml_cfg(cfg, name="aux"),
+                             ts.OptConfig(**opt), seed=0,
+                             device="cpu").state_dict()
+    sd["step"] = 1003
+    path = str(tmp_path / "case.pt")
+    torch.save({"spec_cfg": cfg, "opt": opt, "hyp": {}, "img": 128,
+                "runs": [(sd, [seeded_batch(0), seeded_batch(1)])]}, path)
+    out = {}
+    for n in (1, 2):
+        d = tmp_path / f"world{n}"
+        d.mkdir()
+        _launch_on([f"{card}:0"] * n, ranks.train_steps, path, str(d))
+        out[n] = [torch.load(str(d / f"rank{r}.pt"), weights_only=False)
+                  ["runs"][0] for r in range(n)]
+    for (a, ma), (b, mb) in zip(out[2][0], out[2][1]):
+        assert ma == mb
+        for sec in ("model", "ema", "momentum", "grad_acc"):
+            for k, v in a[sec].items():
+                assert torch.equal(v, b[sec][k]), (sec, k)
+    for (got, gm), (want, wm) in zip(out[2][0], out[1][0]):
+        for k, v in wm.items():
+            assert abs(gm[k] - v) <= 1e-4 * abs(v), (k, gm[k], v)
+        for sec in ("model", "ema", "momentum", "grad_acc"):
+            for k, v in want[sec].items():
+                if v.is_floating_point():
+                    err = float((got[sec][k] - v).abs().max())
+                    assert err <= 1e-4 * float(v.abs().max()) or err == 0.0, (
+                        sec, k, err)
+    assert [s["ema_count"] for s, _ in out[2][0]] == [0, 1]

@@ -4,7 +4,9 @@ package's msgpack weights, stride-8 head sharpened) print the same lines,
 and each overlay image is byte-equal to JAX's wherever every box's
 integer corners and label agree (checked on the two packages' own
 detections); apply_classifier keeps what JAX's keeps for the same
-classify_fn; --spatial_devices 2 is refused."""
+classify_fn; --spatial_devices 2 (two CPU ranks, height-sharded) writes
+what --spatial_devices 1 writes, and a frame too short for its ranks is
+refused."""
 
 import os
 
@@ -106,7 +108,28 @@ def test_apply_classifier_equals_jax():
     assert len(t_detect.apply_classifier(dets[:0], frame, classify)) == 0
 
 
-def test_spatial_devices_is_refused(images, tmp_path):
-    with pytest.raises(ValueError, match="--spatial_devices 2"):
-        t_detect.main(["--source", images, "--spatial_devices", "2",
-                       "--save_dir", str(tmp_path), "--device", "cpu"])
+def test_spatial_devices_is_refused(images, tiny_msgpack, tmp_path,
+                                    capfd):
+    """--spatial_devices 2 with --device cpu height-shards each frame over
+    two gloo ranks: the same printed lines and overlay bytes as one
+    device. Refused: more ranks than the letterboxed frame has rows of
+    the coarsest level (64 px: 2 rows of stride 32 for 3 ranks)."""
+    common = ["--source", images, "--model", "yolov7-tiny", "--nc", "1",
+              "--img_size", "160", "--weights", tiny_msgpack, "--conf",
+              "0.25", "--dtype", "float32", "--device", "cpu"]
+    out = {}
+    for n in (1, 2):
+        save = str(tmp_path / f"n{n}")
+        t_detect.main(common + ["--save_dir", save, "--spatial_devices",
+                                str(n)])
+        out[n] = _lines(capfd.readouterr().out, save)
+    assert out[2] == out[1] and len(out[1]) == len(SIZES)
+    assert sum(int(line.split(": ")[1].split()[0]) for line in out[1]) > 0
+    for name in sorted(os.listdir(images)):
+        with open(tmp_path / "n1" / name, "rb") as f1, \
+                open(tmp_path / "n2" / name, "rb") as f2:
+            assert f1.read() == f2.read(), name
+    with pytest.raises(Exception, match="H / max_stride"):
+        t_detect.main(common[:7] + ["64"] + common[8:]
+                      + ["--save_dir", str(tmp_path / "n3"),
+                         "--spatial_devices", "3"])

@@ -51,7 +51,9 @@ def test_port_imports_no_jax():
                     "cli.test", "models.ibin", "train.rank_losses",
                     "train.dhn_train", "train.autoanchor",
                     "train.evolve", "cli.detect", "data.converters",
-                    "models.tta", "models.export", "models.quant"):
+                    "models.tta", "models.export", "models.quant",
+                    "parallel.mesh", "parallel.tracking",
+                    "parallel.spatial"):
             assert "yolov7_tracker_tpu_torch." + new in names, new
         print("BAD", bad)
     """)

@@ -296,9 +296,11 @@ def test_train_state_round_trip_is_bit_exact(tmp_path):
     assert any(float(v.abs().max()) > 0 for v in want["grad_acc"].values())
 
 
-def test_clis_need_a_card_unless_cpu(tiny_dataset, tmp_path):
+def test_clis_need_a_card_unless_cpu(tiny_dataset, tmp_path, monkeypatch):
     """On a machine without a GPU the CLIs refuse to run unless --device
-    cpu is given; several cards and the DetectV8 head are refused."""
+    cpu is given; more card ranks than cards and the DetectV8 head are
+    refused; --n_devices 2 --device cpu trains on two gloo ranks and
+    leaves one run dir, rank 0's."""
     from yolov7_tracker_tpu_torch.parallel import train_step as ts
 
     args = [a for a in _common(tiny_dataset, tmp_path) if a not in (
@@ -309,9 +311,15 @@ def test_clis_need_a_card_unless_cpu(tiny_dataset, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             test_cli.main(["--weights", "x.pt", "--data",
                            str(tmp_path / "data.yaml")])
-    with pytest.raises(ValueError, match="several"):
-        train_cli.main(_common(tiny_dataset, tmp_path)
-                       + ["--n_devices", "2"])
     with pytest.raises(NotImplementedError, match="DetectV8"):
         ts.make_train_state(zoo.get_spec("yolov8n", nc=2), device="cpu")
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="2 card ranks asked for"):
+            train_cli.main(args + ["--epochs", "1", "--n_devices", "2"])
     assert not os.path.isdir(tmp_path / "runs")
+    run = train_cli.main(_common(tiny_dataset, tmp_path)
+                         + ["--epochs", "1", "--n_devices", "2"])
+    assert os.listdir(tmp_path / "runs") == [os.path.basename(run)]
+    assert {"last.pt", "step_4", "metrics.jsonl"} <= set(os.listdir(run))

@@ -8,7 +8,11 @@ Usage:
 Each image goes through ``TrackingPipeline.detect_batch`` alone (device
 letterbox, the detector, NMS, boxes in image pixels); the boxes are drawn
 on a copy, written to --save_dir under the image's name, and one line per
-image is printed. --weights is what cli/track.py's --model_path takes: a
+image is printed. ``--spatial_devices N`` (N > 1) height-shards each
+frame's forward over N ranks (``detect_batch_spatial``,
+parallel/spatial.py): the CLI starts them (NCCL, one card a rank; gloo
+with ``--device cpu``), every rank reads the same files, and rank 0
+writes the overlays and prints. --weights is what cli/track.py's --model_path takes: a
 Flax variables file (.msgpack / .npz), a reference checkpoint or a torch
 state_dict (seeded random weights when empty). Runs on the card unless
 --device says otherwise. ``detect_images`` is the detection loop without
@@ -40,8 +44,9 @@ def parse_args(argv=None):
     p.add_argument("--iou", type=float, default=0.45)
     p.add_argument("--save_dir", type=str, default="./detect_result")
     p.add_argument("--spatial_devices", type=int, default=0,
-                   help="0 or 1 = the one card (height-sharding a frame "
-                        "over several cards is not ported)")
+                   help="height-shard each frame's forward over this many "
+                        "ranks (when cards outnumber streams; "
+                        "parallel/spatial.py). 0/1 = one device")
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", type=str, default=None,
@@ -49,19 +54,14 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_pipeline(opts):
-    """The pipeline of the CLI's options: detector_batch 1, the default
-    tracker config (unused)."""
+def build_pipeline(opts, device=None):
+    """The pipeline of the CLI's options (on ``device`` when given):
+    detector_batch 1, the default tracker config (unused)."""
     from ..models import zoo
     from ..models.convert import load_detector_weights
     from ..pipeline import PipelineConfig, TrackingPipeline
     from ..trackers.slab import TrackerConfig
 
-    if opts.spatial_devices > 1:
-        raise ValueError(
-            f"--spatial_devices {opts.spatial_devices}: height-sharding a "
-            "frame over several cards is not ported; 0 or 1 detects on the "
-            "one card")
     spec = zoo.get_spec(opts.model, nc=opts.nc)
     state_dict = (load_detector_weights(opts.weights, spec)
                   if opts.weights else None)
@@ -70,17 +70,20 @@ def build_pipeline(opts):
                           iou_thres=opts.iou, detector_batch=1,
                           dtype=opts.dtype)
     return TrackingPipeline(pcfg, TrackerConfig(), state_dict=state_dict,
-                            spec=spec, device=opts.device)
+                            spec=spec, device=device or opts.device)
 
 
-def detect_images(pipe, images: Iterable[np.ndarray]
+def detect_images(pipe, images: Iterable[np.ndarray], mesh=None
                   ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray,
                                       int]]:
     """The CLI's detection loop: each (H, W, 3) uint8 BGR image alone
-    through ``pipe.detect_batch`` -> (boxes (n, 4) tlbr in image pixels,
-    scores (n,), classes (n,) int, n) on the host."""
+    through ``pipe.detect_batch`` (``detect_batch_spatial`` over ``mesh``
+    when given) -> (boxes (n, 4) tlbr in image pixels, scores (n,),
+    classes (n,) int, n) on the host."""
     for img in images:
-        boxes, scores, cls, counts = pipe.detect_batch(img[None])
+        boxes, scores, cls, counts = (
+            pipe.detect_batch(img[None]) if mesh is None
+            else pipe.detect_batch_spatial(img[None], mesh))
         n = int(counts[0])
         yield (boxes[0, :n].cpu().numpy(), scores[0, :n].cpu().numpy(),
                cls[0, :n].cpu().numpy().astype(int), n)
@@ -102,21 +105,39 @@ def draw(img: np.ndarray, boxes, scores, cls) -> np.ndarray:
 
 
 def main(argv=None):
+    opts = parse_args(argv)
+    if opts.spatial_devices > 1:
+        from .. import resolve_device
+        from ..parallel.mesh import launch
+
+        dev = resolve_device(opts.device)
+        return launch(_detect_files, opts.spatial_devices, dev.type, opts)
+    return _detect_files(None, opts)
+
+
+def _detect_files(mesh, opts):
+    """The CLI's files, on one device or, with ``mesh``, as one rank of
+    the height-sharded mode (rank 0 writes and prints)."""
     import cv2
 
-    opts = parse_args(argv)
-    pipe = build_pipeline(opts)
-    os.makedirs(opts.save_dir, exist_ok=True)
+    pipe = build_pipeline(opts, None if mesh is None else mesh.device)
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        os.makedirs(opts.save_dir, exist_ok=True)
+        if mesh is not None:
+            print(f"spatial mode: height-sharding over {mesh.size} ranks "
+                  f"({mesh.backend})")
     files = (sorted(os.path.join(opts.source, f)
                     for f in os.listdir(opts.source)
                     if f.lower().endswith((".jpg", ".jpeg", ".png", ".bmp")))
              if os.path.isdir(opts.source) else [opts.source])
     for path in files:
         img = cv2.imread(path)
-        (b, s, c, n), = detect_images(pipe, [img])
-        dst = os.path.join(opts.save_dir, os.path.basename(path))
-        cv2.imwrite(dst, draw(img, b, s, c))
-        print(f"{path}: {n} detections -> {dst}")
+        (b, s, c, n), = detect_images(pipe, [img], mesh)
+        if lead:
+            dst = os.path.join(opts.save_dir, os.path.basename(path))
+            cv2.imwrite(dst, draw(img, b, s, c))
+            print(f"{path}: {n} detections -> {dst}")
 
 
 def apply_classifier(dets: np.ndarray, frame: np.ndarray,

@@ -2,7 +2,7 @@
 yolov7_tracker_tpu/cli/train.py; the reference train.py / train_aux.py
 surface).
 
-One card: SGD + Nesterov with one-cycle LR and grouped weight decay,
+SGD + Nesterov with one-cycle LR and grouped weight decay,
 gradient accumulation to the nominal batch 64, EMA, bfloat16 autocast
 with float32 masters (parallel/train_step.py); torch checkpoints
 (``step_N/`` train states, ``best.pt`` / ``last.pt`` EMA weights); the
@@ -17,6 +17,16 @@ per-epoch mAP eval of cli/test.py; preemption-safe: SIGTERM / SIGINT (or
 The image-file data pipeline and its augmentations are OpenCV on the
 host (train/datasets.py). ``train_loop`` is the loop itself, for any
 dataset object with ``batches``, ``labels`` and ``len``.
+
+``--n_devices N`` trains data-parallel on N ranks (0: every visible card;
+one rank on the CPU), JAX's mesh with its global semantics
+(parallel/train_step.py): ``--batch`` is the global batch, every rank
+builds the same seeded batches and keeps its contiguous block of each
+(parallel/mesh.shard_batch), and rank 0 alone writes the run dir, the
+checkpoints, the artifact store and preempted.json, and runs the
+evaluation. The CLI starts the ranks itself (NCCL, one card a rank; gloo
+with ``--device cpu``) or joins the world of ``torchrun --nproc_per_node
+N -m yolov7_tracker_tpu_torch.cli.train ... --n_devices N``.
 """
 
 from __future__ import annotations
@@ -61,8 +71,8 @@ def parse_args(argv=None):
     p.add_argument("--eval_every", type=int, default=1,
                    help="epochs between val mAP evals; 0 disables")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="0 or 1 = the one card (data parallelism over "
-                        "several cards is not ported)")
+                   help="data-parallel ranks; 0 = every visible card (one "
+                        "rank on the CPU)")
     p.add_argument("--image_weights", action="store_true",
                    help="per-epoch weighted image sampling by class "
                         "rarity x (1 - per-class mAP)^2 (train.py:312)")
@@ -128,13 +138,20 @@ def main(argv=None):
     opts = parse_args(argv)
     from .. import resolve_device
 
-    resolve_device(opts.device)
-    if opts.n_devices > 1:
-        raise ValueError(
-            f"--n_devices {opts.n_devices}: data parallelism over several "
-            "cards is not ported; 0 or 1 trains on the one card")
+    import torch
+
+    dev = resolve_device(opts.device)
+    if "WORLD_SIZE" in os.environ:      # a rank of torchrun's world
+        n = opts.n_devices or int(os.environ["WORLD_SIZE"])
+    else:
+        n = opts.n_devices or (torch.cuda.device_count()
+                               if dev.type == "cuda" else 1)
     with open(opts.data) as f:
         data_cfg = yaml.safe_load(f)
+    if n > 1 or "WORLD_SIZE" in os.environ:
+        from ..parallel.mesh import launch
+
+        return launch(_train_rank, n, dev.type, opts, data_cfg)
 
     # Preemption safety (failure recovery the reference lacks — its
     # train.py dies on SIGTERM and utils/aws/resume.py restarts it from
@@ -156,7 +173,7 @@ def main(argv=None):
         except ValueError:  # not in main thread (embedded use)
             pass
     try:
-        return _train(opts, data_cfg, stop)
+        return _train(opts, data_cfg, stop, None)
     finally:
         # restore on every exit path — a raised SystemExit must not
         # leave the embedding process (pytest, a supervisor) with a
@@ -186,7 +203,28 @@ def load_hyp(path):
     return hyp_kw, aug_kw, opt_kw
 
 
-def _train(opts, data_cfg, stop):
+def _train_rank(mesh, opts, data_cfg):
+    """One rank of ``--n_devices N``: the loop on this rank's shards, with
+    SIGTERM / SIGINT setting its stop flag (the launcher passes them on),
+    and the host's random streams seeded alike on every rank (mixup draws
+    from numpy's global one), so that every rank builds the same global
+    batches. Returns the run dir (rank 0) or None."""
+    import random
+    import signal
+
+    stop = {"requested": False}
+
+    def _on_preempt(signum, frame):
+        stop["requested"] = True
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, _on_preempt)
+    random.seed(0)
+    np.random.seed(0)
+    return _train(opts, data_cfg, stop, mesh)
+
+
+def _train(opts, data_cfg, stop, mesh):
     from ..train.datasets import AugHyp, YoloDataset
     from ..utils.logging import plot_train_batch
 
@@ -201,26 +239,39 @@ def _train(opts, data_cfg, stop):
                          os.path.join(run_dir, f"train_batch{bi}.jpg"),
                          names=data_cfg.get("names", ()))
 
-    return train_loop(opts, data_cfg, dataset, stop, plot_batch=plot_batch)
+    return train_loop(opts, data_cfg, dataset, stop, plot_batch=plot_batch,
+                      mesh=mesh)
 
 
-def train_loop(opts, data_cfg, dataset, stop, plot_batch=None):
+def train_loop(opts, data_cfg, dataset, stop, plot_batch=None, mesh=None):
     """The training loop of ``main`` (parsed ``opts``, the dataset yaml as
     a dict) over ``dataset``: an object with ``batches(batch)`` (and
     ``quad_batches`` for --quad, ``resample_by_weights`` for
     --image_weights), ``labels`` and ``len``. ``plot_batch(run_dir, bi,
     imgs, tgts, masks)`` is called on the first three batches of the
     first epoch; the yaml's val path is scored by evaluate_map. Returns
-    the run dir."""
+    the run dir. Under a ``mesh`` (parallel/mesh.py) every rank runs it
+    on the same dataset and trains on its block of each batch; rank 0
+    alone writes and evaluates, and returns the run dir (the others
+    None)."""
     import torch
 
     from .. import resolve_device
     from ..models import zoo
+    from ..parallel import mesh as mesh_mod
     from ..parallel import train_step as ts
     from ..train.loss import Hyp
     from ..utils import checkpoint
 
-    dev = resolve_device(opts.device)
+    dev = resolve_device(opts.device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
+
+    def stopping():
+        # every rank stops at the same step
+        if mesh is not None:
+            stop["requested"] = mesh_mod.any_rank(mesh, stop["requested"])
+        return stop["requested"]
+
     hyp_kw, _, opt_kw = load_hyp(opts.hyp) if opts.hyp else ({}, {}, {})
     steps_per_epoch = max(len(dataset) // opts.batch, 1)
     spec = zoo.get_spec(opts.model, nc=int(data_cfg.get("nc", 80)))
@@ -230,12 +281,16 @@ def train_loop(opts, data_cfg, dataset, stop, plot_batch=None):
     )
     store = None
     run_name = opts.run_name or opts.model
-    if opts.artifacts:
+    if opts.artifacts and lead:
         from ..utils.artifacts import ArtifactStore
 
         store = ArtifactStore(opts.artifacts)
+    if opts.resume.startswith("artifact:") and mesh is not None:
+        raise SystemExit("--resume artifact:... needs one rank: resolve "
+                         "the artifact and pass its path")
 
-    state = ts.make_train_state(spec, opt_cfg=opt_cfg, device=dev)
+    state = ts.make_train_state(spec, opt_cfg=opt_cfg, device=dev,
+                                mesh=mesh)
     # checkpoint identity: stamped into every meta.json and required to
     # match for `--resume auto` candidates
     nc = int(data_cfg.get("nc", 80))
@@ -274,7 +329,7 @@ def train_loop(opts, data_cfg, dataset, stop, plot_batch=None):
         if size not in step_fns:
             step_fns[size] = ts.make_train_step(
                 spec, img_size=size, hyp=hyp, opt_cfg=opt_cfg,
-                compute_dtype="bfloat16",
+                compute_dtype="bfloat16", mesh=mesh,
             )
         return step_fns[size]
 
@@ -295,10 +350,14 @@ def train_loop(opts, data_cfg, dataset, stop, plot_batch=None):
     # (train.py:414-419 restores best_fitness from the ckpt the same way)
     best_fitness = float(resume_meta.get("best_fitness", 0.0))
     run_dir = os.path.join(opts.ckpt_dir, time.strftime("%Y%m%d_%H%M%S"))
-    os.makedirs(run_dir, exist_ok=True)
+    if not lead:
+        run_dir = None
+        plot_batch = None
+    else:
+        os.makedirs(run_dir, exist_ok=True)
     from ..utils.logging import MetricsLogger
 
-    logger = MetricsLogger(run_dir)
+    logger = MetricsLogger(run_dir) if lead else None
     data_ref = None
     last_ckpt_ref = resume_ref
     if store is not None:
@@ -310,16 +369,20 @@ def train_loop(opts, data_cfg, dataset, stop, plot_batch=None):
                       "n_images": len(dataset)},
         )
         logger.log_event({"artifact": data_ref, "kind": "dataset"})
-    print(f"training {opts.model} on {len(dataset)} images, "
-          f"{steps_per_epoch} steps/epoch, device={dev}")
+    if lead:
+        print(f"training {opts.model} on {len(dataset)} images, "
+              f"{steps_per_epoch} steps/epoch, device={dev}"
+              + (f", {mesh.size} ranks ({mesh.backend})" if mesh else ""))
 
     maps = np.zeros(nc)  # per-class mAPs from the latest eval
     ckpt_path = opts.resume or None
     for epoch in range(start_epoch, opts.epochs):
-        if stop["requested"]:
+        if stopping():
             # SIGTERM landed during the previous epoch's eval: the
             # epoch checkpoint is already on disk — exit before paying
             # for another optimizer step
+            if not lead:
+                return run_dir
             with open(os.path.join(run_dir, "preempted.json"), "w") as f:
                 json.dump({"epoch": epoch - 1, "step": int(state.step),
                            "ckpt": ckpt_path}, f)
@@ -354,6 +417,9 @@ def train_loop(opts, data_cfg, dataset, stop, plot_batch=None):
                                interpolation=cv2.INTER_LINEAR)
                     for im in imgs
                 ])
+            if mesh is not None:
+                imgs, tgts, masks = mesh_mod.shard_batch(
+                    mesh, (imgs, tgts, masks))
             # BGR uint8 -> RGB float [0, 1] on the device
             x = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
             x = x.flip(-1).float() / 255.0
@@ -364,11 +430,13 @@ def train_loop(opts, data_cfg, dataset, stop, plot_batch=None):
             if (opts.preempt_after
                     and int(state.step) >= opts.preempt_after):
                 stop["requested"] = True  # injected fault
-            if stop["requested"]:
+            if stopping():
                 # preemption: checkpoint NOW (mid-epoch), mark the epoch
                 # interrupted (meta epoch-1 => --resume restarts it),
                 # and exit cleanly for the supervisor to relaunch with
                 # --resume auto
+                if not lead:
+                    return run_dir
                 ckpt_path = checkpoint.save_train_state(
                     run_dir, state, int(state.step),
                     {"epoch": epoch - 1, "interrupted_epoch": epoch,
@@ -395,6 +463,12 @@ def train_loop(opts, data_cfg, dataset, stop, plot_batch=None):
                 return run_dir
         m = {k: float(np.mean([float(x[k]) for x in losses]))
              for k in losses[0]}
+        if not lead:
+            # rank 0 writes and evaluates; the others keep stepping with it
+            if stopping():
+                return run_dir
+            maps = _eval_maps(opts, data_cfg, epoch, mesh, maps)
+            continue
         logger.log(int(state.step), m, prefix="train")
         print(
             f"epoch {epoch}: loss {m['loss']:.4f} "
@@ -417,7 +491,7 @@ def train_loop(opts, data_cfg, dataset, stop, plot_batch=None):
             )
             logger.log_event({"artifact": last_ckpt_ref,
                               "kind": "checkpoint", "epoch": epoch})
-        if stop["requested"]:
+        if stopping():
             # SIGTERM landed during the epoch-end phase (after the last
             # batch-loop check): the epoch checkpoint above already
             # covers this state — skip eval and exit within the
@@ -429,8 +503,7 @@ def train_loop(opts, data_cfg, dataset, stop, plot_batch=None):
             print(f"preempted at end of epoch {epoch}: state saved to "
                   f"{ckpt_path}")
             return run_dir
-        if (data_cfg.get("val") and opts.eval_every > 0
-                and (epoch + 1) % opts.eval_every == 0):
+        if _evaluating(opts, data_cfg, epoch):
             from ..train.metrics import fitness
             from .test import evaluate_map
 
@@ -460,9 +533,31 @@ def train_loop(opts, data_cfg, dataset, stop, plot_batch=None):
                                   "map50": float(res["map50"])},
                         parents=[r for r in (last_ckpt_ref,) if r],
                     )
-    checkpoint.save_variables(os.path.join(run_dir, "last.pt"),
-                              state.ema_variables())
+            if mesh is not None:
+                maps = _eval_maps(opts, data_cfg, epoch, mesh, maps)
+    if lead:
+        checkpoint.save_variables(os.path.join(run_dir, "last.pt"),
+                                  state.ema_variables())
     return run_dir
+
+
+def _evaluating(opts, data_cfg, epoch) -> bool:
+    return bool(data_cfg.get("val") and opts.eval_every > 0
+                and (epoch + 1) % opts.eval_every == 0)
+
+
+def _eval_maps(opts, data_cfg, epoch, mesh, maps):
+    """Rank 0's per-class mAPs of this epoch's evaluation on every rank
+    (--image_weights resamples by them), else ``maps``."""
+    import torch
+
+    from ..parallel.mesh import replicate
+
+    if not _evaluating(opts, data_cfg, epoch):
+        return maps
+    t = torch.as_tensor(maps, dtype=torch.float64, device=mesh.device)
+    replicate(mesh, [t])
+    return t.cpu().numpy()
 
 
 if __name__ == "__main__":
@@ -473,5 +568,6 @@ if __name__ == "__main__":
     #       --resume auto; do sleep 5; done
     import sys as _sys
 
-    if os.path.isfile(os.path.join(run, "preempted.json")):
+    # a rank other than 0 (under torchrun) returns no run dir
+    if run and os.path.isfile(os.path.join(run, "preempted.json")):
         _sys.exit(75)

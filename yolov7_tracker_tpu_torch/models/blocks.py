@@ -29,6 +29,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -44,16 +45,63 @@ _STATS_SINK: contextvars.ContextVar = contextvars.ContextVar(
 
 
 @contextlib.contextmanager
-def batch_stats_sink(sink: List):
+def batch_stats_sink(sink: List, group=None):
     """Inside the block every BatchNorm2d in training mode normalises by
     its batch statistics and appends ``(module, mean, invstd)`` (float32,
     detached) to ``sink`` instead of updating its running statistics;
-    ``update_running_stats(sink)`` then applies Flax's update."""
-    token = _STATS_SINK.set(sink)
+    ``update_running_stats(sink)`` then applies Flax's update.
+
+    ``group``: a process group whose ranks each hold a shard of the batch.
+    With more than one rank the statistics are the global batch's, as
+    under the JAX package's GSPMD (``_global_batch_norm``), and every rank
+    reports the same ones."""
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    token = _STATS_SINK.set((sink, group))
     try:
         yield sink
     finally:
         _STATS_SINK.reset(token)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """all_reduce(SUM) whose backward is the all_reduce(SUM) of the
+    incoming gradient: every rank's loss depends on the summed value, so
+    each rank's share of its gradient is the sum of all ranks' gradients
+    with respect to it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduceSum.apply(g.contiguous(), ctx.group), None
+
+
+def _global_batch_norm(x, weight, bias, eps, group):
+    """Flax's training-mode BatchNorm (``_compute_stats``: mean(x) and
+    mean(x^2) in float32 at least, var = mean(x^2) - mean^2) over the
+    batch that the ranks of ``group`` hold together: one differentiable
+    all_reduce of the local sums, sums of squares and count, so that the
+    backward of the global mean and variance is global too. Returns (y,
+    mean, invstd)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(dt)
+    c = x.shape[1]
+    local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                       xf.new_full((1,), float(xf.numel() // c))])
+    tot = _AllReduceSum.apply(local, group)
+    mean = tot[:c] / tot[2 * c]
+    var = torch.clamp_min(tot[c:2 * c] / tot[2 * c] - mean * mean, 0.0)
+    invstd = torch.rsqrt(var + eps)
+    scale = (invstd * weight.to(dt))[None, :, None, None]
+    y = (xf - mean[None, :, None, None]) * scale + bias.to(dt)[
+        None, :, None, None]
+    return y.to(x.dtype), mean, invstd
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -61,14 +109,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``batch_stats_sink`` reports its batch statistics rather than folding
     them into the running ones: torch updates ``running_var`` with the
     unbiased batch variance, Flax (``_compute_stats``) with the biased
-    one, a factor n / (n - 1) apart. Anywhere else it is nn.BatchNorm2d."""
+    one, a factor n / (n - 1) apart. With a process group in the sink its
+    statistics are the ranks' global batch's. Anywhere else it is
+    nn.BatchNorm2d."""
 
     def forward(self, x):
-        sink = _STATS_SINK.get()
+        sink, group = _STATS_SINK.get() or (None, None)
         if not self.training or sink is None:
             return super().forward(x)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if group is None:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        else:
+            y, mean, invstd = _global_batch_norm(x, self.weight, self.bias,
+                                                 self.eps, group)
         sink.append((self, mean.detach(), invstd.detach()))
         return y
 
@@ -198,8 +252,39 @@ class ConvBnAct(nn.Module):
         return self.act(x)
 
 
+_ROW_HALO: contextvars.ContextVar = contextvars.ContextVar(
+    "row_halo", default=None)
+
+
+@contextlib.contextmanager
+def row_halo(halo: Callable):
+    """Inside the block ``x`` is one band of an image's rows
+    (parallel/spatial.py): ``max_pool`` takes the rows beyond the band's
+    edges from ``halo(x, top, bottom, fill)`` (x with ``top`` rows above
+    and ``bottom`` below, the neighbours' or ``fill`` beyond the image)
+    instead of padding there."""
+    token = _ROW_HALO.set(halo)
+    try:
+        yield halo
+    finally:
+        _ROW_HALO.reset(token)
+
+
+def halo_rows(k: int, s: int, p: int, d: int = 1):
+    """The rows a window op (kernel k, stride s, padding p, dilation d)
+    reads above and below a band whose edges are multiples of s: output
+    row o reads input rows o * s - p .. o * s - p + d * (k - 1)."""
+    return p, max(d * (k - 1) - p - s + 1, 0)
+
+
 def max_pool(x, k: int, s: int, pad: int):
-    return F.max_pool2d(x, k, s, pad)
+    halo = _ROW_HALO.get()
+    if halo is None or (pad == 0 and k <= s):
+        return F.max_pool2d(x, k, s, pad)
+    h = x.shape[2]
+    top, bottom = halo_rows(k, s, pad)
+    y = F.max_pool2d(halo(x, top, bottom, float("-inf")), k, s, (0, pad))
+    return y[:, :, :h // s]
 
 
 def mp(x, k: int = 2):

@@ -138,7 +138,14 @@ class YoloV7(nn.Module):
     quant.py). The int8 model's float parameters stay float32, as the
     JAX pipeline leaves them (pipeline.py:144-160); a layer that holds
     some, and each head, takes its input promoted to float32, as Flax
-    promotes a bf16 input against float32 parameters."""
+    promotes a bf16 input against float32 parameters.
+
+    ``level_hook`` (JAX's ``decode_hook``, yolo.py:78): None, or a
+    function applied to each head level's output, (B, C, ny, nx), before
+    it is reshaped or decoded; parallel/spatial.py gathers a
+    height-sharded level there."""
+
+    level_hook = None
 
     def __init__(self, spec: ModelSpec, fused=False):
         super().__init__()
@@ -267,6 +274,8 @@ class YoloV7(nn.Module):
                 feat)
             if lead and hasattr(self, f"head_im_{i}"):
                 p = getattr(self, f"head_im_{i}")(p)
+            if self.level_hook is not None:
+                p = self.level_hook(p)
             b, _, ny, nx = p.shape
             raw.append(p.permute(0, 2, 3, 1).reshape(b, ny, nx, spec.na,
                                                      spec.no))
@@ -287,6 +296,8 @@ class YoloV7(nn.Module):
             for j in range(3):
                 d = getattr(self, f"head_cv2_{i}_{j}")(d)
                 c = getattr(self, f"head_cv3_{i}_{j}")(c)
+            if self.level_hook is not None:
+                d, c = self.level_hook(d), self.level_hook(c)
             b, _, ny, nx = d.shape
             dev = d.device
             bins = torch.arange(reg, dtype=torch.float32, device=dev)

@@ -1,5 +1,6 @@
-"""The detector's training step on one card (port of
-yolov7_tracker_tpu/parallel/train_step.py, without the mesh).
+"""The detector's training step, on one card or data-parallel over the
+ranks of a ``parallel.mesh.DataMesh`` (port of
+yolov7_tracker_tpu/parallel/train_step.py).
 
 Optimizer parity with the reference (train.py:115-196): SGD with Nesterov
 momentum in three groups named by the Flax leaf each parameter maps to
@@ -23,6 +24,16 @@ averaged and follow Flax's update (models/blocks.BatchNorm2d).
 bfloat16 compute is ``torch.autocast`` with float32 masters and the loss
 on float32 preds; ``remat=True`` recomputes the forward in the backward
 (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``).
+
+Data parallelism keeps the JAX step's global semantics, which its
+single-controller view gets for free and torch DDP would change: each rank
+holds a contiguous block of the global batch (mesh.shard_batch), the
+BatchNorm statistics are the global batch's (blocks.batch_stats_sink with
+the mesh's group), the loss normalisers are global (train/loss.py
+``group=``), so each rank's loss is its share of JAX's and one
+all_reduce(SUM) of the gradients, not an average, gives JAX's gradient;
+the update is then the same on every rank, and the replicas stay bit for
+bit equal.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from ..models.spec import ModelSpec
 from ..models.yolo import YoloV7, random_state_dict
 from ..train.loss import (Hyp, compute_loss, compute_loss_aux_ota,
                           compute_loss_ota)
+from .mesh import all_reduce_, replicate
 
 F32 = np.float32
 
@@ -209,13 +221,16 @@ class TrainState:
 
 def make_train_state(spec: ModelSpec, opt_cfg: OptConfig = OptConfig(),
                      seed: int = 0, device=None,
-                     state_dict: Optional[Mapping] = None) -> TrainState:
-    """A fresh state on ``device`` (default: the card): seeded random
-    weights with the head-bias prior (models/yolo.random_state_dict, as
-    JAX's build_model calls its init_head_biases), or ``state_dict``."""
+                     state_dict: Optional[Mapping] = None,
+                     mesh=None) -> TrainState:
+    """A fresh state on ``device`` (default: the card; the mesh's device
+    under a mesh): seeded random weights with the head-bias prior
+    (models/yolo.random_state_dict, as JAX's build_model calls its
+    init_head_biases), or ``state_dict``. Under a ``mesh`` the parameters
+    and buffers are rank 0's on every rank."""
     from .. import resolve_device
 
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if mesh is not None else device)
     if spec.head_kind == "DetectV8":
         raise NotImplementedError(
             "DetectV8 has no training loss in the JAX package (its "
@@ -231,6 +246,8 @@ def make_train_state(spec: ModelSpec, opt_cfg: OptConfig = OptConfig(),
     model.load_state_dict(state_dict if state_dict is not None
                           else random_state_dict(spec, seed=seed))
     model = model.to(dev).train()
+    if mesh is not None:
+        replicate(mesh, model)
     acc = accumulating(opt_cfg)
     if acc:
         for p in model.parameters():
@@ -281,14 +298,33 @@ def _apply_update(state: TrainState, cfg: OptConfig) -> None:
     state.optimizer.zero_grad(set_to_none=not state.accumulate)
 
 
+def _reduce_grads(state: TrainState, loss, mesh) -> None:
+    """Backward of this rank's loss, then one all_reduce(SUM) of the
+    gradients a dtype (flattened), added to the pending sum when
+    accumulating (JAX: acc + grads) or set as the gradients."""
+    params = list(state.model.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    all_reduce_(mesh, grads)
+    for p, g in zip(params, grads):
+        if p.grad is None:
+            p.grad = g
+        else:
+            p.grad.add_(g)
+
+
 def make_train_step(spec: ModelSpec, img_size: int = 640, hyp: Hyp = Hyp(),
                     opt_cfg: OptConfig = OptConfig(),
-                    compute_dtype: str = "float32", remat: bool = False):
+                    compute_dtype: str = "float32", remat: bool = False,
+                    mesh=None):
     """(state, imgs (B, H, W, 3) in [0, 1], targets (B, T, 5), tmask
     (B, T)) -> metrics {box, obj, cls, loss} (device tensors); updates
     ``state`` in place. IAuxDetect models train with the aux loss (the
     reference's train_aux.py path), others with SimOTA or, at hyp
-    loss_ota = 0, the plain loss."""
+    loss_ota = 0, the plain loss. Under a ``mesh`` the arguments are this
+    rank's shard of the global batch, and the metrics are the global
+    batch's (see the module docstring)."""
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {compute_dtype!r}")
     if spec.head_kind == "IAuxDetect":
@@ -297,13 +333,14 @@ def make_train_step(spec: ModelSpec, img_size: int = 640, hyp: Hyp = Hyp(),
         loss_fn = compute_loss_ota if hyp.loss_ota else compute_loss
         n_heads = spec.nl
     acc = accumulating(opt_cfg)
+    group = mesh.group if mesh is not None else None
 
     def step(state: TrainState, imgs, targets, tmask):
         model = state.model
         sink = []
 
         def forward(x):
-            with blocks.batch_stats_sink(sink):
+            with blocks.batch_stats_sink(sink, group):
                 return tuple(model(x, training=True)[:n_heads])
 
         dev = imgs.device
@@ -319,8 +356,11 @@ def make_train_step(spec: ModelSpec, img_size: int = 640, hyp: Hyp = Hyp(),
         # update reads this forward's statistics only
         blocks.update_running_stats(list(sink))
         loss, metrics = loss_fn([p.float() for p in preds], targets, tmask,
-                                spec, img_size, hyp)
-        loss.backward()
+                                spec, img_size, hyp, group=group)
+        if mesh is None:
+            loss.backward()
+        else:
+            _reduce_grads(state, loss, mesh)
         ni = state.step
         if not acc or F32(ni) % F32(accumulate_schedule(opt_cfg, ni)) == 0:
             _apply_update(state, opt_cfg)

@@ -37,7 +37,9 @@ with its own GMC, which the JAX package would ignore there.
 ``quant="int8"`` serves the W8A8 detector (models/quant.py), calibrated
 on ``quant_calib`` (synthetic batches when None); its float parameters
 stay float32 whatever ``dtype`` says, as in the JAX pipeline. Not in the
-port: the width-packed front (a TPU layout) and spatial sharding.
+port: the width-packed front (a TPU layout). ``detect_batch_spatial``
+height-shards the detector over the ranks of a mesh
+(parallel/spatial.py).
 """
 
 from __future__ import annotations
@@ -161,6 +163,7 @@ class TrackingPipeline:
         self._anchors = torch.as_tensor(self.spec.anchors_per_level(),
                                         device=self.device)
         self._geometry_cache: Dict[Tuple[int, int], tuple] = {}
+        self._spatial: Dict[tuple, object] = {}
         self.reid_model, self.reid_hw = None, None
         if pcfg.reid != "none":
             if self.tcfg.feature_dim <= 0:
@@ -210,6 +213,31 @@ class TrackingPipeline:
         imgs, _ = letterbox.device_preprocess(
             frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=self.dtype)
         dets, counts = self.nms(self.model(imgs))
+        boxes = letterbox.scale_coords_device(dets[..., :4], out_hw, src_hw)
+        return boxes, dets[..., 4], dets[..., 5], counts
+
+    @torch.no_grad()
+    def detect_batch_spatial(self, frames_u8, mesh):
+        """``detect_batch`` with the detector's forward height-sharded over
+        the ranks of ``mesh`` (parallel/spatial.py): the low-latency mode
+        when cards outnumber streams. Every rank passes the same frames,
+        letterboxes them alike, computes its band of rows with the others'
+        halos, and gets the whole frame's head levels back, then the same
+        NMS and rescale as ``detect_batch``; the contract and the outputs
+        are ``detect_batch``'s. The JAX package's spatial mode takes its
+        decoded-path NMS (pipeline.py:280); the port keeps its own NMS by
+        head kind here too, so both modes give the same detections."""
+        from .parallel.spatial import make_spatial_detector
+
+        key = (id(mesh.group), mesh.size, mesh.rank)
+        if key not in self._spatial:
+            self._spatial = {key: make_spatial_detector(self.model, mesh)}
+        frames = self._frames(frames_u8)
+        src_hw = tuple(frames.shape[1:3])
+        out_hw, unpad_hw = self._geometry(src_hw)
+        imgs, _ = letterbox.device_preprocess(
+            frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=self.dtype)
+        dets, counts = self.nms(self._spatial[key](imgs))
         boxes = letterbox.scale_coords_device(dets[..., :4], out_hw, src_hw)
         return boxes, dets[..., 4], dets[..., 5], counts
 

@@ -35,6 +35,7 @@ import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.ibin import (BIN_MAX, BIN_MIN, _REG_SCALE, _STEP, bin_centers,
@@ -303,9 +304,13 @@ def _bin_training(logits, target, m, n_m):
 
 
 def _layer_loss_terms(p, li, assign, targets, spec, img_size, hyp, cp, cn,
-                      gr: float = 1.0, bin_wh: bool = False):
+                      gr: float = 1.0, bin_wh: bool = False, n_m=None,
+                      n_images=None):
     """One level's (box, objectness BCE mean, cls) terms. gr blends the
     objectness target: (1 - gr) + gr * iou (model.gr, loss.py:476).
+    ``n_m`` and ``n_images``: the level's positive count and the batch
+    size over every rank of a data-parallel step (``_global_counts``);
+    None: this call's own.
     bin_wh: the IBin head's terms (JAX ``_layer_loss_terms_bin``,
     ComputeLossBinOTA __call__, utils/loss.py:882-950): the box term adds
     the SigmoidBin w and h losses, its CIoU takes the target-bin decode,
@@ -336,7 +341,8 @@ def _layer_loss_terms(p, li, assign, targets, spec, img_size, hyp, cp, cn,
     grid = torch.stack([gi, gj], dim=-1).float()
     t_box = torch.cat([t_grid[..., :2] - grid, t_grid[..., 2:]], dim=-1)
 
-    n_m = torch.clamp_min(m.sum(), 1)
+    if n_m is None:
+        n_m = torch.clamp_min(m.sum(), 1)
     pxy = torch.sigmoid(ps[..., :2]) * 2.0 - 0.5
     anc = anchors_grid[None, None, :, None, :]
     if bin_wh:
@@ -360,8 +366,9 @@ def _layer_loss_terms(p, li, assign, targets, spec, img_size, hyp, cp, cn,
     tobj = torch.zeros((b, ny * nx * na), dtype=val.dtype, device=dev)
     tobj = tobj.scatter_reduce(1, flat_b, val.reshape(b, -1), "amax",
                                include_self=True)
-    obj_i = _bce(p[..., obj].reshape(b, -1), tobj, pos_weight=hyp.obj_pw
-                 ).mean()
+    obj_bce = _bce(p[..., obj].reshape(b, -1), tobj, pos_weight=hyp.obj_pw)
+    obj_i = (obj_bce.mean() if n_images is None
+             else obj_bce.sum() / (n_images * obj_bce.shape[1]))
 
     lcls_i = 0.0
     if nc > 1:
@@ -373,47 +380,85 @@ def _layer_loss_terms(p, li, assign, targets, spec, img_size, hyp, cp, cn,
     return lbox_i, obj_i, lcls_i
 
 
-def _total(lbox, lobj, lcls, hyp: Hyp, bsz: int):
+def _global_counts(assigns, nl: int, bsz: int, group):
+    """Each assignment's per-level positive counts n_m (at least 1) and
+    the batch size, summed over the ranks of ``group`` (one all_reduce):
+    JAX's normalisers, which its global view computes over the whole
+    batch (loss.py:359, :375, :387-391). Without a group: (None, None),
+    each level's own."""
+    if group is None:
+        return [None] * len(assigns) * nl, None
+    m = [a["matched"][:, :, li].sum() for a in assigns for li in range(nl)]
+    counts = torch.stack(m + [torch.as_tensor(bsz, device=m[0].device)])
+    dist.all_reduce(counts, group=group)
+    return list(torch.clamp_min(counts[:-1], 1)), counts[-1]
+
+
+def _group(group):
+    """None for no group or a one-rank one."""
+    if group is None:
+        return None
+    return group if dist.get_world_size(group) > 1 else None
+
+
+def _total(lbox, lobj, lcls, hyp: Hyp, bsz, group=None):
+    """The loss times the batch size, and its parts. Under a group of
+    ranks (``bsz`` the global batch) each rank's loss is its share of the
+    global loss, so the ranks' gradients sum to its gradient, and the
+    parts are the global ones."""
     # lcls stays the float 0.0 when nc == 1
     lcls = torch.as_tensor(lcls, dtype=lbox.dtype, device=lbox.device)
     lbox = lbox * hyp.box
     lobj = lobj * hyp.obj
     lcls = lcls * hyp.cls
     total = lbox + lobj + lcls
-    return total * bsz, {"box": lbox, "obj": lobj, "cls": lcls,
-                         "loss": total}
+    parts = {"box": lbox, "obj": lobj, "cls": lcls, "loss": total}
+    if group is not None:
+        summed = torch.stack([v.detach() for v in parts.values()])
+        dist.all_reduce(summed, group=group)
+        parts = dict(zip(parts, summed))
+    return total * bsz, parts
 
 
 def compute_loss_ota(preds: List[torch.Tensor], targets, tmask,
-                     spec: ModelSpec, img_size: int, hyp: Hyp = Hyp()):
+                     spec: ModelSpec, img_size: int, hyp: Hyp = Hyp(),
+                     group=None):
     """ComputeLossOTA. preds: nl x (B, ny, nx, na, no) raw heads (float32);
     targets (B, T, 5) normalised; tmask (B, T). Returns the total loss
     times the batch size and the (box, obj, cls, loss) parts, as the
-    reference returns them (utils/loss.py:633-636)."""
+    reference returns them (utils/loss.py:633-636). ``group``: the process
+    group of a data-parallel step, whose ranks hold shards of the batch:
+    the normalisers are then the global batch's (``_global_counts``,
+    ``_total``); SimOTA is per image and needs none."""
+    group = _group(group)
     nl = spec.nl
     anchors_px = _anchors(spec, preds[0].device)
     bsz = preds[0].shape[0]
     preds_flat, metas = _flatten_preds(preds)
     assign = simota_assign(preds_flat, metas, spec.strides, anchors_px,
                            targets, tmask, img_size, spec.nc, hyp)
+    n_ms, n_img = _global_counts([assign], nl, bsz, group)
     cp, cn = smooth_bce(hyp.label_smoothing)
     balance = _balance(nl)
     lbox = lobj = lcls = 0.0
     for li, p in enumerate(preds):
         lb, ob, lc = _layer_loss_terms(p, li, assign, targets, spec,
-                                       img_size, hyp, cp, cn)
+                                       img_size, hyp, cp, cn, n_m=n_ms[li],
+                                       n_images=n_img)
         lbox = lbox + lb
         lobj = lobj + ob * balance[li]
         lcls = lcls + lc
-    return _total(lbox, lobj, lcls, hyp, bsz)
+    return _total(lbox, lobj, lcls, hyp, bsz if n_img is None else n_img,
+                  group)
 
 
 def compute_loss(preds: List[torch.Tensor], targets, tmask,
                  spec: ModelSpec, img_size: int, hyp: Hyp = Hyp(),
-                 gr: float = 1.0):
+                 gr: float = 1.0, group=None):
     """The plain (non-OTA) v7 loss, ComputeLoss (utils/loss.py:422-553),
     chosen by hyp loss_ota = 0: every anchor-ratio / offset candidate is a
-    positive for its own GT."""
+    positive for its own GT. ``group``: as in ``compute_loss_ota``."""
+    group = _group(group)
     nl, na = spec.nl, spec.na
     bsz, t_cap = targets.shape[:2]
     dev = preds[0].device
@@ -426,25 +471,31 @@ def compute_loss(preds: List[torch.Tensor], targets, tmask,
                                                  ].expand(bsz, t_cap, nl, na,
                                                           N_OFF)
     assign = {"matched": valid, "matched_gt": own_gt, "gi": gi, "gj": gj}
+    n_ms, n_img = _global_counts([assign], nl, bsz, group)
     cp, cn = smooth_bce(hyp.label_smoothing)
     balance = _balance(nl)
     lbox = lobj = lcls = 0.0
     for li, p in enumerate(preds):
         lb, ob, lc = _layer_loss_terms(p, li, assign, targets, spec,
-                                       img_size, hyp, cp, cn, gr=gr)
+                                       img_size, hyp, cp, cn, gr=gr,
+                                       n_m=n_ms[li], n_images=n_img)
         lbox = lbox + lb
         lobj = lobj + ob * balance[li]
         lcls = lcls + lc
-    return _total(lbox, lobj, lcls, hyp, bsz)
+    return _total(lbox, lobj, lcls, hyp, bsz if n_img is None else n_img,
+                  group)
 
 
 def compute_loss_aux_ota(preds: List[torch.Tensor], targets, tmask,
-                         spec: ModelSpec, img_size: int, hyp: Hyp = Hyp()):
+                         spec: ModelSpec, img_size: int, hyp: Hyp = Hyp(),
+                         group=None):
     """ComputeLossAuxOTA (utils/loss.py:1176-1290): 2 * nl heads, lead
     then aux. The lead heads are assigned with find_3_positive (g = 0.5)
     and top-20 SimOTA, the aux heads with find_5_positive (g = 1.0) and
     top-20; both assignments decode candidates from the LEAD predictions
-    (:1205-1206); the aux terms weigh hyp.aux_weight."""
+    (:1205-1206); the aux terms weigh hyp.aux_weight. ``group``: as in
+    ``compute_loss_ota``."""
+    group = _group(group)
     nl = spec.nl
     anchors_px = _anchors(spec, preds[0].device)
     lead, aux = preds[:nl], preds[nl:]
@@ -456,20 +507,24 @@ def compute_loss_aux_ota(preds: List[torch.Tensor], targets, tmask,
     assign_aux = simota_assign(preds_flat, metas, spec.strides, anchors_px,
                                targets, tmask, img_size, spec.nc, hyp,
                                topk=20, g=1.0)
+    n_ms, n_img = _global_counts([assign_lead, assign_aux], nl, bsz, group)
     cp, cn = smooth_bce(hyp.label_smoothing)
     balance = _balance(nl)
     lbox = lobj = lcls = 0.0
     w_aux = hyp.aux_weight
     for li in range(nl):
         lb, ob, lc = _layer_loss_terms(lead[li], li, assign_lead, targets,
-                                       spec, img_size, hyp, cp, cn)
+                                       spec, img_size, hyp, cp, cn,
+                                       n_m=n_ms[li], n_images=n_img)
         lb_a, ob_a, lc_a = _layer_loss_terms(aux[li], li, assign_aux,
                                              targets, spec, img_size, hyp,
-                                             cp, cn)
+                                             cp, cn, n_m=n_ms[nl + li],
+                                             n_images=n_img)
         lbox = lbox + lb + w_aux * lb_a
         lobj = lobj + (ob + w_aux * ob_a) * balance[li]
         lcls = lcls + lc + w_aux * lc_a
-    return _total(lbox, lobj, lcls, hyp, bsz)
+    return _total(lbox, lobj, lcls, hyp, bsz if n_img is None else n_img,
+                  group)
 
 
 def compute_loss_bin_ota(preds: List[torch.Tensor], targets, tmask,
