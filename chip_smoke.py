@@ -6,14 +6,19 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases, each of which must pass:
-  1. build   -- nvcc builds csrc/auction.cu (K2, the private-dummy
-                auction), csrc/auction_square.cu (K1 and K3, the square
-                lapjv-extended auction) and the profiling build of each
-                (-DAUCTION_PROFILE) for sm_90a from the checkout, side by
-                side.
+  1. build   -- nvcc builds csrc/auction.cu (K4, the XLA twin's form of
+                the private-dummy auction, the trackers' solver
+                ops/assignment.solve_assignment; and K2, the Pallas
+                kernel's form, which no path runs), csrc/auction_square.cu
+                (K1 and K3, the square lapjv-extended auction) and the
+                profiling build of each (-DAUCTION_PROFILE; K2's and
+                K1/K3's) for sm_90a from the checkout, side by side.
   2. kernels -- each kernel against its plain PyTorch version on the card
                 at the tracker's shape (128, 300), exact equality of
-                r2c/c2r and of every problem's sweep count. K2: >= 32
+                r2c/c2r and of every problem's sweep count. K4 and K2,
+                each on every problem below, K4 also against scipy (the
+                association problems, and the twelve dense host cases of
+                tests/test_torch_auction.py within K4_HOST_GAP): >= 32
                 seeded problems (association-shaped and dense U[0,1],
                 random masks) plus batch-2 launches at the stage-2/3
                 thresholds, a few association problems against scipy, and
@@ -38,9 +43,12 @@ Phases, each of which must pass:
                 seeded weights with sharpened heads) -> NMS -> ByteTrack
                 (capacity 128, det_capacity 300) over 16 synthetic
                 1080x1920 frames through TrackingPipeline.run_sequence,
-                with the K2 launch count reset just before and read just
-                after (2 per frame). The main path's own auction problems
-                are then re-solved by the kernel and the plain version,
+                with the K4 and K2 launch counts reset just before and
+                read just after (2 K4 per frame, no K2). The same run is
+                timed with K2 (before K4) and K4 as the solver in turns
+                K2, K4, K4, K2 (its first 8 frames). The main path's
+                own auction problems are then re-solved by K4 and K2 and
+                their plain versions,
                 the tracker is replayed on the CPU from the same
                 detections, and a small detector input is checked
                 against a float32 CPU reference.
@@ -48,7 +56,7 @@ Phases, each of which must pass:
                 cameras, 16 ticks with state checkpoints, then a second
                 call that resumes from them for 8 more. 8 result files
                 with rows for 24 consecutive frames and ids that continue
-                across the resume; one K3 and one K2 launch per tick (the
+                across the resume; one K3 and one K4 launch per tick (the
                 counts are reset just before each call and read just
                 after); the last tick's own stage-1 problems re-solved by
                 the plain version; ms/tick, frames/s and a per-stage
@@ -68,18 +76,20 @@ Phases, each of which must pass:
                 (calibrate_bn). The phase runs under PyTorch's default
                 TF32 flags (cuDNN may use TF32), as a user's process
                 would: the pipeline itself runs ReID in float32. For each:
-                K2 launches (reset just before the run, read just after)
-                equal to its solves a frame x 16; every tracker step under
+                K4 launches (reset just before the run, read just after)
+                equal to its solves a frame x 16, no K2 launch (deepsort
+                and strongsort also timed with K2, before K4, and K4 as
+                the solver in turns); every tracker step under
                 torch.cuda.set_sync_debug_mode("error") (a host sync inside
                 a step fails the phase), for botsort and strongsort also
                 without the GMC's warp; a CPU replay of the tracker step on
-                the detections, features and warps the card gave (K2's
+                the detections, features and warps the card gave (K4's
                 plain version) with the same ids and boxes; ms/frame. Also
                 each ReID model on 16 crops through the pipeline's
                 reid_forward on the card against the CPU (relative 1e-3), ECC
                 on two frames of the pan (the 8-px shift within 0.5 px),
                 strongsort's frame split into crops, ReID forward, ECC and
-                tracker step, and the deepsort cascade's K2 levels timed
+                tracker step, and the deepsort cascade's K4 levels timed
                 from a CUDA graph. deepmot runs here twice at its
                 registered capacities (128 x 48): with the trained GRU
                 DHN (weights/dhn_h32.msgpack) and with the Sinkhorn DHN
@@ -93,15 +103,16 @@ Phases, each of which must pass:
                 name) through cli.serve.main on the 8 cameras of phase 4
                 with --reid_capacity 128: 16 ticks, then 8 resumed from
                 the state files, whose MOT files must equal those of one
-                uninterrupted 24-tick run byte for byte (one K3 and two K2
+                uninterrupted 24-tick run byte for byte (one K3 and two K4
                 launches a tick); the same through step_frame for 8
-                frames (one K1 and two K2 a frame); deepmot with the GRU
+                frames (one K1 and two K4 a frame); deepmot with the GRU
                 DHN through process_multistream at S = 8 for 8 ticks (one
-                K3 and one K2 a tick, the DHN on the last tick's compacted
+                K3 and one K4 a tick, the DHN on the last tick's compacted
                 costs card against CPU). Each of these three keeps its
                 last tick's or frame's stage-1 and stage-2/3 problems
                 (path_solves) and re-solves them by the plain versions:
-                K1/K3 and K2 bit for bit. Then each DHN head alone on a 128 x 48
+                K1/K3 and K4 bit for bit, and K2 against its own plain
+                version on K4's problems. Then each DHN head alone on a 128 x 48
                 cost (GRU h32, GRU h256 seeded, Sinkhorn, GRU h32 at
                 S = 8; CUDA events; card against CPU within 1e-4); AFLink
                 with a seeded PostLinker and GSI on phase 6's strongsort
@@ -115,13 +126,13 @@ Phases, each of which must pass:
                 --track_eval true, the CLI's capacity 256 / det_capacity
                 300) for bytetrack and sort, on the card and with --device
                 cpu: MOT txts and CSVs byte for byte and every number of
-                the score tables equal, 2 K2 launches a frame on the card,
+                the score tables equal, 2 K4 launches a frame on the card,
                 every step but a run's first (it makes the solver's
                 constants) with no host sync; cli.evaluate.main on the
                 card's folder writes the table track printed (HOTA, MOTA,
                 IDF1, ms/frame and a frame's parts, scoring seconds).
                 (b) --detect_per_frame k = 1, 2, 3 on phase 3's path and
-                frames: K2 only on detected frames, no host sync in any
+                frames: K4 only on detected frames, no host sync in any
                 step (the predict-only ones too), a run resumed from the
                 state saved after frame 7 equal to one run, the
                 predict-only step timed alone, a CPU replay with the same
@@ -136,7 +147,7 @@ Phases, each of which must pass:
                 outputs standardised to a per-model spread and boost
                 (ZOO_RUNS), 1280 px (the CLI's default), batch 8, bf16, BN
                 and RepConv folded, through offline ByteTrack (128 / 300,
-                conf_thresh 0.5) on phase 3's 16 frames: K2 twice a frame,
+                conf_thresh 0.5) on phase 3's 16 frames: K4 twice a frame,
                 NMS survivors on every frame within ZOO_SURVIVORS (below
                 max_det), ms/frame and a
                 frame's parts (letterbox, detector, NMS, step; CUDA
@@ -192,7 +203,7 @@ Phases, each of which must pass:
                 the frames (standardize_heads scores objectness and class
                 after the bins), 1280 px, batch 8, bf16, folded, offline
                 ByteTrack (128 / 300) on phase 3's 16 frames through the
-                decoded-path NMS: K2 twice a frame, NMS survivors within
+                decoded-path NMS: K4 twice a frame, NMS survivors within
                 ZOO_SURVIVORS, ms/frame and its parts, the detector in
                 float32 card vs CPU and fused vs unfused per raw part (xy,
                 w bins, h bins, objectness, class; bf16 above the
@@ -217,7 +228,7 @@ Phases, each of which must pass:
                 ms a step split into problem generation on the host, H2D
                 and the device step, eval_dhn, the msgpack written and
                 reloaded by load_dhn, and deepmot (128 x 48) on phase 3's
-                frames with it (K2 twice a frame). Prints the train2 JSON
+                frames with it (K4 twice a frame). Prints the train2 JSON
                 line.
  12. models  -- the last model-side modules (no new kernel: none of this
                 JAX code reaches Pallas). (a) int8 serving: phase 3's w6
@@ -226,7 +237,7 @@ Phases, each of which must pass:
                 4 frames, through offline ByteTrack (128 / 300) on phase
                 3's 16 frames: the int8 tree re-made on the host equals
                 the card's buffers bit for bit, the CPU's calibration
-                within float32 noise; K2 twice a frame, the path's last
+                within float32 noise; K4 twice a frame, the path's last
                 two problems re-solved by the plain version; ms/frame and
                 its parts beside the bf16 w6's; the int8 detector on one
                 frame card vs CPU (float32 input) within ZOO_REL_TOL of
@@ -244,7 +255,7 @@ Phases, each of which must pass:
                 bf16 ms. (f) cli/detect.py's loop on 16 frames, yolov7 at
                 640 px, float32: card vs CPU the same counts and classes,
                 boxes as detect_check says. Prints the models JSON line.
- 13. parallel -- the parallel layer (no new kernel; K3 and K2 run on every
+ 13. parallel -- the parallel layer (no new kernel; K3 and K4 run on every
                 rank of (a)), each path at world 1 through NCCL (this
                 process) and at world 2 with both ranks on the one card
                 through gloo (spawned; gloo copies card tensors through
@@ -254,7 +265,7 @@ Phases, each of which must pass:
                 (128 / 300) sharded over the ranks on S = 8 streams of w6
                 detections (phase 3's frames, stream s offset by 2 s
                 frames): slabs and outputs bit for bit one process's
-                track_scan_multi, K3 and K2 once a frame on every rank
+                track_scan_multi, K3 and K4 once a frame on every rank
                 (counts set to 0 just before the run, read just after),
                 each rank's last stage-1 and stages-2+3 problems equal to
                 the plain versions'; ms a frame. (b) w6 (nc=80) at 1088 px
@@ -268,10 +279,13 @@ Phases, each of which must pass:
                 then bf16 at 1280 px, global batch 8: ms a step (median of
                 steps 4-12) and peak memory a rank. Prints the parallel
                 JSON line.
-Then K2 on the offline path's last stage-1 and stage-2/3 problems and on
-the last tick's 2S problems, K1 on step_frame's last problem and K3 on the
-last tick's are timed (ms, us per sweep, bound) and profiled (where a
-solve's cycles go, by the profiling builds, which no path uses), and the
+Through phases 3-13 every "K4 launch" is a call of the trackers' solver
+on the card; the counts of each path go into K4's record, and K2's record
+holds K2's launches on the main path (none). Then K4 and K2 on the
+offline path's last stage-1 and stage-2/3 problems and on the last tick's
+2S problems, K1 on step_frame's last problem and K3 on the last tick's are
+timed (ms, us per sweep, bound), K2, K1 and K3 profiled (where a solve's
+cycles go, by the profiling builds, which no path uses), and the
 problems are written to chiprun_out/chip_smoke/k2_problems.pt and
 square_problems.pt.
 It prints the trackers JSON line, the train JSON line, the train2 JSON
@@ -288,7 +302,8 @@ problems. It prints no result line.
 
     python3 chip_smoke.py --k2-only [--problems k2_problems.pt]
 
-is its twin for work on K2.
+is its twin for work on the private-dummy kernels: it builds, checks and
+times K4 and K2 (and profiles K2).
 
     python3 chip_smoke.py --train-only
 
@@ -296,17 +311,17 @@ runs phase 10 alone and prints its JSON line, no result line.
 
     python3 chip_smoke.py --train2-only
 
-builds K2 and runs phase 11 alone, and prints its JSON line, no result
+builds K4 (csrc/auction.cu) and runs phase 11 alone, and prints its JSON line, no result
 line.
 
     python3 chip_smoke.py --models-only
 
-builds K2 and runs phase 12 alone, and prints its JSON line, no result
+builds K4 (csrc/auction.cu) and runs phase 12 alone, and prints its JSON line, no result
 line.
 
     python3 chip_smoke.py --parallel-only
 
-builds K2 and K3 and runs phase 13 alone (phase 3's w6 built for it), and
+builds K4 and K3 and runs phase 13 alone (phase 3's w6 built for it), and
 prints its JSON line, no result line.
 """
 
@@ -330,6 +345,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 REPLACES = "yolov7_tracker_tpu/ops/pallas_auction.py:412"
 SOURCE = "yolov7_tracker_tpu_torch/csrc/auction.cu"
+# K4 is not a Pallas kernel: it replaces the XLA twin that the JAX
+# package's solve_assignment runs on its chip (ops/assignment.py:75)
+REPLACES_K4 = "yolov7_tracker_tpu/ops/assignment.py:311"
 REPLACES_K1 = "yolov7_tracker_tpu/ops/pallas_auction.py:196"
 REPLACES_K3 = "yolov7_tracker_tpu/ops/pallas_auction.py:631"
 SOURCE_SQUARE = "yolov7_tracker_tpu_torch/csrc/auction_square.cu"
@@ -340,14 +358,21 @@ SOURCE_SQUARE = "yolov7_tracker_tpu_torch/csrc/auction_square.cu"
 # boxes follow the image.
 DETECTOR_GAIN = 1.6
 SQUARE_PHASES = 5             # ops/assignment.DEFAULT_PHASES, the tracker's
-# K2's eps schedule in the tracker (ops/assignment.solve_assignment)
+# the eps schedule of the tracker's solver (ops/assignment.solve_assignment,
+# K4), at which K2 is held as well
 K2_STEEP = dict(n_phases=2, phase_factor=4.0 ** 2.5)
+# weight K4 may leave against scipy's optimum on the twelve dense host
+# cases (tests/test_torch_auction.py holds its plain version to the same)
+K4_HOST_GAP = 6e-3
+# the two private-dummy kernels: (the name in ops/auction.py's functions,
+# how chip_smoke names it)
+PRIVATE_DUMMY = {"k4": ("twin", "K4"), "k2": ("auction", "K2")}
 # weight a K1 solve of the seeded (128, 300) problems may leave against
 # scipy's optimum: twice the most measured there (0.025)
 SCIPY_GAP_LIMIT = 0.05
 N_STREAMS = 8
 SERVE_TICKS = (16, 8)         # first call, resumed call
-# phase 6: (name, TrackerConfig fields, PipelineConfig fields, K2 solves a
+# phase 6: (name, TrackerConfig fields, PipelineConfig fields, K4 solves a
 # frame); deepsort's cascade solves each of its max_time_lost (30) levels.
 # The GMC trackers (botsort, strongsort) run on a camera pan (pan_frames):
 # between two unrelated noise frames of phase 3, ECC returns a wild but
@@ -372,13 +397,17 @@ TRACKER_RUNS = (
     ("bytetrack_osnet", dict(tracker="bytetrack", feature_dim=512),
      dict(reid="osnet_x1_0"), 2),
     # deepmot at its registered capacities (128 x 48): the DHN on the
-    # compacted 128 x 48 cost, then K2 for stage 1 and for stages 2+3
+    # compacted 128 x 48 cost, then K4 for stage 1 and for stages 2+3
     ("deepmot_gru_h32", dict(tracker="deepmot", det_capacity=48,
                              dhn_weights=DHN_GRU, dhn_hidden=32), {}, 2),
     ("deepmot_sinkhorn", dict(tracker="deepmot", det_capacity=48,
                               dhn_weights=DHN_SINKHORN, dhn_arch="sinkhorn"),
      {}, 2),
 )
+# phase 6: the trackers also timed with K2 and K4 as the solver in turns,
+# as phase 3 is, each turn on the first TURN_FRAMES frames of the run
+K2_BEFORE = ("deepsort", "strongsort")
+TURN_FRAMES = 8
 PAN_PX = 8                    # the pan's shift a frame
 REID_REL_TOL = 1e-3           # card vs CPU, float32 (TF32 off)
 ECC_SHIFT_TOL = 0.5           # px
@@ -419,7 +448,17 @@ ZOO_REL_TOL = 1e-4
 
 
 def log(msg):
-    print(f"[chip_smoke] {msg}", flush=True)
+    keep(f"[chip_smoke] {msg}")
+
+
+def keep(line):
+    """Print a line of the run's output and append it to OUT_DIR/
+    chip_smoke.log, so the whole output is kept where only its end is
+    shown."""
+    print(line, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.log"), "a") as f:
+        f.write(line + "\n")
 
 
 def card_line():
@@ -463,7 +502,7 @@ def graph_ms(fire, launches=20, replays=10):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: the K2 kernel against its plain version
+# phase 2: the K4 and K2 kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def seeded_problem(rng, n=128, m=300, kind="assoc"):
@@ -489,20 +528,22 @@ def seeded_problem(rng, n=128, m=300, kind="assoc"):
     return cost, rng.random(n) < 0.8, rng.random(m) < 0.85
 
 
-def k2_both(auction, cost, rm, cm, th, dev, **kw):
-    """K2 and its plain version on one problem or batch on the card: the
-    max |difference| over r2c, c2r and every problem's sweep count (0 means
-    bit-identical), the kernel's r2c and its sweeps per problem."""
+def kernel_both(auction, kernel, cost, rm, cm, th, dev, **kw):
+    """K2 or K4 (``kernel`` "k2" / "k4") and its plain version on one problem
+    or batch on the card: the max |difference| over r2c, c2r and every
+    problem's sweep count (0 means bit-identical), the kernel's r2c and its
+    sweeps per problem."""
     import torch
 
+    fn = PRIVATE_DUMMY[kernel][0]
     kw = {**K2_STEEP, **kw}
     b = rm.shape[0] if rm.dim() == 2 else 1
     ks = torch.zeros(b, dtype=torch.int32, device=dev)
     ps = torch.zeros(b, dtype=torch.int32, device=dev)
-    kr, kc = auction.masked_assignment_auction_cuda(cost, rm, cm, th,
-                                                    sweeps=ks, **kw)
-    pr, pc = auction.masked_assignment_auction_torch(cost, rm, cm, th,
-                                                     sweeps=ps, **kw)
+    kr, kc = getattr(auction, f"masked_assignment_{fn}_cuda")(
+        cost, rm, cm, th, sweeps=ks, **kw)
+    pr, pc = getattr(auction, f"masked_assignment_{fn}_torch")(
+        cost, rm, cm, th, sweeps=ps, **kw)
     torch.cuda.synchronize()
     worst = max(int((kr.long() - pr.long()).abs().max()),
                 int((kc.long() - pc.long()).abs().max()),
@@ -511,12 +552,13 @@ def k2_both(auction, cost, rm, cm, th, dev, **kw):
 
 
 def compare(auction, problems, dev):
-    """Kernel vs plain version on each (cost, rm, cm, thresh) at the
-    tracker's schedule; returns the max |difference| over r2c, c2r and the
-    sweep counts (0 means bit-identical)."""
-    return max(k2_both(auction, cost.to(dev), rm.to(dev), cm.to(dev),
-                       th.to(dev) if hasattr(th, "to") else th, dev)[0]
-               for cost, rm, cm, th in problems)
+    """K4 and K2, each against its plain version, on each (cost, rm, cm,
+    thresh) at the tracker's schedule; returns the max |difference| over
+    r2c, c2r and the sweep counts of both (0 means bit-identical)."""
+    return max(kernel_both(auction, kernel, cost.to(dev), rm.to(dev),
+                           cm.to(dev), th.to(dev) if hasattr(th, "to")
+                           else th, dev)[0]
+               for cost, rm, cm, th in problems for kernel in PRIVATE_DUMMY)
 
 
 def dense_host_case(k):
@@ -588,7 +630,6 @@ def kernel_phase(dev):
     import torch
 
     from yolov7_tracker_tpu_torch.ops import auction
-    from yolov7_tracker_tpu_torch.ops.assignment import linear_assignment_host
 
     rng = np.random.default_rng(0)
     problems = []
@@ -600,8 +641,8 @@ def kernel_phase(dev):
                          torch.from_numpy(cm), torch.tensor(th)))
     t0 = time.time()
     worst = compare(auction, problems, dev)
-    log(f"32 single problems (128, 300): max |kernel - plain| (r2c, c2r, "
-        f"sweeps) = {worst} ({time.time() - t0:.1f} s)")
+    log(f"32 single problems (128, 300), K4 and K2: max |kernel - plain| "
+        f"(r2c, c2r, sweeps) = {worst} ({time.time() - t0:.1f} s)")
     pairs = []
     for _ in range(4):
         cost, _, _ = seeded_problem(rng)
@@ -614,68 +655,99 @@ def kernel_phase(dev):
         f"so far = {worst}")
     t0 = time.time()
     for name, cost, rm, cm, th, extra in k2_stress_problems(rng, dev):
-        d, r2c, sw = k2_both(auction, cost, rm, cm, th, dev, **extra)
-        worst = max(worst, d)
-        log(f"K2 stress, {name}: max |kernel - plain| (r2c, c2r, sweeps) = "
-            f"{d}; sweeps {sw if len(sw) <= 8 else (min(sw), max(sw))}, "
-            f"pairs {int((r2c >= 0).sum())}")
-    log(f"K2 stress problems: {time.time() - t0:.1f} s")
+        for kernel, (_, label) in PRIVATE_DUMMY.items():
+            d, r2c, sw = kernel_both(auction, kernel, cost, rm, cm, th, dev,
+                                     **extra)
+            worst = max(worst, d)
+            log(f"{label} stress, {name}: max |kernel - plain| (r2c, c2r, "
+                f"sweeps) = {d}; sweeps "
+                f"{sw if len(sw) <= 8 else (min(sw), max(sw))}, "
+                f"pairs {int((r2c >= 0).sum())}")
+    log(f"K4 and K2 stress problems: {time.time() - t0:.1f} s")
     if worst != 0:
         raise AssertionError(f"kernel differs from its plain version: {worst}")
 
-    for cost, rm, cm, th in problems[:16:2]:
-        r2c, _ = auction.masked_assignment_auction_cuda(
-            cost.to(dev), rm.to(dev), cm.to(dev), th.to(dev), **K2_STEEP)
-        r2c = r2c.cpu().numpy()
-        c = cost.numpy()
-        big = np.where(rm.numpy()[:, None] & cm.numpy()[None, :], c, 1e9)
-        m0, _, _ = linear_assignment_host(big, float(th))
-        got = {(i, int(j)) for i, j in enumerate(r2c) if j >= 0}
-        want = {(int(a), int(b)) for a, b in m0}
-        gc = sum(float(c[i, j]) for i, j in got)
-        wc = sum(float(c[i, j]) for i, j in want)
-        if got != want or abs(gc - wc) > 1e-3:
+    for kernel, (fn, label) in PRIVATE_DUMMY.items():
+        for cost, rm, cm, th in problems[:16:2]:
+            r2c, _ = getattr(auction, f"masked_assignment_{fn}_cuda")(
+                cost.to(dev), rm.to(dev), cm.to(dev), th.to(dev), **K2_STEEP)
+            got, want, gap = scipy_pairs(cost.numpy(), rm.numpy(),
+                                         cm.numpy(), float(th), r2c)
+            if got != want or abs(gap) > 1e-3:
+                raise AssertionError(
+                    f"{label} vs scipy: {len(got)} vs {len(want)} pairs, "
+                    f"weight left {gap}")
+        log(f"8 association problems: {label} == scipy (same pairs, "
+            "weight 1e-3)")
+    gaps = []
+    for k in range(12):
+        cost, rm, cm, th = dense_host_case(k)
+        r2c, _ = auction.masked_assignment_twin_cuda(
+            *(torch.from_numpy(x).to(dev) for x in (cost, rm, cm)), th,
+            **K2_STEEP)
+        got, want, gap = scipy_pairs(cost, rm, cm, th, r2c)
+        gaps.append(gap)
+        if len(got) != len(want) or gap > K4_HOST_GAP:
             raise AssertionError(
-                f"kernel vs scipy: {len(got)} vs {len(want)} pairs, cost "
-                f"{gc} vs {wc}")
-    log("8 association problems: kernel == scipy (same pairs, cost 1e-3)")
+                f"K4 vs scipy on dense host case {k}: {len(got)} vs "
+                f"{len(want)} pairs, weight left {gap}")
+    log(f"12 dense host cases: K4 within {max(gaps):.2e} of scipy (limit "
+        f"{K4_HOST_GAP})")
 
-    # the three ways the kernel holds the weights, timed on seeded problems
-    log(f"K2 on seeded problems, on {card_line()}")
+    # the three ways the kernels hold the weights, timed on seeded problems
+    log(f"K4 and K2 on seeded problems, on {card_line()}")
     for name, (n, m, kind) in {
             "staged, 16-byte loads": (128, 300, "assoc"),
             "read through L2": (256, 300, "assoc"),
             "staged, scalar loads": (127, 301, "dense")}.items():
         cost, rm, cm = (torch.from_numpy(x).to(dev)
                         for x in seeded_problem(rng, n, m, kind))
-        sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
-        auction.masked_assignment_auction_cuda(cost, rm, cm, 0.9,
-                                               sweeps=sweeps, **K2_STEEP)
-        ms = graph_ms(auction.prepared_auction(cost, rm, cm, 0.9,
-                                               **K2_STEEP))
-        log(f"K2 ({n}, {m}) {kind}, weights {name}: kernel {ms:.4f} ms, "
-            f"{int(sweeps)} sweeps, {ms * 1e3 / int(sweeps):.3f} us/sweep")
+        for kernel, (fn, label) in PRIVATE_DUMMY.items():
+            sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+            getattr(auction, f"masked_assignment_{fn}_cuda")(
+                cost, rm, cm, 0.9, sweeps=sweeps, **K2_STEEP)
+            ms = graph_ms(getattr(auction, f"prepared_{fn}")(
+                cost, rm, cm, 0.9, **K2_STEEP))
+            log(f"{label} ({n}, {m}) {kind}, weights {name}: kernel "
+                f"{ms:.4f} ms, {int(sweeps)} sweeps, "
+                f"{ms * 1e3 / int(sweeps):.3f} us/sweep")
     return worst
 
 
-def time_kernel(auction, problem, dev):
-    """Kernel ms (launches that follow each other in a CUDA graph, no host
-    work between them), ms per call of the wrapper (which its host work
-    bounds when the kernel is shorter), plain ms, per-problem sweeps, us
-    per sweep of the slowest problem and the bound for one main-path
-    problem (cost, rm, cm, thresh) on the card."""
+def scipy_pairs(cost, rm, cm, thresh, r2c):
+    """(pairs of r2c, scipy's pairs, weight r2c leaves against scipy's
+    optimum) of one problem in numpy."""
+    from yolov7_tracker_tpu_torch.ops.assignment import linear_assignment_host
+
+    r2c = np.asarray(r2c.cpu() if hasattr(r2c, "cpu") else r2c)
+    big = np.where(rm[:, None] & cm[None, :], cost, 1e9)
+    m0, _, _ = linear_assignment_host(big, thresh)
+    got = {(i, int(j)) for i, j in enumerate(r2c) if j >= 0}
+    want = {(int(a), int(b)) for a, b in m0}
+    gap = (sum(thresh - float(cost[i, j]) for i, j in want)
+           - sum(thresh - float(cost[i, j]) for i, j in got))
+    return got, want, gap
+
+
+def time_kernel(auction, problem, dev, kernel="k4"):
+    """K4 or K2 (``kernel``): kernel ms (launches that follow each other in
+    a CUDA graph, no host work between them), ms per call of the wrapper
+    (which its host work bounds when the kernel is shorter), plain ms,
+    per-problem sweeps, us per sweep of the slowest problem and the bound
+    for one main-path problem (cost, rm, cm, thresh) on the card."""
     import torch
 
+    fn = PRIVATE_DUMMY[kernel][0]
+    cuda = getattr(auction, f"masked_assignment_{fn}_cuda")
+    plain = getattr(auction, f"masked_assignment_{fn}_torch")
     cost, rm, cm, th = (t.to(dev) for t in problem)
     b = rm.shape[0] if rm.dim() == 2 else 1
     sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
-    auction.masked_assignment_auction_cuda(cost, rm, cm, th, sweeps=sweeps,
-                                           **K2_STEEP)
-    k_ms = graph_ms(auction.prepared_auction(cost, rm, cm, th, **K2_STEEP))
-    w_ms = cuda_ms(lambda: auction.masked_assignment_auction_cuda(
-        cost, rm, cm, th, **K2_STEEP), 50)
-    p_ms = cuda_ms(lambda: auction.masked_assignment_auction_torch(
-        cost, rm, cm, th, **K2_STEEP), 3)
+    cuda(cost, rm, cm, th, sweeps=sweeps, **K2_STEEP)
+    k_ms = graph_ms(getattr(auction, f"prepared_{fn}")(cost, rm, cm, th,
+                                                       **K2_STEEP))
+    w_ms = cuda_ms(lambda: cuda(cost, rm, cm, th, **K2_STEEP), 50)
+    p_ms = cuda_ms(lambda: plain(cost, rm, cm, th, **K2_STEEP), 3)
     n, m = cost.shape[-2:]
     # each input read once, each output written once
     nbytes = cost.numel() * 4 + b * (n + m) + b * 4 + b * (n + m) * 4
@@ -731,24 +803,26 @@ def k2_profile_line(auction, name, problem, dev):
 
 
 def k2_path_timings(auction, problems, dev):
-    """K2 on the problems its paths gave it last ({name: (cost, rm, cm,
-    thresh)}): time, sweeps and bound of the timed build, then the
-    profiling build's shares. Returns {name: record}."""
-    log(f"K2 timings on {card_line()}")
+    """K4 and K2 on the problems the paths gave K4 last ({name: (cost, rm,
+    cm, thresh)}): time, sweeps and bound of each, then K2's profiling
+    build's shares. Returns {"k4": {name: record}, "k2": {name: record}}."""
+    log(f"K4 and K2 timings on {card_line()}")
     out = {}
+    for kernel, (_, label) in PRIVATE_DUMMY.items():
+        out[kernel] = {}
+        for name, problem in problems.items():
+            t = time_kernel(auction, problem, dev, kernel)
+            b = len(t["sweeps"])
+            log(f"{label} {name} (B={b}, {tuple(problem[0].shape[-2:])}): "
+                f"kernel {t['ms']:.4f} ms, sweeps {t['sweeps']}, "
+                f"{t['us_per_sweep']:.3f} us/sweep"
+                f"{' of the slowest' if b > 1 else ''}, through the wrapper "
+                f"{t['wrapper_ms']:.4f} ms a call, plain "
+                f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.6f} ms "
+                f"({t['bound_by']})")
+            out[kernel][name] = t
     for name, problem in problems.items():
-        t = time_kernel(auction, problem, dev)
-        b = len(t["sweeps"])
-        log(f"K2 {name} (B={b}, {tuple(problem[0].shape[-2:])}): kernel "
-            f"{t['ms']:.4f} ms, sweeps {t['sweeps']}, "
-            f"{t['us_per_sweep']:.3f} us/sweep"
-            f"{' of the slowest' if b > 1 else ''}, through the wrapper "
-            f"{t['wrapper_ms']:.4f} ms a call, plain "
-            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.6f} ms "
-            f"({t['bound_by']})")
-        out[name] = t
-    for name, problem in problems.items():
-        out[name]["profile_cycles"] = k2_profile_line(
+        out["k2"][name]["profile_cycles"] = k2_profile_line(
             auction, f"K2 {name}", problem, dev)
     return out
 
@@ -1121,19 +1195,20 @@ def main_phase(pipe, dev):
 
     pipe.detect_batch = recording_detect
     bytetrack.solve_assignment = recording_solve
-    auction.LAUNCHES = 0
+    auction.LAUNCHES_K4 = auction.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.time()
     results, slab = pipe.run_sequence_stateful(iter(frames))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = auction.LAUNCHES
+    launches, k2_launches = auction.LAUNCHES_K4, auction.LAUNCHES
     bytetrack.solve_assignment = solve
     del pipe.detect_batch
 
     n = len(frames)
-    if launches != 2 * n:
-        raise AssertionError(f"{launches} auction launches for {n} frames")
+    if launches != 2 * n or k2_launches != 0:
+        raise AssertionError(f"{launches} K4 and {k2_launches} K2 launches "
+                             f"for {n} frames")
     tracks = [len(ids) for _, ids, _, _ in results]
     if len(results) != n or max(tracks) < 1:
         raise AssertionError(f"tracks per frame {tracks}")
@@ -1148,12 +1223,16 @@ def main_phase(pipe, dev):
         raise AssertionError(f"{rows} MOT rows for {sum(tracks)} tracks")
     log(f"main path on {card_line()}: {n} frames in {wall:.3f} s = "
         f"{n / wall:.2f} frames/s, "
-        f"{wall / n * 1e3:.2f} ms/frame; {launches} K2 launches; NMS "
+        f"{wall / n * 1e3:.2f} ms/frame; {launches} K4 launches; NMS "
         f"survivors/frame {counts.float().mean():.1f}; tracks/frame "
         f"min {min(tracks)} mean {np.mean(tracks):.1f} max {max(tracks)}; "
         f"{rows} MOT rows -> {path}")
 
     breakdown(pipe, f1, dets[-1], dev)
+    turns = solver_turns(lambda: pipe.run_sequence_stateful(
+        iter(frames[:TURN_FRAMES])), TURN_FRAMES)
+    log(f"the same run in turns K2 (before K4), K4, K4, K2: ms/frame K2 "
+        f"{turns['k2']}, K4 {turns['k4']}")
 
     # the main path's own auction problems: kernel == plain version
     worst = compare(auction, solves[-16:], dev)
@@ -1179,7 +1258,45 @@ def main_phase(pipe, dev):
             frame += 1
     log(f"CPU tracker replay of {frame} frames: same ids, boxes within "
         "1e-2 px")
-    return launches, solves
+    return launches, k2_launches, solves, {"k4_ms_per_frame": wall / n * 1e3,
+                                           "solver_turns": turns}
+
+
+@contextlib.contextmanager
+def k2_as_solver():
+    """ops/assignment.solve_assignment solves by K2 (the form the port ran
+    before K4) while the block runs: for timing the paths before and after
+    the switch in one call."""
+    from yolov7_tracker_tpu_torch.ops import assignment, auction
+
+    twin = assignment.masked_assignment_twin
+
+    def k2(cost, rm, cm, th, **kw):
+        return auction.masked_assignment_auction(cost, rm, cm, th, **kw)
+
+    assignment.masked_assignment_twin = k2
+    try:
+        yield
+    finally:
+        assignment.masked_assignment_twin = twin
+
+
+def solver_turns(run, n_frames):
+    """ms a frame of ``run()`` (n_frames frames) with K2 and with K4 as the
+    solver, in turns K2, K4, K4, K2 (both kernels launched before, in
+    phase 2); host wall time around each synchronized run. Returns
+    {"k2": [ms, ms], "k4": [ms, ms]}."""
+    import torch
+
+    out = {"k2": [], "k4": []}
+    for kernel in ("k2", "k4", "k4", "k2"):
+        with k2_as_solver() if kernel == "k2" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            run()
+            torch.cuda.synchronize()
+        out[kernel].append((time.time() - t0) / n_frames * 1e3)
+    return out
 
 
 def breakdown(pipe, frames_u8, batch_dets, dev):
@@ -1235,7 +1352,7 @@ def read_mot(path):
 def serving_phase(sd, pipe, dev):
     """Drive cli.serve.main twice (16 ticks, then 8 resumed) on 8 synthetic
     cameras and check its outputs, its launch counts and its last tick's
-    stage-1 solves; returns (K3 launches, K2 launches, last stage-1
+    stage-1 solves; returns (K3 launches, K4 launches, last stage-1
     problem, last stage-2/3 problem)."""
     import torch
 
@@ -1284,11 +1401,11 @@ def serving_phase(sd, pipe, dev):
                         "1088", "--conf_thresh", "0.5", "--capacity", "128",
                         "--det_capacity", "300", "--max_frames", str(ticks),
                         "--save_dir", save_dir, "--state_dir", state_dir]
-                auction.LAUNCHES = 0
+                auction.LAUNCHES_K4 = 0
                 square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
                 results, preempted = serve.main(argv)
                 torch.cuda.synchronize()
-                counts.append((square.LAUNCHES_K3, auction.LAUNCHES,
+                counts.append((square.LAUNCHES_K3, auction.LAUNCHES_K4,
                                square.LAUNCHES_K1))
                 if preempted or [len(r) for r in results] != \
                         [ticks] * N_STREAMS:
@@ -1304,10 +1421,10 @@ def serving_phase(sd, pipe, dev):
         bytetrack.solve_assignment = solve23
         pipeline_mod.TrackingPipeline.process_multistream = tick_fn
 
-    for (k3, k2, k1), ticks in zip(counts, SERVE_TICKS):
-        if (k3, k2, k1) != (ticks, ticks, 0):
+    for (k3, k4, k1), ticks in zip(counts, SERVE_TICKS):
+        if (k3, k4, k1) != (ticks, ticks, 0):
             raise AssertionError(
-                f"serve: {k3} K3, {k2} K2, {k1} K1 launches in {ticks} ticks")
+                f"serve: {k3} K3, {k4} K4, {k1} K1 launches in {ticks} ticks")
     files = sorted(os.listdir(save_dir))
     if len(files) != N_STREAMS or len(slabs) != N_STREAMS:
         raise AssertionError(f"serve: result files {files}, states {states}")
@@ -1338,7 +1455,7 @@ def serving_phase(sd, pipe, dev):
     log(f"serving on {card_line()}: {N_STREAMS} streams x "
         f"{SERVE_TICKS[0]} + {SERVE_TICKS[1]} ticks (resumed), "
         f"{rows} MOT rows in {len(files)} files, ids continue; launches per "
-        f"call (K3, K2, K1) {counts}; process_multistream "
+        f"call (K3, K4, K1) {counts}; process_multistream "
         f"{tick_ms:.2f} ms/tick, whole loop (frame queues, stacking, "
         f"harvest) {loop_ms:.2f} ms/tick = "
         f"{N_STREAMS / loop_ms * 1e3:.2f} frames/s aggregate, "
@@ -1401,15 +1518,15 @@ def serving_breakdown(pipe, slabs, streams, last, dev):
     c2, r2, m2, th2 = last["stage23"]
     t_k3 = cuda_ms(lambda: square.masked_assignment_square_cuda(
         c1, r1, m1, th1, n_phases=SQUARE_PHASES), 10)
-    t_k2 = graph_ms(auction.prepared_auction(c2.contiguous(), r2, m2, th2,
-                                             **K2_STEEP))
+    t_k2 = graph_ms(auction.prepared_twin(c2.contiguous(), r2, m2, th2,
+                                          **K2_STEEP))
     n = frames.shape[0]
     log(f"per-tick breakdown on {card_line()} ({n} streams): stack frames "
         f"on the host {t_stack:.2f} ms, H2D {t_h2d:.2f} ms, letterbox "
         f"{t_pre:.2f} ms, w6 forward {t_model:.2f} ms, NMS {t_nms:.2f} ms, "
         f"stacked ByteTrack step {t_step:.2f} ms (of which K3 B={n} "
-        f"{t_k3:.4f} ms and K2 B={2 * n} {t_k2:.4f} ms); the same step on "
-        f"one stream alone (K2 for every stage) {t_one:.2f} ms, so "
+        f"{t_k3:.4f} ms and K4 B={2 * n} {t_k2:.4f} ms); the same step on "
+        f"one stream alone (K4 for every stage) {t_one:.2f} ms, so "
         f"{t_step / n:.2f} against {t_one:.2f} ms of tracker per frame")
 
 
@@ -1585,9 +1702,9 @@ def dhn_replay(step, kept):
     step to the card's; the DHN itself is held on the card's own inputs:
     each frame, the CPU copy runs on the compacted cost the card's step
     gave its DHN (``kept``, recording_dhn) through dhn_scores_check. 1 - DHN
-    is a dense cost, on which a score difference of 1e-7 can move K2's
+    is a dense cost, on which a score difference of 1e-7 can move K4's
     matching: the frames where the compacted stage-1 problem pairs
-    otherwise on the CPU's scores than on the card's (K2's plain version,
+    otherwise on the CPU's scores than on the card's (K4's plain version,
     valid rows and columns first, as compact_cost puts them) are reported,
     not held. Returns (step, report)."""
     import torch
@@ -1620,7 +1737,7 @@ def dhn_replay(step, kept):
 
 
 def replay_on_cpu(pipe, dets, slabs, results, name, dhn_kept=None):
-    """Step the tracker on the CPU (K2's plain version) through the
+    """Step the tracker on the CPU (K4's plain version) through the
     detections, features and warps the card's run gave it; ids must equal
     the card's and boxes agree as in phase 3. ``slabs``: the card's slab
     before each step, compared field by field where the replay differs
@@ -1666,7 +1783,7 @@ def replay_on_cpu(pipe, dets, slabs, results, name, dhn_kept=None):
 
 def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     """Drive one tracker through run_sequence_stateful (after a warm-up
-    batch); check its K2 launches and its CPU replay. Returns (record,
+    batch); check its K4 launches and its CPU replay. Returns (record,
     pipe, the detections the step got, the results)."""
     import torch
 
@@ -1691,17 +1808,18 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
 
     pipe.step = recording_step
     torch.cuda.synchronize()
-    auction.LAUNCHES = 0
+    auction.LAUNCHES_K4 = auction.LAUNCHES = 0
     t0 = time.time()
     results, slab = pipe.run_sequence_stateful(iter(frames))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = auction.LAUNCHES
+    launches = auction.LAUNCHES_K4
     pipe.step = plain_step
     n = len(frames)
-    if launches != per_frame * n:
-        raise AssertionError(f"{name}: {launches} K2 launches in {n} frames, "
-                             f"expected {per_frame} a frame")
+    if launches != per_frame * n or auction.LAUNCHES != 0:
+        raise AssertionError(f"{name}: {launches} K4 and {auction.LAUNCHES} "
+                             f"K2 launches in {n} frames, expected "
+                             f"{per_frame} K4 a frame")
     tracks = [len(ids) for _, ids, _, _ in results]
     if len(results) != n or max(tracks) < 1 or int(slab.frame) != n:
         raise AssertionError(f"{name}: tracks per frame {tracks}")
@@ -1712,9 +1830,21 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     replay_s = time.time() - t0
     if pipe.gmc is not None:
         without_gmc(pipe, dets)
+    turns = None
+    if name in K2_BEFORE:
+
+        def run():
+            if pipe.gmc is not None:
+                pipe.gmc.set_state({})
+            pipe.run_sequence_stateful(iter(frames[:TURN_FRAMES]))
+
+        turns = solver_turns(run, TURN_FRAMES)
+        log(f"{name} in turns K2 (before K4), K4, K4, K2: ms/frame K2 "
+            f"{turns['k2']}, K4 {turns['k4']}")
     warps = torch.stack([d.warp.to(dev) for d in dets])
-    rec = {"ms_per_frame": wall / n * 1e3, "k2_launches": launches,
-           "k2_per_frame": per_frame, "tracks_per_frame_mean":
+    rec = {"ms_per_frame": wall / n * 1e3, "solver_turns": turns,
+           "k4_launches": launches,
+           "k4_per_frame": per_frame, "tracks_per_frame_mean":
            float(np.mean(tracks)), "tracks_per_frame_max": max(tracks),
            "ids": int(slab.next_id), "cpu_replay": "same ids, boxes 1e-2",
            "cpu_replay_s": replay_s,
@@ -1732,7 +1862,7 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
             f"otherwise in {len(dhn_report['pairing_differs'])} of "
             f"{dhn_report['frames']} frames {dhn_report['pairing_differs']}")
     log(f"{name} on {card_line()}: {wall / n * 1e3:.2f} ms/frame over {n} "
-        f"frames, {launches} K2 launches ({per_frame} a frame), tracks/frame "
+        f"frames, {launches} K4 launches ({per_frame} a frame), tracks/frame "
         f"mean {np.mean(tracks):.1f} max {max(tracks)}, {int(slab.next_id)} "
         f"ids; CPU replay ({replay_s:.1f} s): same ids, boxes within 1e-2")
     return rec, pipe, dets, results
@@ -1984,9 +2114,9 @@ def cascade_timing(pipe, dets, dev):
     kernel, wrapper, rows = [], [], []
     for cost, rm, cm, th in problems:
         cost, rm, cm = (t.to(dev) for t in (cost, rm, cm))
-        kernel.append(graph_ms(auction.prepared_auction(
+        kernel.append(graph_ms(auction.prepared_twin(
             cost.contiguous(), rm, cm, th, **K2_STEEP)))
-        wrapper.append(cuda_ms(lambda: auction.masked_assignment_auction_cuda(
+        wrapper.append(cuda_ms(lambda: auction.masked_assignment_twin_cuda(
             cost.contiguous(), rm, cm, th, **K2_STEEP), 20))
         rows.append(int(rm.sum()))
     empty = [k for k, r in zip(kernel, rows) if r == 0]
@@ -2002,7 +2132,7 @@ def cascade_timing(pipe, dets, dev):
            "kernel_ms_max": float(max(kernel)),
            "wrapper_ms_sum": float(sum(wrapper))}
     log(f"deepsort cascade on {card_line()}: {len(problems)} levels, rows "
-        f"{rows}; K2 from a CUDA graph {sum(kernel):.4f} ms in all "
+        f"{rows}; K4 from a CUDA graph {sum(kernel):.4f} ms in all "
         f"({rec['kernel_ms_empty_level']} ms an empty level, "
         f"{max(kernel):.4f} the longest); through the wrapper "
         f"{sum(wrapper):.3f} ms a frame")
@@ -2011,7 +2141,7 @@ def cascade_timing(pipe, dets, dev):
 
 def trackers_phase(sd, dev):
     """Phase 6, under PyTorch's default TF32 flags (main() turns TF32 off
-    for the earlier phases). Returns the trackers JSON record, K2's
+    for the earlier phases). Returns the trackers JSON record, K4's
     launches by tracker and strongsort's results."""
     import torch
 
@@ -2044,7 +2174,7 @@ def run_trackers(sd, dev):
         if name == "deepsort":
             rec["cascade"] = cascade_timing(pipe, dets, dev)
         out[name] = rec
-        launches[name] = rec["k2_launches"]
+        launches[name] = rec["k4_launches"]
         del pipe, dets
     out["ecc_8px_pair"] = ecc_check(pan, dev)
     return out, launches, strongsort_rows
@@ -2075,20 +2205,20 @@ def seeded_osnet(sd, dev):
 
 
 @contextlib.contextmanager
-def path_solves(k2_kept):
+def path_solves(k4_kept):
     """Keep the newest problems the tracker steps hand K1/K3 (the last one)
-    and K2 (the last ``k2_kept``) while the block runs: clones on the card,
-    no host sync. Yields {"square": [...], "k2": [...]}, each entry
+    and K4 (the last ``k4_kept``) while the block runs: clones on the card,
+    no host sync. Yields {"square": [...], "k4": [...]}, each entry
     (cost, row_mask, col_mask, thresh, solver keywords)."""
     import torch
 
     from yolov7_tracker_tpu_torch.ops import assignment
 
     names = {"square": "masked_assignment_square",
-             "k2": "masked_assignment_auction"}
+             "k4": "masked_assignment_twin"}
     solvers = {k: getattr(assignment, v) for k, v in names.items()}
     kept = {"square": collections.deque(maxlen=1),
-            "k2": collections.deque(maxlen=k2_kept)}
+            "k4": collections.deque(maxlen=k4_kept)}
 
     def keeping(key):
         def solve(cost, rm, cm, th, **kw):
@@ -2108,25 +2238,27 @@ def path_solves(k2_kept):
 
 def path_solves_check(kept, name, dev):
     """The problems path_solves kept, re-solved by the plain versions on the
-    card: K1/K3 by square_check, K2 by k2_both. Raises unless both are bit
-    for bit the kernel's; returns the max |difference| (0)."""
+    card: K1/K3 by square_check, K4 by kernel_both, and K2 against its own
+    plain version on K4's problems. Raises unless each is bit for bit its
+    kernel's; returns the max |difference| (0)."""
     from yolov7_tracker_tpu_torch.ops import auction
     from yolov7_tracker_tpu_torch.ops import auction_square as square
 
-    if not kept["square"] or not kept["k2"]:
+    if not kept["square"] or not kept["k4"]:
         raise AssertionError(f"{name}: no solve was kept")
     sq = max(square_check(square, c, rm, cm, th, dev, **kw)[0]
              for c, rm, cm, th, kw in kept["square"])
-    k2 = max(k2_both(auction, c, rm, cm, th, dev, **kw)[0]
-             for c, rm, cm, th, kw in kept["k2"])
-    shapes = [tuple(p[0].shape) for p in (*kept["square"], *kept["k2"])]
+    k4 = max(kernel_both(auction, kernel, c, rm, cm, th, dev, **kw)[0]
+             for c, rm, cm, th, kw in kept["k4"] for kernel in PRIVATE_DUMMY)
+    shapes = [tuple(p[0].shape) for p in (*kept["square"], *kept["k4"])]
     log(f"{name}: the last stage-1 and stage-2/3 problems {shapes} "
         f"re-solved: max |K1/K3 - plain| (r2c, c2r, sweeps per phase, "
-        f"cells) = {sq}, max |K2 - plain| (r2c, c2r, sweeps) = {k2}")
-    if sq or k2:
+        f"cells) = {sq}, max |K4 - plain|, |K2 - plain| (r2c, c2r, sweeps) "
+        f"= {k4}")
+    if sq or k4:
         raise AssertionError(f"{name}: a kernel differs from its plain "
                              "version on the path's own problems")
-    return max(sq, k2)
+    return max(sq, k4)
 
 
 def serve_streams(total):
@@ -2138,9 +2270,9 @@ def serving_reid_phase(sd, dev, reid_path):
     """strongsort with OSNet x1_0 through cli.serve.main on 8 cameras:
     16 ticks with state files, then 8 resumed from them, and one
     uninterrupted 24-tick run; the two runs' MOT files must be equal byte
-    for byte. One K3 (stage 1) and two K2 launches (stages 2 and 3) a
+    for byte. One K3 (stage 1) and two K4 launches (stages 2 and 3) a
     tick; the last tick's three problems re-solved by the plain versions.
-    Returns (record, K3 launches, K2 launches)."""
+    Returns (record, K3 launches, K4 launches)."""
     import torch
 
     from yolov7_tracker_tpu_torch import pipeline as pipeline_mod
@@ -2164,7 +2296,7 @@ def serving_reid_phase(sd, dev, reid_path):
     counts = []
     pipeline_mod.TrackingPipeline.process_multistream = timed_tick
     try:
-        # kept: the last tick's solves (K3, then K2 for stages 2 and 3)
+        # kept: the last tick's solves (K3, then K4 for stages 2 and 3)
         with tempfile.TemporaryDirectory() as tmp, path_solves(2) as kept:
             weights = os.path.join(tmp, "w6.pt")
             torch.save(sd, weights)
@@ -2182,11 +2314,11 @@ def serving_reid_phase(sd, dev, reid_path):
                                                    name)]
                 if state:
                     argv += ["--state_dir", state]
-                auction.LAUNCHES = 0
+                auction.LAUNCHES_K4 = 0
                 square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
                 results, preempted = serve.main(argv)
                 torch.cuda.synchronize()
-                counts.append((square.LAUNCHES_K3, auction.LAUNCHES,
+                counts.append((square.LAUNCHES_K3, auction.LAUNCHES_K4,
                                square.LAUNCHES_K1))
                 if preempted or [len(r) for r in results] != \
                         [ticks] * N_STREAMS:
@@ -2198,9 +2330,9 @@ def serving_reid_phase(sd, dev, reid_path):
     finally:
         pipeline_mod.TrackingPipeline.process_multistream = tick_fn
 
-    for (k3, k2, k1), (ticks, _, _) in zip(counts, runs):
-        if (k3, k2, k1) != (ticks, 2 * ticks, 0):
-            raise AssertionError(f"serve with ReID: {k3} K3, {k2} K2, {k1} "
+    for (k3, k4, k1), (ticks, _, _) in zip(counts, runs):
+        if (k3, k4, k1) != (ticks, 2 * ticks, 0):
+            raise AssertionError(f"serve with ReID: {k3} K3, {k4} K4, {k1} "
                                  f"K1 launches in {ticks} ticks")
     if feat.shape[-1] != 512 or not np.abs(feat).max() > 0:
         raise AssertionError("serve with ReID: no features in the state")
@@ -2234,19 +2366,19 @@ def serving_reid_phase(sd, dev, reid_path):
     log(f"serving with ReID on {card_line()}: strongsort + OSNet x1_0 "
         f"(128 crops a camera), {N_STREAMS} streams x {SERVE_TICKS[0]} + "
         f"{SERVE_TICKS[1]} ticks (resumed) == {total} ticks in one run, "
-        f"byte for byte ({rows} MOT rows); launches per call (K3, K2, K1) "
+        f"byte for byte ({rows} MOT rows); launches per call (K3, K4, K1) "
         f"{counts}; process_multistream median {tick_ms:.2f} ms/tick = "
         f"{tick_ms / N_STREAMS:.2f} ms/frame")
     k3 = sum(c[0] for c in counts[:2])
-    k2 = sum(c[1] for c in counts[:2])
-    return rec, k3, k2
+    k4 = sum(c[1] for c in counts[:2])
+    return rec, k3, k4
 
 
 def step_frame_reid_phase(sd, dev, reid_path):
     """strongsort with OSNet x1_0 through step_frame, 8 frames of one
-    camera: one K1 and two K2 launches a frame, the last frame's three
+    camera: one K1 and two K4 launches a frame, the last frame's three
     problems re-solved by the plain versions. Returns (record, K1
-    launches, K2 launches)."""
+    launches, K4 launches)."""
     import torch
 
     from yolov7_tracker_tpu_torch.data.sequence import SynthFrames
@@ -2261,42 +2393,42 @@ def step_frame_reid_phase(sd, dev, reid_path):
     frames = list(SynthFrames("synth://8x1080x1920?seed=11&shift=8"))
     pipe.step_frame(pipe.init_tracker(), frames[0])     # warm-up
     torch.cuda.synchronize()
-    auction.LAUNCHES = 0
+    auction.LAUNCHES_K4 = 0
     square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
     slab, per_frame = pipe.init_tracker(), []
-    with path_solves(2) as kept:        # the last frame's K1, K2, K2
+    with path_solves(2) as kept:        # the last frame's K1, K4, K4
         for f in frames:
             torch.cuda.synchronize()
             t0 = time.time()
             slab, out = pipe.step_frame(slab, f)
             torch.cuda.synchronize()
             per_frame.append((time.time() - t0) * 1e3)
-    k1, k2, k3 = square.LAUNCHES_K1, auction.LAUNCHES, square.LAUNCHES_K3
+    k1, k4, k3 = square.LAUNCHES_K1, auction.LAUNCHES_K4, square.LAUNCHES_K3
     n = len(frames)
-    if (k1, k2, k3) != (n, 2 * n, 0):
-        raise AssertionError(f"step_frame with ReID: {k1} K1, {k2} K2, {k3} "
+    if (k1, k4, k3) != (n, 2 * n, 0):
+        raise AssertionError(f"step_frame with ReID: {k1} K1, {k4} K4, {k3} "
                              f"K3 launches in {n} frames")
     if not int(out.valid.sum()) or not bool(slab.feature.abs().max() > 0):
         raise AssertionError("step_frame with ReID: no tracks or features")
     worst = path_solves_check(kept, "step_frame with ReID", dev)
     rec = {"ms_per_frame_median": float(np.median(per_frame)),
-           "ms_per_frame": per_frame, "k1_launches": k1, "k2_launches": k2,
+           "ms_per_frame": per_frame, "k1_launches": k1, "k4_launches": k4,
            "tracks_last_frame": int(out.valid.sum()),
            "last_frame_kernels_vs_plain_max_abs_diff": worst}
     log(f"step_frame with ReID on {card_line()}: strongsort + OSNet x1_0, "
-        f"{n} frames, {k1} K1 and {k2} K2 launches, ms/frame "
+        f"{n} frames, {k1} K1 and {k4} K4 launches, ms/frame "
         f"{[round(t, 2) for t in per_frame]}, median "
         f"{rec['ms_per_frame_median']:.2f}")
-    return rec, k1, k2
+    return rec, k1, k4
 
 
 def deepmot_streams_phase(sd, dev):
     """deepmot with the trained GRU h32 DHN through process_multistream on
     the 8 serving cameras for 8 ticks: the DHN batched over the streams,
-    stage 1 by K3, stages 2+3 by one K2 launch. The last tick's two
+    stage 1 by K3, stages 2+3 by one K4 launch. The last tick's two
     problems are re-solved by the plain versions and its DHN run again on
     the CPU on the same compacted costs. Returns (record, K3
-    launches, K2 launches)."""
+    launches, K4 launches)."""
     import copy
 
     import torch
@@ -2313,12 +2445,12 @@ def deepmot_streams_phase(sd, dev):
     frames = [np.stack(f) for f in zip(*cams)]
     pipe.process_multistream(pipe.init_multistream(N_STREAMS), frames[0])
     torch.cuda.synchronize()
-    auction.LAUNCHES = 0
+    auction.LAUNCHES_K4 = 0
     square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
     cpu_dhn = copy.deepcopy(pipe.step.keywords["dhn"]).cpu()
     dhn_kept = recording_dhn(pipe)
     slabs, per_tick, tracks = pipe.init_multistream(N_STREAMS), [], []
-    with path_solves(1) as kept:        # the last tick's K3 and K2
+    with path_solves(1) as kept:        # the last tick's K3 and K4
         for f in frames:
             torch.cuda.synchronize()
             t0 = time.time()
@@ -2328,9 +2460,9 @@ def deepmot_streams_phase(sd, dev):
             tracks.append(outs.valid.sum(dim=1).tolist())
             if not bool(torch.isfinite(outs.tlwh[outs.valid]).all()):
                 raise AssertionError(f"deepmot at S = {N_STREAMS}: boxes")
-    k3, k2, k1 = square.LAUNCHES_K3, auction.LAUNCHES, square.LAUNCHES_K1
-    if (k3, k2, k1) != (ticks, ticks, 0):
-        raise AssertionError(f"deepmot at S = {N_STREAMS}: {k3} K3, {k2} K2, "
+    k3, k4, k1 = square.LAUNCHES_K3, auction.LAUNCHES_K4, square.LAUNCHES_K1
+    if (k3, k4, k1) != (ticks, ticks, 0):
+        raise AssertionError(f"deepmot at S = {N_STREAMS}: {k3} K3, {k4} K4, "
                              f"{k1} K1 launches in {ticks} ticks")
     if min(map(sum, zip(*tracks))) < 1:        # every stream tracked
         raise AssertionError(f"deepmot at S = {N_STREAMS}: tracks {tracks}")
@@ -2341,15 +2473,15 @@ def deepmot_streams_phase(sd, dev):
         f"{tuple(dhn_kept[-1][0].shape)} compacted costs, card vs CPU: max "
         f"|score difference| {diff:.2e} (tolerance {DHN_SCORE_TOL})")
     rec = {"ms_per_tick_median": float(np.median(per_tick[1:])),
-           "ms_per_tick": per_tick, "k3_launches": k3, "k2_launches": k2,
+           "ms_per_tick": per_tick, "k3_launches": k3, "k4_launches": k4,
            "tracks_per_tick": tracks, "dhn": "gru h32",
            "last_tick_kernels_vs_plain_max_abs_diff": worst,
            "last_tick_dhn_card_vs_cpu_max_abs_diff": diff}
     log(f"deepmot (GRU h32) at S = {N_STREAMS} on {card_line()}: {ticks} "
-        f"ticks, {k3} K3 and {k2} K2 launches, ms/tick "
+        f"ticks, {k3} K3 and {k4} K4 launches, ms/tick "
         f"{[round(t, 2) for t in per_tick]}, median of ticks 2.. "
         f"{rec['ms_per_tick_median']:.2f}; tracks a tick by stream {tracks}")
-    return rec, k3, k2
+    return rec, k3, k4
 
 
 def dhn_timings(dev):
@@ -2689,7 +2821,7 @@ def scoring_phase(dev):
     bytetrack and sort, once on the card and once with --device cpu: the
     MOT txts and CSVs byte for byte and the score tables number for number
     equal; cli.evaluate.main on the card's folder writes the table track
-    printed. Returns {tracker: record} and {tracker: K2 launches}."""
+    printed. Returns {tracker: record} and {tracker: K4 launches}."""
     import torch
 
     from yolov7_tracker_tpu_torch.cli import evaluate, track
@@ -2719,14 +2851,14 @@ def scoring_phase(dev):
                     "--output_dir", os.path.join(root, f"{tracker}_{device}")]
             seq_runs, scored = [], []
             torch.cuda.synchronize()
-            auction.LAUNCHES = 0
+            auction.LAUNCHES_K4 = 0
             with steps_without_sync(), \
                     recording(TrackingPipeline, "run_sequence_detections",
                               seq_runs, sync=True), \
                     recording(track, "evaluate_run", scored):
                 folder = track.main(argv)
             runs[device] = {
-                "folder": folder, "launches": auction.LAUNCHES,
+                "folder": folder, "launches": auction.LAUNCHES_K4,
                 "track_s": sum(t for t, _, _ in seq_runs),
                 "score_s": scored[0][0], "table": scored[0][1],
                 "files": read_tree(folder), "pipe": seq_runs[0][2][0],
@@ -2734,7 +2866,7 @@ def scoring_phase(dev):
         card, cpu = runs["cuda"], runs["cpu"]
         if card["launches"] != 2 * n_frames or cpu["launches"] != 0:
             raise AssertionError(
-                f"{tracker}: K2 launches {card['launches']} on the card, "
+                f"{tracker}: K4 launches {card['launches']} on the card, "
                 f"{cpu['launches']} on the CPU, for {n_frames} frames")
         differ = sorted(k for k in card["files"].keys() | cpu["files"]
                         if card["files"].get(k) != cpu["files"].get(k))
@@ -2766,7 +2898,7 @@ def scoring_phase(dev):
             "ms_per_frame": card["track_s"] / n_frames * 1e3,
             "cpu_ms_per_frame": cpu["track_s"] / n_frames * 1e3,
             "scoring_s": card["score_s"], "cpu_scoring_s": cpu["score_s"],
-            "k2_launches": card["launches"], "frame_parts_ms": parts,
+            "k4_launches": card["launches"], "frame_parts_ms": parts,
             "card_vs_cpu": "MOT txts and CSV byte-equal, tables equal",
             "evaluate_cli": "summary.json == track's table"}
         launches[tracker] = card["launches"]
@@ -2775,7 +2907,7 @@ def scoring_phase(dev):
             f"{head['IDF1'] * 100:.3f} IDSW {head['IDSW']:.0f}; tracking "
             f"{records[tracker]['ms_per_frame']:.3f} ms/frame on the card "
             f"({records[tracker]['cpu_ms_per_frame']:.3f} on the CPU) over "
-            f"{n_frames} frames, {card['launches']} K2 launches; scoring "
+            f"{n_frames} frames, {card['launches']} K4 launches; scoring "
             f"{card['score_s']:.2f} s; {rows} MOT rows, card == CPU byte "
             "for byte, cli.evaluate == track's table")
     return records, launches
@@ -2815,12 +2947,12 @@ def detect_every_phase(sd, dev):
     """Phase 8b: --detect_per_frame on phase 3's path (yolov7-w6 @1088,
     batch 8, ByteTrack 128 / 300) over phase 3's 16 frames at k = 1 (the
     reference for the times), 2 and 3: every step, the predict-only ones
-    too, but each first, with no host sync; K2 launches on detected
+    too, but each first, with no host sync; K4 launches on detected
     frames only (2 each); at k > 1 a run resumed from the state saved
     after frame 7 (mid-cadence) equal to the uninterrupted run, and the
     predict-only step timed alone; a CPU replay of the card's detections
     and cadence with the same ids and boxes within 1e-2. Returns
-    ({k: record}, {k: K2 launches})."""
+    ({k: record}, {k: K4 launches})."""
     import torch
 
     from yolov7_tracker_tpu_torch.data import writer
@@ -2846,18 +2978,18 @@ def detect_every_phase(sd, dev):
 
         pipe.step = recording_step
         torch.cuda.synchronize()
-        auction.LAUNCHES = 0
+        auction.LAUNCHES_K4 = 0
         t0 = time.time()
         results, _ = pipe.run_sequence_stateful(iter(frames))
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launched = auction.LAUNCHES
+        launched = auction.LAUNCHES_K4
         pipe.step = step
         detected = list(range(0, n, k))
         if len(kept) != len(detected) or launched != 2 * len(detected):
             raise AssertionError(
                 f"detect_per_frame={k}: {len(kept)} detected frames, "
-                f"{launched} K2 launches, for {len(detected)} frames of "
+                f"{launched} K4 launches, for {len(detected)} frames of "
                 "the cadence")
         dets = dict(zip(detected, kept))
         if [r[0] for r in results] != list(range(1, n + 1)):
@@ -2901,7 +3033,7 @@ def detect_every_phase(sd, dev):
             predict_ms = cuda_ms(lambda: pipe.predict_only(mid), 20)
         records[str(k)] = {
             "ms_per_frame": wall / n * 1e3, "frames": n,
-            "detected_frames": len(detected), "k2_launches": launched,
+            "detected_frames": len(detected), "k4_launches": launched,
             "tracks_per_frame_mean": float(np.mean(tracks)),
             "cpu_replay": "same ids, boxes 1e-2"}
         if k > 1:
@@ -2914,7 +3046,7 @@ def detect_every_phase(sd, dev):
         launches[str(k)] = launched
         log(f"detect_per_frame={k} on {card_line()}: {wall / n * 1e3:.2f} "
             f"ms/frame over {n} frames ({len(detected)} detected), "
-            f"{launched} K2 launches, tracks/frame mean "
+            f"{launched} K4 launches, tracks/frame mean "
             f"{np.mean(tracks):.1f}; no host sync in any step; "
             f"{'resumed after frame 7 == one run; ' if k > 1 else ''}"
             "CPU replay: same ids, boxes 1e-2")
@@ -2930,7 +3062,7 @@ def zoo_phase(dev):
     the published multiples), 1280 px (cli/track.py's default), batch 8,
     bf16, BN and RepConv folded, through offline ByteTrack (128 / 300,
     conf_thresh 0.5) on phase 3's 16 frames. Returns ({name: record},
-    {name: K2 launches})."""
+    {name: K4 launches})."""
     import torch
 
     frames = offline_frames()
@@ -2939,7 +3071,7 @@ def zoo_phase(dev):
         t0 = time.time()
         records[name] = zoo_run(name, spread, boost, frames, dev)
         records[name]["phase_s"] = time.time() - t0
-        launches[name] = records[name]["k2_launches"]
+        launches[name] = records[name]["k4_launches"]
         torch.cuda.empty_cache()
     return records, launches
 
@@ -2950,7 +3082,7 @@ def zoo_run(name, spread, boost, frames, dev, spec=None, keep=None,
     seeded weights (random_state_dict, or ``weights``) calibrated on the
     first 8 frames
     (calibrate_detector_bn, standardize_heads), through
-    run_sequence_stateful (after a warm-up batch): K2 launches, NMS
+    run_sequence_stateful (after a warm-up batch): K4 launches, NMS
     survivors of every frame in ZOO_SURVIVORS, the parts of a frame, the
     detector on the card against the CPU and fused against
     unfused (zoo_detector_checks; ``keep``: a dict that gets its float32
@@ -2997,17 +3129,17 @@ def zoo_run(name, spread, boost, frames, dev, spec=None, keep=None,
 
     pipe.detect_batch, pipe.step = recording_detect, recording_step
     torch.cuda.synchronize()
-    auction.LAUNCHES = 0
+    auction.LAUNCHES_K4 = 0
     t0 = time.time()
     results, slab = pipe.run_sequence_stateful(iter(frames))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = auction.LAUNCHES
+    launches = auction.LAUNCHES_K4
     del pipe.detect_batch
     pipe.step = step
     n = len(frames)
     if launches != 2 * n:
-        raise AssertionError(f"{name}: {launches} K2 launches in {n} frames")
+        raise AssertionError(f"{name}: {launches} K4 launches in {n} frames")
     counts = torch.cat([b[3] for b in batches]).float().cpu()
     boxes = torch.cat([b[0] for b in batches])
     tracks = [len(r[1]) for r in results]
@@ -3037,7 +3169,7 @@ def zoo_run(name, spread, boost, frames, dev, spec=None, keep=None,
            "nms_survivors_per_frame": float(counts.mean()),
            "nms_survivors_range": [float(counts.min()),
                                    float(counts.max())],
-           "k2_launches": launches,
+           "k4_launches": launches,
            "tracks_per_frame_mean": float(np.mean(tracks)),
            "tracks_per_frame_max": max(tracks), "ids": int(slab.next_id),
            **parts, **checks, "profile_detect_batch": profile,
@@ -3047,7 +3179,7 @@ def zoo_run(name, spread, boost, frames, dev, spec=None, keep=None,
         f"scale {ZOO_BN_SCALE}, head spread {spread}, head boost {boost}) "
         f"on {card_line()}: "
         f"{wall / n * 1e3:.2f} ms/frame over {n} frames at {ZOO_IMG} px "
-        f"(canvas {rec['canvas_hw']}), {launches} K2 launches, NMS "
+        f"(canvas {rec['canvas_hw']}), {launches} K4 launches, NMS "
         f"survivors/frame {float(counts.mean()):.1f} (min "
         f"{float(counts.min()):.0f}, max {float(counts.max()):.0f}), "
         f"tracks/frame mean {np.mean(tracks):.1f} max {max(tracks)}, "
@@ -4639,7 +4771,7 @@ def dhn_first_step_parity(arch, hidden, dev):
 
 def dhn_deepmot_run(sd, dev, frames, path, arch, hidden):
     """The trained DHN file through deepmot (128 x 48) on phase 3's
-    detector and frames: K2 twice a frame (reset just before the run, read
+    detector and frames: K4 twice a frame (reset just before the run, read
     just after), tracks on the frames."""
     import torch
 
@@ -4650,19 +4782,19 @@ def dhn_deepmot_run(sd, dev, frames, path, arch, hidden):
         dhn_hidden=hidden, dhn_arch=arch), {})
     pipe.run_sequence(iter(frames[:8]))        # warm-up, not counted
     torch.cuda.synchronize()
-    auction.LAUNCHES = 0
+    auction.LAUNCHES_K4 = 0
     t0 = time.time()
     results, slab = pipe.run_sequence_stateful(iter(frames))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = auction.LAUNCHES
+    launches = auction.LAUNCHES_K4
     n = len(frames)
     tracks = [len(ids) for _, ids, _, _ in results]
     if launches != 2 * n or max(tracks) < 1:
         raise AssertionError(f"deepmot with the trained {arch} DHN: "
-                             f"{launches} K2 launches in {n} frames, tracks "
+                             f"{launches} K4 launches in {n} frames, tracks "
                              f"a frame {tracks}")
-    return {"ms_per_frame": wall / n * 1e3, "k2_launches": launches,
+    return {"ms_per_frame": wall / n * 1e3, "k4_launches": launches,
             "tracks_per_frame_mean": float(np.mean(tracks)),
             "ids": int(slab.next_id)}
 
@@ -4672,7 +4804,7 @@ def dhn_train_phase(sd, dev):
     pad_train, batch 8, DHN_TRAIN_STEPS steps): the first step card
     against CPU in float64, ms a step by parts, eval_dhn on the result,
     the msgpack written and reloaded by load_dhn, and deepmot on it.
-    Returns (record, {arch: K2 launches})."""
+    Returns (record, {arch: K4 launches})."""
     import torch
 
     from yolov7_tracker_tpu_torch.reid.dhn import load_dhn
@@ -4716,7 +4848,7 @@ def dhn_train_phase(sd, dev):
             assert not any(v[:2 * hidden].any() for v in hh)
         r["file_bytes"] = os.path.getsize(path)
         r["deepmot"] = dhn_deepmot_run(sd, dev, frames, path, arch, hidden)
-        launches[name] = r["deepmot"]["k2_launches"]
+        launches[name] = r["deepmot"]["k4_launches"]
         log(f"phase 11d: train_dhn {name} (size {DHN_TRAIN_SIZE}, pad_train, "
             f"batch {DHN_TRAIN_BATCH}) on {card_line()}: "
             f"{r['ms_per_step']:.2f} ms a step over {DHN_TRAIN_STEPS} steps "
@@ -4735,7 +4867,7 @@ def dhn_train_phase(sd, dev):
 def train2_phase(dev, sd=None):
     """Phase 11: (a) the IBin head on the tracking path, (b) the bin loss,
     (c) the rank losses, (d) the DHN trainer. ``sd``: phase 3's detector
-    weights (built here when not given). Returns (record, {path: K2
+    weights (built here when not given). Returns (record, {path: K4
     launches})."""
     import torch
 
@@ -4760,7 +4892,7 @@ def train2_phase(dev, sd=None):
          torch.backends.cuda.matmul.allow_tf32) = tf32
     rec["phase_s"] = time.time() - t0
     log(f"phase 11 {rec['phase_s']:.1f} s")
-    return rec, {"ibin": rec["ibin"]["k2_launches"], **dhn_launches}
+    return rec, {"ibin": rec["ibin"]["k4_launches"], **dhn_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4933,7 +5065,7 @@ def int8_serving(dev, sd, pipe):
     qpipe.detect_batch, qpipe.step = recording_detect, recording_step
     bytetrack.solve_assignment = recording_solve
     torch.cuda.synchronize()
-    auction.LAUNCHES = 0
+    auction.LAUNCHES_K4 = 0
     t0 = time.time()
     try:
         results, slab = qpipe.run_sequence_stateful(iter(frames))
@@ -4941,7 +5073,7 @@ def int8_serving(dev, sd, pipe):
     finally:
         bytetrack.solve_assignment = solve
     wall = time.time() - t0
-    launches = auction.LAUNCHES
+    launches = auction.LAUNCHES_K4
     del qpipe.detect_batch
     qpipe.step = step
     n = len(frames)
@@ -4949,11 +5081,11 @@ def int8_serving(dev, sd, pipe):
     tracks = [len(r[1]) for r in results]
     if launches != 2 * n or max(tracks) < 1 or not bool(torch.isfinite(
             torch.cat([b[0] for b in batches])).all()):
-        raise AssertionError(f"12a: {launches} K2 launches in {n} frames, "
+        raise AssertionError(f"12a: {launches} K4 launches in {n} frames, "
                              f"tracks a frame {tracks}")
     worst = compare(auction, solves[-2:], dev)
     if worst != 0:
-        raise AssertionError("12a: K2 differs from its plain version on "
+        raise AssertionError("12a: K4 differs from its plain version on "
                              "the int8 path's last problems")
     f1 = np.stack(frames[8:])
     parts_q = breakdown(qpipe, f1, batches[-1], dev)
@@ -4990,8 +5122,8 @@ def int8_serving(dev, sd, pipe):
     rec = {"ms_per_frame": wall / n * 1e3, "frames": n,
            "img_size": pipe.pcfg.img_size, "quantized_convs": n_quant,
            "quantize_s": quantize_s, "warm_up_s": warm_s,
-           "absmax_cpu_vs_card_rel": absmax_rel, "k2_launches": launches,
-           "k2_path_max_abs_err": float(worst),
+           "absmax_cpu_vs_card_rel": absmax_rel, "k4_launches": launches,
+           "k4_path_max_abs_err": float(worst),
            "nms_survivors_per_frame": float(counts.mean()),
            "tracks_per_frame_mean": float(np.mean(tracks)),
            "ids": int(slab.next_id), "int8": parts_q, "bf16": parts_b,
@@ -4999,7 +5131,7 @@ def int8_serving(dev, sd, pipe):
            "cpu_replay": "same ids, boxes 1e-2", "cpu_replay_s": replay_s,
            "int8_vs_bf16_corr": corr, "int8_vs_bf16_conf_max_abs": conf_diff}
     log(f"12a int8 w6 on {card_line()}: {wall / n * 1e3:.2f} ms/frame over "
-        f"{n} frames, {launches} K2 launches (last two problems == plain), "
+        f"{n} frames, {launches} K4 launches (last two problems == plain), "
         f"NMS survivors/frame {float(counts.mean()):.1f}, tracks/frame "
         f"mean {np.mean(tracks):.1f}; detector {parts_q['detector_ms']:.2f}"
         f" ms/frame (bf16 {parts_b['detector_ms']:.2f}), NMS "
@@ -5367,7 +5499,7 @@ def models_phase(dev, sd=None, pipe=None):
     """Phase 12: (a) int8 serving, (b) TTA, (d) export, (c) ensembles,
     (e) the tail cfgs, (f) the detection loop. ``sd``, ``pipe``: phase
     3's weights and bf16 pipeline (built here when not given). Float32
-    checks run with TF32 off. Returns (record, {path: K2 launches})."""
+    checks run with TF32 off. Returns (record, {path: K4 launches})."""
     import torch
 
     t0 = time.time()
@@ -5404,7 +5536,7 @@ def models_phase(dev, sd=None, pipe=None):
     rec["phase_s"] = time.time() - t0
     log(f"phase 12 {rec['phase_s']:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in times.items()) + ")")
-    return rec, {"int8": rec["int8"]["k2_launches"]}
+    return rec, {"int8": rec["int8"]["k4_launches"]}
 
 # ---------------------------------------------------------------------------
 # phase 13: the parallel layer (parallel/{mesh,tracking,spatial}.py and the
@@ -5479,7 +5611,7 @@ def state_digest(state, dev):
 
 def par_track(mesh, inp):
     """(a) on this rank: the sharded ByteTrack scan (128 / 300) once to
-    warm up, then with the K3 / K2 counts set to 0 just before and read
+    warm up, then with the K3 / K4 counts set to 0 just before and read
     just after, timed, and this rank's last stage-1 and stages-2+3
     problems re-solved by the plain versions."""
     import torch
@@ -5501,14 +5633,14 @@ def par_track(mesh, inp):
     slabs0 = stack_slabs(cfg, PAR_STREAMS, dev)
     tracker(slabs0, dets)
     torch.cuda.synchronize()
-    auction.LAUNCHES = 0
+    auction.LAUNCHES_K4 = 0
     square.LAUNCHES_K3 = 0
     with path_solves(1) as kept:
         t0 = time.time()
         slabs, outs = tracker(slabs0, dets)
         torch.cuda.synchronize()
         ms = (time.time() - t0) * 1e3 / PAR_FRAMES
-    launches = torch.tensor([[square.LAUNCHES_K3, auction.LAUNCHES]],
+    launches = torch.tensor([[square.LAUNCHES_K3, auction.LAUNCHES_K4]],
                             device=dev)
     path_solves_check(kept, f"13a {mesh.backend} rank {mesh.rank}", dev)
     return {"ms_per_frame": ms,
@@ -5665,7 +5797,7 @@ def parallel_phase(dev, sd, pipe):
     their times are a correctness check's, not a scaling result).
     (a) ByteTrack (128 / 300) sharded over the ranks, S = 8 streams of w6
     detections: outputs and slabs bit for bit one process's
-    track_scan_multi, K3 and K2 once a frame on every rank, each rank's
+    track_scan_multi, K3 and K4 once a frame on every rank, each rank's
     last problems equal to the plain versions'. (b) w6 at 1088 px on
     1080x1920 frames height-sharded: in float32 the raw levels within
     PAR_LEVEL_TOL of each part's largest against the unsharded model and
@@ -5676,7 +5808,7 @@ def parallel_phase(dev, sd, pipe):
     largest value (parameters, BN statistics, EMA, momentum), the ranks'
     states bit for bit equal (state_digest); then bf16 at TRAIN_IMG px on
     a global batch of PAR_TIMED_BATCH: ms a step and peak memory a rank.
-    Returns (record, {"k3": launches, "k2": launches} by world)."""
+    Returns (record, {"k3": launches, "k4": launches} by world)."""
     import torch
 
     from yolov7_tracker_tpu_torch.models import zoo
@@ -5728,7 +5860,7 @@ def parallel_phase(dev, sd, pipe):
             n = r["world"]
             want = [[PAR_FRAMES, PAR_FRAMES]] * n
             if r["track"]["launches"] != want:
-                raise AssertionError(f"13a {name}: K3 / K2 launches "
+                raise AssertionError(f"13a {name}: K3 / K4 launches "
                                      f"{r['track']['launches']}, want {want}")
             rec[f"a_{name}_ms_per_frame"] = r["track"]["ms_per_frame"]
         valid = int(outs.valid.sum())
@@ -5793,7 +5925,7 @@ def parallel_phase(dev, sd, pipe):
     rec["card"] = card_line()
     log(f"phase 13: {json.dumps(rec)}")
     launches = {name: {"k3": [x[0] for x in r["track"]["launches"]],
-                       "k2": [x[1] for x in r["track"]["launches"]]}
+                       "k4": [x[1] for x in r["track"]["launches"]]}
                 for name, r in runs.items()}
     return rec, launches
 
@@ -5864,9 +5996,10 @@ def square_only(dev, problems_file):
 
 
 def k2_only(dev, problems_file):
-    """The short run behind --k2-only: build K2 and its profiling build,
-    hold K2 against the plain version (seeded and stress problems), and,
-    given the k2_problems.pt that a full run wrote, time and profile it on
+    """The short run behind --k2-only: build csrc/auction.cu (K2 and K4)
+    and K2's profiling build, hold K4 and K2 against their plain versions
+    (seeded and stress problems, K4 against scipy), and, given the
+    k2_problems.pt that a full run wrote, time both (and profile K2) on
     those problems of the paths."""
     import torch
 
@@ -5891,7 +6024,8 @@ def main(argv=None):
     ap.add_argument("--square-only", action="store_true",
                     help="only build, check, time and profile K1/K3")
     ap.add_argument("--k2-only", action="store_true",
-                    help="only build, check, time and profile K2")
+                    help="only build, check and time K4 and K2 (and "
+                         "profile K2)")
     ap.add_argument("--train-only", action="store_true",
                     help="only phase 10 (training and the detector test)")
     ap.add_argument("--train2-only", action="store_true",
@@ -5929,14 +6063,14 @@ def main(argv=None):
         return 0
     if args.train2_only:
         build_kernels([(auction, SOURCE, ())])
-        train2, k2_train2 = train2_phase(dev)
-        print(json.dumps({"train2": train2, "k2_launches": k2_train2}))
+        train2, k4_train2 = train2_phase(dev)
+        print(json.dumps({"train2": train2, "k4_launches": k4_train2}))
         log("train2-only run done (not the smoke run: no result line)")
         return 0
     if args.models_only:
         build_kernels([(auction, SOURCE, ())])
-        models, k2_models = models_phase(dev)
-        print(json.dumps({"models": models, "k2_launches": k2_models}))
+        models, k4_models = models_phase(dev)
+        print(json.dumps({"models": models, "k4_launches": k4_models}))
         log("models-only run done (not the smoke run: no result line)")
         return 0
     if args.parallel_only:
@@ -5948,6 +6082,8 @@ def main(argv=None):
         log("parallel-only run done (not the smoke run: no result line)")
         return 0
     t0 = time.time()
+    if os.path.isfile(os.path.join(OUT_DIR, "chip_smoke.log")):
+        os.remove(os.path.join(OUT_DIR, "chip_smoke.log"))
     build_kernels([(auction, SOURCE, ()), (square, SOURCE_SQUARE, ()),
                    (auction, SOURCE, (True,)),
                    (square, SOURCE_SQUARE, (True,))])
@@ -5955,38 +6091,39 @@ def main(argv=None):
     worst = kernel_phase(dev)
     worst_sq, t_k1, t_k3 = square_phase(dev)
     sd, pipe = build_w6(dev)
-    launches, solves = main_phase(pipe, dev)
-    k3_launches, k2_serving, serve_last = serving_phase(sd, pipe, dev)
+    launches, k2_launches, solves, main_ms = main_phase(pipe, dev)
+    k3_launches, k4_serving, serve_last = serving_phase(sd, pipe, dev)
     k1_launches, step_last = step_frame_phase(pipe, dev)
     detector_reference_check(dev)
-    trackers, k2_by_tracker, strongsort_rows = trackers_phase(sd, dev)
+    trackers, k4_by_tracker, strongsort_rows = trackers_phase(sd, dev)
     reid_path = seeded_osnet(sd, dev)
-    trackers["serving_reid"], k3_serve_reid, k2_serve_reid = \
+    trackers["serving_reid"], k3_serve_reid, k4_serve_reid = \
         serving_reid_phase(sd, dev, reid_path)
-    trackers["step_frame_reid"], k1_step_reid, k2_step_reid = \
+    trackers["step_frame_reid"], k1_step_reid, k4_step_reid = \
         step_frame_reid_phase(sd, dev, reid_path)
-    trackers["deepmot_s8"], k3_deepmot, k2_deepmot = \
+    trackers["deepmot_s8"], k3_deepmot, k4_deepmot = \
         deepmot_streams_phase(sd, dev)
     trackers["dhn"] = dhn_timings(dev)
     trackers["aflink_gsi"] = aflink_phase(strongsort_rows, dev)
     t8 = time.time()
-    trackers["scoring"], k2_scoring = scoring_phase(dev)
+    trackers["scoring"], k4_scoring = scoring_phase(dev)
     t8b = time.time()
-    trackers["detect_per_frame"], k2_detect_every = detect_every_phase(sd,
+    trackers["detect_per_frame"], k4_detect_every = detect_every_phase(sd,
                                                                        dev)
     t9 = time.time()
     log(f"phase 8a {t8b - t8:.1f} s, phase 8b {t9 - t8b:.1f} s")
-    trackers["zoo"], k2_zoo = zoo_phase(dev)
+    trackers["zoo"], k4_zoo = zoo_phase(dev)
     log(f"phase 9 {time.time() - t9:.1f} s")
     train = train_phase(dev)
-    train2, k2_train2 = train2_phase(dev, sd)
-    models, k2_models = models_phase(dev, sd, pipe)
+    train2, k4_train2 = train2_phase(dev, sd)
+    models, k4_models = models_phase(dev, sd, pipe)
     t13 = time.time()
     parallel, launches_par = parallel_phase(dev, sd, pipe)
     log(f"phase 13 {time.time() - t13:.1f} s")
 
-    # K2 on the last frame's two solves, as the main path gave them, and on
-    # the serving path's stages 2+3: one launch of B = 2 S problems
+    # K4 (and K2) on the last frame's two solves, as the main path gave
+    # them, and on the serving path's stages 2+3: one launch of B = 2 S
+    # problems
     c23, r23, m23, th23 = serve_last["stage23"]
     k2_problems = {
         "stage 1 offline": solves[-2],
@@ -5995,26 +6132,40 @@ def main(argv=None):
             c23.contiguous(), r23, m23,
             torch.as_tensor(th23, dtype=torch.float32).repeat(
                 r23.shape[0] // 2))}
-    on_k2 = k2_path_timings(auction, k2_problems, dev)
+    on_path = k2_path_timings(auction, k2_problems, dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     torch.save({name: to_host(problem)
                 for name, problem in k2_problems.items()},
                os.path.join(OUT_DIR, "k2_problems.pt"))
-    t1, t2, t16 = on_k2.values()
-    record = {"name": "auction_k2_private_dummy", "route": "cuda",
-              "source": SOURCE, "replaces": REPLACES, "launches": launches,
-              "launches_serving": k2_serving,
-              "launches_trackers": k2_by_tracker,
-              "launches_serving_reid": k2_serve_reid,
-              "launches_step_frame_reid": k2_step_reid,
-              "launches_deepmot_s8": k2_deepmot,
-              "launches_scoring": k2_scoring,
-              "launches_detect_per_frame": k2_detect_every,
-              "launches_zoo": k2_zoo,
-              "launches_train2": k2_train2,
-              "launches_models": k2_models,
-              "launches_parallel": {w: v["k2"]
+    t1, t2, t16 = on_path["k4"].values()
+    rec_k4 = {"name": "auction_k4_xla_twin", "route": "cuda",
+              "source": SOURCE, "replaces": REPLACES_K4,
+              "launches": launches,
+              "launches_serving": k4_serving,
+              "launches_trackers": k4_by_tracker,
+              "launches_serving_reid": k4_serve_reid,
+              "launches_step_frame_reid": k4_step_reid,
+              "launches_deepmot_s8": k4_deepmot,
+              "launches_scoring": k4_scoring,
+              "launches_detect_per_frame": k4_detect_every,
+              "launches_zoo": k4_zoo,
+              "launches_train2": k4_train2,
+              "launches_models": k4_models,
+              "launches_parallel": {w: v["k4"]
                                     for w, v in launches_par.items()},
+              "max_abs_err": float(worst), "library_ms": None, **t1,
+              **{f"{k}_b2": v for k, v in t2.items()},
+              **{f"{k}_serving": v for k, v in t16.items()},
+              "offline_bytetrack": main_ms,
+              "trackers_solver_turns": {
+                  k: trackers[k]["solver_turns"] for k in K2_BEFORE}}
+    t1, t2, t16 = on_path["k2"].values()
+    # K2 is on no path (as in JAX): it is held against its plain version on
+    # the seeded and stress problems and on every problem the paths gave K4
+    record = {"name": "auction_k2_private_dummy", "route": "cuda",
+              "source": SOURCE, "replaces": REPLACES,
+              "launches": k2_launches,
+              "on_path": "none: held on the problems the paths gave K4",
               "max_abs_err": float(worst), "library_ms": None, **t1,
               **{f"{k}_b2": v for k, v in t2.items()},
               **{f"{k}_serving": v for k, v in t16.items()}}
@@ -6044,13 +6195,11 @@ def main(argv=None):
               "library_ms": None, **on_tick,
               "seeded_batches": {str(b): t for b, t in t_k3.items()}}
     log(f"total {time.time() - t0:.1f} s")
-    print(json.dumps({"trackers": trackers}))
-    print(json.dumps({"train": train}))
-    print(json.dumps({"train2": train2}))
-    print(json.dumps({"models": models}))
-    print(json.dumps({"parallel": parallel}))
-    print(json.dumps({"kernels": [rec_k1, record, rec_k3]}))
-    print(card_line())
+    for line in ({"trackers": trackers}, {"train": train}, {"train2": train2},
+                 {"models": models}, {"parallel": parallel},
+                 {"kernels": [rec_k1, record, rec_k3, rec_k4]}):
+        keep(json.dumps(line))
+    keep(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

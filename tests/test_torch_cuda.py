@@ -55,6 +55,85 @@ def test_kernel_equals_plain_version(card, n, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(128, 300), (256, 300), (127, 301), (7, 5)])
+def test_twin_kernel_equals_plain_version(card, n, m):
+    """K4 bit-exact on the card (r2c, c2r and sweeps), with the weights
+    staged with 16-byte loads (128 x 300), recomputed from the cost matrix
+    (256 x 300) and staged with scalar loads (127 x 301); each call is one
+    K4 launch and none of K2."""
+    rng = np.random.default_rng(n * m)
+    for kind in ("assoc", "dense"):
+        cost, rm, cm = (t.to(card) for t in _problem(rng, n, m, kind))
+        for th in (0.5, 0.9):
+            before = auction.LAUNCHES_K4, auction.LAUNCHES
+            ks = torch.zeros(1, dtype=torch.int32, device=card)
+            k = auction.masked_assignment_twin_cuda(cost, rm, cm, th,
+                                                    sweeps=ks, **STEEP)
+            assert (auction.LAUNCHES_K4, auction.LAUNCHES) == (
+                before[0] + 1, before[1])
+            ps = torch.zeros(1, dtype=torch.int32, device=card)
+            p = auction.masked_assignment_twin_torch(cost, rm, cm, th,
+                                                     sweeps=ps, **STEEP)
+            assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+            assert torch.equal(ks, ps) and int(ks) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 16])
+def test_twin_kernel_batches_with_their_own_thresholds(card, b):
+    rng = np.random.default_rng(b)
+    probs = [_problem(rng, 128, 300, "dense" if k % 2 else "assoc")
+             for k in range(b)]
+    cost, rm, cm = (torch.stack(x).to(card) for x in zip(*probs))
+    th = torch.from_numpy(rng.choice([0.3, 0.5, 0.7, 0.9], b).astype(
+        np.float32)).to(card)
+    k = auction.masked_assignment_twin_cuda(cost, rm, cm, th, **STEEP)
+    p = auction.masked_assignment_twin_torch(cost, rm, cm, th, **STEEP)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["max_iters_hit", "all_masked",
+                                  "more_rows_than_columns"])
+def test_twin_kernel_on_problems_that_stress_the_rounds(card, case):
+    rng = np.random.default_rng(3)
+    kw = dict(STEEP)
+    if case == "more_rows_than_columns":
+        cost, rm, cm = _problem(rng, 300, 128, "dense")
+        kw["max_iters"] = 64
+    else:
+        cost, rm, cm = _problem(rng, 128, 300, "dense")
+    if case == "max_iters_hit":
+        kw["max_iters"] = 3
+    if case == "all_masked":
+        rm, cm = torch.zeros_like(rm), torch.zeros_like(cm)
+    cost, rm, cm = (t.to(card) for t in (cost, rm, cm))
+    ks = torch.zeros(1, dtype=torch.int32, device=card)
+    ps = torch.zeros(1, dtype=torch.int32, device=card)
+    k = auction.masked_assignment_twin_cuda(cost, rm, cm, 0.7, sweeps=ks,
+                                            **kw)
+    p = auction.masked_assignment_twin_torch(cost, rm, cm, 0.7, sweeps=ps,
+                                             **kw)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert torch.equal(ks, ps)
+
+
+@pytest.mark.cuda
+def test_solve_assignment_launches_k4(card):
+    """The trackers' solver on a CUDA tensor is one K4 launch, no K2."""
+    from yolov7_tracker_tpu_torch.ops.assignment import solve_assignment
+
+    cost, rm, cm = (t.to(card) for t in _problem(
+        np.random.default_rng(9), 128, 300, "dense"))
+    before = auction.LAUNCHES_K4, auction.LAUNCHES
+    r2c, c2r = solve_assignment(cost, rm, cm, 0.7)
+    assert (auction.LAUNCHES_K4, auction.LAUNCHES) == (before[0] + 1,
+                                                       before[1])
+    p = auction.masked_assignment_twin_torch(cost, rm, cm, 0.7, **STEEP)
+    assert torch.equal(r2c, p[0]) and torch.equal(c2r, p[1])
+
+
+@pytest.mark.cuda
 def test_batch_of_two_thresholds(card):
     rng = np.random.default_rng(1)
     cost, _, _ = _problem(rng, 128, 300, "assoc")
@@ -748,9 +827,9 @@ def test_v8_pipeline_on_the_card_equals_the_cpu(card, full_float32):
             S.TrackerConfig(tracker="bytetrack", conf_thresh=0.5,
                             capacity=64, det_capacity=300),
             state_dict=sd, spec=spec, device=dev)
-        before = auction.LAUNCHES
+        before = auction.LAUNCHES_K4
         results[str(dev)] = pipe.run_sequence(iter(frames))
-        launched = auction.LAUNCHES - before
+        launched = auction.LAUNCHES_K4 - before
     assert launched == 2 * len(frames)
     rows = 0
     for a, b in zip(results["cpu"], results[str(card)]):
@@ -985,10 +1064,10 @@ def test_dhn_trainer_on_the_card_feeds_deepmot(card, tmp_path):
         dhn_weights=out, dhn_hidden=16), card)
     rng = np.random.default_rng(0)
     slab = S.init_slab(cfg, card)
-    before = auction.LAUNCHES
+    before = auction.LAUNCHES_K4
     for t in range(6):
         slab, _ = step(slab, _card_dets(cfg, rng, t, card))
-    assert auction.LAUNCHES - before == 12
+    assert auction.LAUNCHES_K4 - before == 12
     assert int(slab.next_id) > 1
 
 

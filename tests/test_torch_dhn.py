@@ -421,14 +421,14 @@ def test_chip_smoke_dhn_replay_holds_the_dhn_on_the_kept_costs():
 
 
 def test_chip_smoke_path_solves_keeps_the_newest_problems():
-    """path_solves keeps the last stage-1 problem and the last k K2
+    """path_solves keeps the last stage-1 problem and the last k K4
     problems that the steps hand the solvers, as clones, and puts the
     solvers back."""
     import chip_smoke
     from yolov7_tracker_tpu_torch.ops import assignment
 
     solvers = (assignment.masked_assignment_square,
-               assignment.masked_assignment_auction)
+               assignment.masked_assignment_twin)
     kw = {**BASE, "tracker": "strongsort", "feature_dim": 24}
     step, cfg = t_build(TS.TrackerConfig(**kw), "cpu")
     slab = TS.init_slab(cfg, "cpu")
@@ -438,11 +438,11 @@ def test_chip_smoke_path_solves_keeps_the_newest_problems():
                 cfg, tlbr, score, np.zeros_like(score), valid, "cpu",
                 feature=feature), solve_stage1=masked_assignment)
     assert (assignment.masked_assignment_square,
-            assignment.masked_assignment_auction) == solvers
-    assert len(kept["square"]) == 1 and len(kept["k2"]) == 2
+            assignment.masked_assignment_twin) == solvers
+    assert len(kept["square"]) == 1 and len(kept["k4"]) == 2
     (cost, rm, cm, th, kw1), = kept["square"]
     assert cost.shape == (cfg.capacity, cfg.det_capacity) and th == 0.7
     assert kw1 == {"n_phases": assignment.DEFAULT_PHASES}
-    assert [p[3] for p in kept["k2"]] == [0.5, 0.7]
+    assert [p[3] for p in kept["k4"]] == [0.5, 0.7]
     r2c, _ = masked_assignment(cost, rm, cm, th)
     assert bool((r2c >= 0).any())

@@ -53,8 +53,9 @@ def test_port_imports_no_jax():
                     "train.evolve", "cli.detect", "data.converters",
                     "models.tta", "models.export", "models.quant",
                     "parallel.mesh", "parallel.tracking",
-                    "parallel.spatial"):
+                    "parallel.spatial", "native"):
             assert "yolov7_tracker_tpu_torch." + new in names, new
+        assert callable(pkg.load_pipeline)
         print("BAD", bad)
     """)
     assert proc.returncode == 0, proc.stderr
@@ -70,6 +71,9 @@ def test_entry_points_need_a_device():
         from yolov7_tracker_tpu_torch.cli import serve, track
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TrackingPipeline(PipelineConfig(), TrackerConfig("bytetrack"))
+        from yolov7_tracker_tpu_torch import load_pipeline
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load_pipeline()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             track.main(["--dataset", "mot17", "--config_dir",
                         "yolov7_tracker_tpu/configs", "--track_eval",

@@ -26,7 +26,8 @@ from yolov7_tracker_tpu_torch.trackers.registry import build_tracker as t_build
 FEAT = 24
 
 
-def feature_stream(seed, n_frames=64, n_obj=8, d=24, feat=FEAT, warps=False):
+def feature_stream(seed, n_frames=64, n_obj=8, d=24, feat=FEAT, warps=False,
+                   appearance="orthogonal", noise=0.06):
     """Per frame: (tlbr (d,4), score (d,), valid (d,), feature (d,F),
     warp (2,3)) numpy arrays. Objects move, vanish for a while (lost and
     refound tracks), score low at times (second-stage matches); false
@@ -37,12 +38,26 @@ def feature_stream(seed, n_frames=64, n_obj=8, d=24, feat=FEAT, warps=False):
     which the port's private-dummy auction and the JAX package's square
     auction on the CPU find the same matching (on dense costs they may
     not: tests/test_torch_auction.py). ``warps``: a slowly turning,
-    zooming, panning camera warp per frame, else identity."""
+    zooming, panning camera warp per frame, else identity.
+    ``appearance="reid"``: dense ReID-like features instead, each identity
+    a unit vector made of a shared component (0.8 base) plus its own
+    identity vector and each det that vector plus Gaussian ``noise``, so
+    every appearance cost is far from 0 and 1 and the matching is a dense
+    problem."""
     rng = np.random.default_rng(seed)
     pos = rng.uniform(50, 500, (n_obj, 2))
     vel = rng.uniform(-5, 5, (n_obj, 2))
     wh = rng.uniform(25, 70, (n_obj, 2))
-    app = np.eye(feat)
+    if appearance == "reid":
+        def unit(x):
+            return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+        base = unit(rng.normal(size=feat))
+        app = unit(0.8 * base + unit(rng.normal(size=(feat, feat))))
+        sigma = noise
+    else:
+        app = np.eye(feat)
+        sigma = 0.003
     gone = [(int(rng.integers(5, max(6, n_frames - 15))),
              int(rng.integers(3, 12))) for _ in range(n_obj)]
     frames = []
@@ -56,13 +71,13 @@ def feature_stream(seed, n_frames=64, n_obj=8, d=24, feat=FEAT, warps=False):
             rows.append(np.r_[xy, xy + wh[i]])
             scores.append(rng.uniform(0.7, 0.95) if rng.random() > 0.2
                           else rng.uniform(0.25, 0.45))
-            feats.append(app[i] + rng.normal(0, 0.003, feat))
+            feats.append(app[i] + rng.normal(0, sigma, feat))
         for _ in range(int(rng.integers(0, 3))):
             xy = rng.uniform(0, 600, 2)
             rows.append(np.r_[xy, xy + rng.uniform(20, 60, 2)])
             scores.append(rng.uniform(0.2, 0.8))
             feats.append(app[rng.integers(n_obj, feat)]
-                         + rng.normal(0, 0.003, feat))
+                         + rng.normal(0, sigma, feat))
         order = rng.permutation(len(rows))
         n = len(rows)
         tlbr = np.zeros((d, 4), np.float32)
@@ -149,6 +164,59 @@ def test_step_matches_jax(name):
     n_rows, slab = run_both({**BASE, **CASES[name]},
                             feature_stream(7, warps=warps))
     assert n_rows > 150, n_rows       # the stream really carried tracks
+    assert int(slab.next_id) >= 8
+
+
+@pytest.fixture
+def jax_tpu_dispatch(monkeypatch):
+    """The JAX trackers solve as the JAX package does on its chip: every
+    module's ``masked_assignment`` (its solve_assignment) becomes the XLA
+    twin at the TPU branch's arguments (ops/assignment.py:55-78), which is
+    what the port's solve_assignment runs (K4). JAX's caches are cleared
+    before and after, so that no trace of the CPU dispatch is reused here
+    and none of this one later."""
+    from yolov7_tracker_tpu.ops import assignment as JAS
+    from yolov7_tracker_tpu.trackers import (
+        appearance, botsort, bytetrack, c_biou, deepmot, deepsort, sort,
+        strongsort, uavmot)
+
+    def tpu_solve(cost, row_mask, col_mask, thresh,
+                  n_phases=JAS.DEFAULT_PHASES):
+        return JAS.masked_assignment_v2(
+            cost, row_mask, col_mask, thresh, n_phases=2,
+            phase_factor=4.0 ** (n_phases / 2.0))
+
+    jax.clear_caches()
+    for mod in (appearance, botsort, bytetrack, c_biou, deepmot, deepsort,
+                sort, strongsort, uavmot):
+        monkeypatch.setattr(mod, "masked_assignment", tpu_solve)
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+DENSE_CASES = {
+    **{k: v for k, v in CASES.items()
+       if k in ("uavmot", "botsort_features", "deepsort", "strongsort",
+                "bytetrack_features")},
+    "deepmot": dict(tracker="deepmot", track_buffer=6,
+                    dhn_weights="weights/dhn_h32.msgpack", dhn_hidden=32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_step_matches_jax_tpu_dispatch_on_dense_reid_stream(
+        name, jax_tpu_dispatch):
+    """The appearance trackers on a dense ReID-like feature stream (64
+    frames), where the private-dummy auctions K2 and the square auction
+    part ways: the port's solve_assignment (K4's plain version) gives the
+    JAX trackers' ids and boxes when JAX solves as on its chip."""
+    warps = name.startswith(("botsort", "strongsort"))
+    n_rows, slab = run_both({**BASE, **DENSE_CASES[name]},
+                            feature_stream(7, warps=warps,
+                                           appearance="reid"),
+                            check_features=name != "deepmot")
+    assert n_rows > 150, n_rows
     assert int(slab.next_id) >= 8
 
 

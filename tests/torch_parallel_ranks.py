@@ -100,7 +100,7 @@ def _bn(mesh, case):
 
 def _track(mesh, case):
     """The sharded tracker over the case's streams, and each rank's
-    launches of K3 and K2 (none on the CPU, where the plain versions
+    launches of K3 and K4 (none on the CPU, where the plain versions
     run)."""
     from yolov7_tracker_tpu_torch.ops import auction, auction_square
     from yolov7_tracker_tpu_torch.parallel.tracking import (
@@ -113,11 +113,11 @@ def _track(mesh, case):
     dets = S.DetSlab(*(torch.as_tensor(x, device=dev)
                        for x in case["dets"]))
     n = dets.valid.shape[1]
-    k3, k2 = auction_square.LAUNCHES_K3, auction.LAUNCHES
+    k3, k4 = auction_square.LAUNCHES_K3, auction.LAUNCHES_K4
     slabs, outs = make_sharded_tracker(step, mesh)(
         stack_slabs(cfg, n, dev), dets)
     launches = torch.tensor([auction_square.LAUNCHES_K3 - k3,
-                             auction.LAUNCHES - k2], device=dev)
+                             auction.LAUNCHES_K4 - k4], device=dev)
     return {"slabs": tuple(slabs), "outs": tuple(outs),
             "launches": M.gather_tensor(mesh, launches[None])}
 

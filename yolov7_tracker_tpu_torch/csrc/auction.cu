@@ -1,4 +1,5 @@
-// Private-dummy rectangular auction (K2) for Hopper, sm_90a.
+// Private-dummy rectangular auction (K2) for Hopper, sm_90a, and its XLA
+// twin's form (K4, at the end of the file).
 //
 // Replaces the Pallas TPU kernel _auction_phase_kernel_v2 /
 // masked_assignment_pallas_v2 (yolov7_tracker_tpu/ops/pallas_auction.py,
@@ -880,6 +881,228 @@ auction_kernel(const float* __restrict__ cost, long long cost_bstride,
                       c2r_out, sweeps_out, prof_out);
 }
 
+// ---------------------------------------------------------------------------
+// K4: the XLA twin (masked_assignment_v2, yolov7_tracker_tpu/ops/
+// assignment.py:311), the solver the JAX package runs on its chip. Same
+// weights, jitter, private dummies and eps schedule as K2, and the same
+// output gate; what differs is the control flow of a phase. The twin runs
+// the clamp-and-release step as a fixpoint of its own (at most n + 1
+// iterations, until none is released) and only then Jacobi bid rounds,
+// with no release inside them, until no row is unassigned or max_iters
+// rounds have run; masked-out rows start on their own dummies. Fusing the
+// release into every bid sweep (K2) lets (release, re-bid) cycles leave
+// weight on the table on dense costs; this form does not.
+//
+// A simple kernel: one block per problem, every phase in the launch; a
+// warp scans a row (row_top2 / row_max above, so a row's other dummies are
+// left out exactly as in K2), and every iteration is dense over the rows.
+// A release iteration: clamp, barrier, release tests (a failing row frees
+// its column at once: the tests read only prices and their own r2c), and a
+// barrier that also tells whether any row was released. A bid round: a
+// barrier that tells whether any row is unassigned, bids (a column keeps
+// its best (bid, ~row) key), barrier, awards. The keys of a round are
+// cleared by their bidders in the next round, in the other of two arrays.
+// ---------------------------------------------------------------------------
+
+struct TwinLayout {
+  size_t ws, jit, cmask, rmask, prices, key0, key1, c2r, r2c, bj, bid, total;
+};
+
+__host__ __device__ inline TwinLayout twin_layout(int n, int m, int mode) {
+  const size_t mt = (size_t)n + m;
+  TwinLayout l;
+  l.ws = 0;
+  l.jit = align16(mode != MODE_GLOBAL ? (size_t)n * m * 4 : 0);
+  l.cmask = align16(l.jit +
+                    (mode == MODE_VEC ? (size_t)jit_len(m) * 16 : 0));
+  l.rmask = align16(l.cmask + (mode == MODE_VEC ? (size_t)m : 0));
+  l.prices = align16(l.rmask + (size_t)n);
+  l.key0 = align16(l.prices + mt * 4);
+  l.key1 = align16(l.key0 + mt * 8);
+  l.c2r = align16(l.key1 + mt * 8);
+  l.r2c = align16(l.c2r + mt * 4);
+  l.bj = align16(l.r2c + (size_t)n * 4);
+  l.bid = align16(l.bj + (size_t)n * 4);
+  l.total = align16(l.bid + (size_t)n * 4);
+  return l;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+twin_kernel(const float* __restrict__ cost, long long cost_bstride,
+            const unsigned char* __restrict__ row_mask,
+            const unsigned char* __restrict__ col_mask,
+            const float* __restrict__ thresh, Powers powers, int n, int m,
+            int n_phases, int max_iters, int* __restrict__ r2c_out,
+            int* __restrict__ c2r_out, int* __restrict__ sweeps_out) {
+  constexpr bool VEC = MODE == MODE_VEC;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int mt = m + n;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TwinLayout lay = twin_layout(n, m, MODE);
+  float* ws = reinterpret_cast<float*>(smem + lay.ws);          // (n*m,)
+  float* jit = reinterpret_cast<float*>(smem + lay.jit);        // (4, len)
+  unsigned char* cmask = smem + lay.cmask;                      // (m,)
+  unsigned char* rmask = smem + lay.rmask;                      // (n,)
+  float* prices = reinterpret_cast<float*>(smem + lay.prices);  // (mt,)
+  unsigned long long* key0 =
+      reinterpret_cast<unsigned long long*>(smem + lay.key0);   // (mt,)
+  unsigned long long* key1 =
+      reinterpret_cast<unsigned long long*>(smem + lay.key1);   // (mt,)
+  int* c2r = reinterpret_cast<int*>(smem + lay.c2r);            // (mt,)
+  int* r2c = reinterpret_cast<int*>(smem + lay.r2c);            // (n,)
+  // by row: the column it bid for in the last round, -1 if it made no bid,
+  // and the bid
+  int* bj = reinterpret_cast<int*>(smem + lay.bj);              // (n,)
+  float* bid = reinterpret_cast<float*>(smem + lay.bid);        // (n,)
+
+  Problem p;
+  p.cost = cost + (int64_t)b * cost_bstride;
+  p.row_mask = row_mask + (int64_t)b * n;
+  p.col_mask = col_mask + (int64_t)b * m;
+  p.ws = nullptr;
+  p.thresh = thresh[b];
+  p.n = n;
+  p.m = m;
+  // the twin's float32 schedule and bid cap (assignment.py:338-345)
+  const float scale = __fadd_rn(p.thresh, 1.0f);
+  const float cap = __fmul_rn(2.0f, scale);
+
+  // every price 0; a masked-out row holds its own dummy, the others nothing
+  for (int j = tid; j < mt; j += THREADS) {
+    prices[j] = 0.0f;
+    key0[j] = key1[j] = 0ull;
+    c2r[j] = (j >= m && !p.row_mask[j - m]) ? j - m : -1;
+  }
+  for (int i = tid; i < n; i += THREADS) {
+    rmask[i] = p.row_mask[i];
+    r2c[i] = rmask[i] ? -1 : m + i;
+    bj[i] = -1;
+  }
+  if (VEC) {
+    const int len = jit_len(m);
+    for (int c = 0; c < 4; ++c)
+      for (int x = tid; x < len; x += THREADS)
+        jit[c * len + x] = jitter((7 * (x + c)) % 17);
+    for (int j = tid; j < m; j += THREADS) cmask[j] = p.col_mask[j];
+    __syncthreads();
+    stage_rows_vec(p, ws, jit, cmask, rmask, warp, lane);
+  } else if (MODE == MODE_STAGED) {
+    for (int i = warp; i < n; i += WARPS) {
+      if (!p.row_mask[i]) continue;
+      for (int j = lane; j < m; j += 32) ws[i * m + j] = real_weight(p, i, j);
+    }
+  }
+  if (MODE != MODE_GLOBAL) p.ws = ws;
+  __syncthreads();
+
+  int sweeps = 0;   // release iterations + bid rounds
+  int rounds = 0;   // bid rounds of every phase: which key array is in use
+  for (int ph = 0; ph < n_phases; ++ph) {
+    const float eps = fmaxf(__fdiv_rn(scale, powers.v[ph]), EPS_FLOOR);
+
+    // ---- clamp-and-release fixpoint. A masked-out row holds its own
+    // dummy at price 0 and passes (nothing else is worth more than -1e9 to
+    // it): it is never scanned, and its weights were never staged.
+    bool released = true;
+    for (int it = 0; it < n + 1 && released; ++it) {
+      for (int j = tid; j < mt; j += THREADS)
+        if (c2r[j] < 0) prices[j] = 0.0f;
+      __syncthreads();
+      bool any = false;
+      for (int i = warp; i < n; i += WARPS) {
+        const int rc = r2c[i];
+        if (rc < 0 || !rmask[i]) continue;   // warp-uniform
+        const float v1 = row_max<MODE, 32>(p, prices, i, lane, true);
+        const float held =
+            __fsub_rn(rc < m ? weight<MODE>(p, i, rc) : 0.0f, prices[rc]);
+        if (!(held >= __fsub_rn(v1, eps))) {
+          any = true;
+          if (lane == 0) {
+            c2r[rc] = -1;
+            r2c[i] = -1;
+          }
+        }
+      }
+      released = __syncthreads_or(any) != 0;
+      ++sweeps;
+    }
+    for (int j = tid; j < mt; j += THREADS)
+      if (c2r[j] < 0) prices[j] = 0.0f;
+
+    // ---- Jacobi bid rounds until every row is assigned. After a round
+    // the unassigned rows are its losers and the rows it evicted, so the
+    // awards tell whether one is left (r2c itself may still be changing).
+    bool open = false;
+    for (int i = tid; i < n; i += THREADS) open = open || r2c[i] < 0;
+    for (int it = 0;; ++it) {
+      if (!__syncthreads_or(open) || it >= max_iters) break;
+      unsigned long long* key = (rounds & 1) ? key1 : key0;
+      unsigned long long* key_before = (rounds & 1) ? key0 : key1;
+      for (int i = warp; i < n; i += WARPS) {
+        if (lane == 0 && bj[i] >= 0) key_before[bj[i]] = 0ull;
+        if (r2c[i] >= 0) {                   // warp-uniform
+          if (lane == 0) bj[i] = -1;
+          continue;
+        }
+        float b1, b2;
+        int bi;
+        row_top2<MODE, 32>(p, prices, i, lane, true, b1, bi, b2);
+        if (lane == 0) {
+          // the other rows' dummies and the masked best: -1e9
+          b2 = fmaxf(b2, NEG_F);
+          const float bv = __fadd_rn(
+              __fadd_rn(prices[bi], fminf(__fsub_rn(b1, b2), cap)), eps);
+          bj[i] = bi;
+          bid[i] = bv;
+          atomicMax(&key[bi], bid_key(bv, i));
+        }
+      }
+      __syncthreads();
+      // each bid-on column goes to its highest bidder, ties to the lowest
+      // row; the previous owner is evicted (it held a column, so it made no
+      // bid in this round)
+      open = false;
+      for (int i = tid; i < n; i += THREADS) {
+        const int j = bj[i];
+        if (j < 0) continue;
+        if (key_row(key[j]) != i) {
+          open = true;
+          continue;
+        }
+        const int prev = c2r[j];
+        if (prev >= 0) {
+          r2c[prev] = -1;
+          open = true;
+        }
+        c2r[j] = i;
+        r2c[i] = j;
+        prices[j] = bid[i];
+      }
+      ++rounds;
+      ++sweeps;
+    }
+  }
+  if (sweeps_out != nullptr && tid == 0) sweeps_out[b] = sweeps;
+
+  // ---- gate: keep real pairs with cost <= thresh; rebuild c2r
+  int* out_r = r2c_out + (int64_t)b * n;
+  int* out_c = c2r_out + (int64_t)b * m;
+  for (int j = tid; j < m; j += THREADS) out_c[j] = -1;
+  __syncthreads();
+  for (int i = tid; i < n; i += THREADS) {
+    const int j = r2c[i];
+    const bool keep = j >= 0 && j < m && p.row_mask[i] &&
+                      p.cost[(int64_t)i * m + j] <= p.thresh;
+    out_r[i] = keep ? j : -1;
+    if (keep) out_c[j] = i;
+  }
+}
+
 }  // namespace
 
 // The names of the profiling build's parts, comma-separated, in the order
@@ -923,5 +1146,42 @@ extern "C" int auction_launch(const float* cost, long long cost_bstride,
   kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
       cost, cost_bstride, row_mask, col_mask, thresh, pw, N, M, n_phases,
       max_iters, r2c_out, c2r_out, sweeps_out, prof_out);
+  return (int)cudaGetLastError();
+}
+
+// K4, the twin: B problems, one block each, all phases in one launch. The
+// arguments are auction_launch's (no profiling build); sweeps_out (nullable)
+// receives each problem's release iterations plus bid rounds.
+extern "C" int auction_twin_launch(const float* cost, long long cost_bstride,
+                                   const unsigned char* row_mask,
+                                   const unsigned char* col_mask,
+                                   const float* thresh, const float* powers,
+                                   int B, int N, int M, int n_phases,
+                                   int max_iters, int* r2c_out, int* c2r_out,
+                                   int* sweeps_out, void* stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || n_phases <= 0 || n_phases > MAX_PHASES)
+    return (int)cudaErrorInvalidValue;
+  Powers pw = {};
+  for (int k = 0; k < n_phases; ++k) pw.v[k] = powers[k];
+  int mode = MODE_GLOBAL;
+  if (twin_layout(N, M, MODE_STAGED).total <= SMEM_LIMIT) mode = MODE_STAGED;
+  if (M % 4 == 0 && (uintptr_t)cost % 16 == 0 &&
+      twin_layout(N, M, MODE_VEC).total <= SMEM_LIMIT)
+    mode = MODE_VEC;
+  const size_t smem = twin_layout(N, M, mode).total;
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const auto kernel = mode == MODE_VEC      ? twin_kernel<MODE_VEC>
+                      : mode == MODE_STAGED ? twin_kernel<MODE_STAGED>
+                                            : twin_kernel<MODE_GLOBAL>;
+  static size_t allowed[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+  if (smem > allowed[mode]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed[mode] = smem;
+  }
+  kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
+      cost, cost_bstride, row_mask, col_mask, thresh, pw, N, M, n_phases,
+      max_iters, r2c_out, c2r_out, sweeps_out);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 'origin' layout: data_root/images/<split>/<seq>/(img1/)frames, or the
 VisDrone layouts; 'yolo' layout: a split txt of image paths, grouped by
 their directory's name (the reference's tracker_dataloader.py:39-53).
-Frames decode on the host with cv2 (BGR uint8), in order; the letterbox
-and normalisation happen on the device. ``VideoFrames`` reads a video
+Frames decode on the host (BGR uint8), in order, ahead of the consumer on
+the native frame loader (native/); the letterbox and normalisation happen
+on the device. ``VideoFrames`` reads a video
 file and ``StreamFrames`` a webcam or an RTSP/HTTP stream, both through
 cv2.VideoCapture; cv2 is imported only when a frame source needs it, so
 importing the port needs no OpenCV. ``SynthFrames`` is a deterministic
@@ -16,7 +17,6 @@ from __future__ import annotations
 import os
 import re
 import time
-import warnings
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence
 from urllib.parse import parse_qs, urlparse
@@ -92,23 +92,18 @@ def discover_sequences(data_root: str, split: str = "test",
 
 def iter_frames(spec: SequenceSpec,
                 on_error: str = "raise") -> Iterator[np.ndarray]:
-    """Yield the sequence's frames as HWC uint8 BGR arrays. An unreadable
-    image raises (dataset runs, where a missing frame must not silently
-    shift the numbering) or, with ``on_error="skip"``, warns and is left
-    out (long-running serving, where one truncated camera dump must not
-    end the stream)."""
-    import cv2
+    """Yield the sequence's frames as HWC uint8 BGR arrays, in order,
+    decoded ahead of the consumer on the native C++ pool (native/
+    frameloader.cpp, the analogue of the reference's DataLoader workers,
+    tracker/track.py:130), as the JAX package's reader does; where that
+    cannot be built (no OpenCV headers), with cv2 on this thread. An
+    unreadable image raises (dataset runs, where a missing frame must not
+    silently shift the numbering) or, with ``on_error="skip"``, warns and is
+    left out (long-running serving, where one truncated camera dump must
+    not end the stream)."""
+    from .. import native
 
-    if on_error not in ("raise", "skip"):
-        raise ValueError(f"on_error must be 'raise' or 'skip': {on_error!r}")
-    for path in spec.frame_paths:
-        img = cv2.imread(path)
-        if img is None:
-            if on_error == "skip":
-                warnings.warn(f"skipping unreadable frame {path}")
-                continue
-            raise OSError(f"cannot read frame {path}")
-        yield img
+    yield from native.FrameLoader(spec.frame_paths, on_error=on_error)
 
 
 def image_dir_frames(folder: str, on_error: str = "raise"):

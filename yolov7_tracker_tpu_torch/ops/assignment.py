@@ -1,11 +1,14 @@
 """Linear assignment with ``cost_limit`` gating (port of
 yolov7_tracker_tpu/ops/assignment.py).
 
-``solve_assignment`` is the trackers' solver. It runs the private-dummy
-rectangular auction (ops/auction.py: the hand-written CUDA kernel on a
-CUDA tensor, its plain version on a CPU tensor) with the steep schedule
-of the JAX package's TPU branch: 2 eps phases at factor 4^(n/2), which
-ends at the same final eps as n phases at factor 4.
+``solve_assignment`` is the trackers' solver. It runs what the JAX
+package's ``solve_assignment`` runs on its chip: the XLA twin
+``masked_assignment_v2``, a private-dummy rectangular auction whose
+release fixpoint is kept apart from its bid rounds (ops/auction.py: the
+hand-written CUDA kernel K4 on a CUDA tensor, its plain version on a CPU
+tensor), with the steep schedule of that branch: 2 eps phases at factor
+4^(n/2), which ends at the same final eps as n phases at factor 4, and at
+most 512 bid rounds a phase.
 ``masked_assignment`` is the JAX module's function of that name: the
 square lapjv-extended auction (ops/auction_square.py: the K1/K3 CUDA
 kernels on a CUDA tensor, their plain version on a CPU tensor). It is the
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .auction import masked_assignment_auction
+from .auction import masked_assignment_twin
 from .auction_square import masked_assignment_square
 
 DEFAULT_PHASES = 5
@@ -33,7 +36,7 @@ def solve_assignment(cost, row_mask, col_mask, thresh,
     problem). Returns int32 (row_to_col (..., N), col_to_row (..., M)),
     -1 where unmatched.
     """
-    return masked_assignment_auction(
+    return masked_assignment_twin(
         cost.float().contiguous(), row_mask, col_mask, thresh, n_phases=2,
         phase_factor=4.0 ** (n_phases / 2.0))
 

@@ -23,6 +23,17 @@ Two implementations with the same function, bit for bit:
 tensor takes the plain version, a CUDA tensor launches the kernel (or
 raises). Every step of the sweep is a max, a min, a compare or a single
 rounded add, so the two agree exactly.
+
+K4 is the same matching problem solved as the JAX package's XLA twin
+``masked_assignment_v2`` (yolov7_tracker_tpu/ops/assignment.py:311)
+solves it, the form the JAX package runs on its chip: per phase a
+clamp-and-release fixpoint kept apart from the bid rounds, which K2 fuses
+into every sweep (and so, on dense costs, may stop short of the optimum).
+``masked_assignment_twin_torch`` is its plain version,
+``masked_assignment_twin_cuda`` the kernel (the second entry of
+``csrc/auction.cu``), ``masked_assignment_twin`` the dispatcher; it is the
+solver of ops/assignment.solve_assignment. K2 stays as the counterpart of
+the Pallas kernel, which no tracker path calls, in JAX as here.
 """
 
 from __future__ import annotations
@@ -36,11 +47,13 @@ from .cuda_build import build_library
 
 NEG_F = -1e9
 MAX_ITERS = 4096
+TWIN_MAX_ITERS = 512    # masked_assignment_v2's max_iters (bid rounds a phase)
 _MAX_PHASES = 8     # csrc/auction.cu MAX_PHASES
 
-# K2 launches since the last reset; chip_smoke.py reads it to show the
-# main path went through the kernel.
+# K2 and K4 launches since the last reset; chip_smoke.py reads them to
+# show which kernel the paths went through.
 LAUNCHES = 0
+LAUNCHES_K4 = 0
 
 _LIBS = {}          # bound libraries: False the timed build, True profiling
 BUILD_SECONDS = None
@@ -211,6 +224,104 @@ def _batched_args(cost, row_mask, col_mask, thresh):
     return batched, rm.bool(), cm.bool(), th
 
 
+def _solve_one_twin(cost, row_mask, col_mask, thresh, sched, cap,
+                    max_iters):
+    """One problem of the twin, every phase, as ``masked_assignment_v2``
+    computes it: the dense (n, m + n) weights, a release fixpoint, then
+    Jacobi bid rounds. Returns (r2c, c2r, sweeps): sweeps counts release
+    iterations and bid rounds together."""
+    n, m = cost.shape
+    dev = cost.device
+    mt = m + n
+    neg = torch.tensor(NEG_F, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    valid = row_mask[:, None] & col_mask[None, :]
+    w = torch.where(valid, thresh - cost, neg)
+    w = torch.where(valid, w + _jitter(n, m, dev), neg)
+    w = torch.cat([w, torch.where(torch.eye(n, dtype=torch.bool, device=dev),
+                                  zero, neg)], dim=1)
+    row_ids = torch.arange(n, device=dev)
+    # masked-out rows start on their own dummies
+    r2c = torch.where(row_mask, -1, m + row_ids)
+    c2r = torch.full((mt,), -1, dtype=torch.long, device=dev)
+    c2r[m + row_ids] = torch.where(row_mask, -1, row_ids)
+    prices = torch.zeros(mt, dtype=torch.float32, device=dev)
+    sweeps = 0
+    for eps in sched:
+        # clamp unowned columns to price 0 and release the eps-CS violators
+        # until none is released (at most n + 1 times)
+        it, n_rel = 0, 1
+        while it < n + 1 and n_rel > 0:
+            prices = torch.where(c2r < 0, zero, prices)
+            values = w - prices
+            v1 = values.max(dim=1).values
+            cur = values[row_ids, r2c.clamp(0, mt - 1)]
+            keep = (r2c >= 0) & (cur >= v1 - eps)
+            rel = (r2c >= 0) & ~keep
+            c2r = c2r.clone()
+            c2r[r2c[rel]] = -1
+            r2c = torch.where(keep, r2c, -1)
+            n_rel = int(rel.sum())
+            it += 1
+            sweeps += 1
+        prices = torch.where(c2r < 0, zero, prices)
+
+        # Jacobi bid rounds until every row is assigned
+        it = 0
+        while it < max_iters and bool((r2c < 0).any()):
+            unassigned = r2c < 0
+            values = w - prices
+            v1 = values.max(dim=1).values
+            best_j = values.argmax(dim=1)           # first maximal column
+            second = values.clone()
+            second[row_ids, best_j] = neg
+            v2 = second.max(dim=1).values
+            bid = prices[best_j] + torch.minimum(v1 - v2, cap) + eps
+            bid_eff = torch.where(unassigned, bid, neg)
+            col_best = torch.full((mt,), NEG_F, dtype=torch.float32,
+                                  device=dev).scatter_reduce(
+                0, best_j, bid_eff, "amax")
+            cand = unassigned & (bid_eff >= col_best[best_j])
+            winner = torch.full((mt,), n, dtype=torch.long,
+                                device=dev).scatter_reduce(
+                0, best_j, torch.where(cand, row_ids, n), "amin")
+            won = cand & (winner[best_j] == row_ids)
+            contested = winner < n
+            prev_owner = torch.where(contested, c2r, -1)
+            evicted = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+            evicted[torch.where(prev_owner >= 0, prev_owner, n)] = True
+            r2c = torch.where(evicted[:n], -1, r2c)
+            r2c = torch.where(won, best_j, r2c)
+            c2r = torch.where(contested, winner, c2r)
+            prices = torch.where(contested, col_best, prices)
+            it += 1
+            sweeps += 1
+    return _gate(cost, r2c, row_mask, thresh) + (sweeps,)
+
+
+def masked_assignment_twin_torch(cost, row_mask, col_mask, thresh,
+                                 max_iters: int = TWIN_MAX_ITERS,
+                                 n_phases: int = 5,
+                                 phase_factor: float = 4.0, sweeps=None):
+    """Plain PyTorch version of the K4 kernel: ``masked_assignment_v2``
+    (yolov7_tracker_tpu/ops/assignment.py:311), one problem at a time.
+    Shapes as :func:`masked_assignment_twin`; ``sweeps`` (B,) int32, if
+    given, receives each problem's release iterations plus bid rounds."""
+    batched, rm, cm, th = _batched_args(cost, row_mask, col_mask, thresh)
+    sched, cap = eps_schedule(th, n_phases, phase_factor)
+    costs = cost.float()
+    outs = [
+        _solve_one_twin(costs[b] if costs.dim() == 3 else costs, rm[b],
+                        cm[b], th[b], sched[b], cap[b], max_iters)
+        for b in range(rm.shape[0])
+    ]
+    r2c = torch.stack([o[0] for o in outs])
+    c2r = torch.stack([o[1] for o in outs])
+    if sweeps is not None:
+        sweeps.copy_(torch.tensor([o[2] for o in outs], dtype=torch.int32))
+    return (r2c, c2r) if batched else (r2c[0], c2r[0])
+
+
 def masked_assignment_auction_torch(cost, row_mask, col_mask, thresh,
                                     max_iters: int = MAX_ITERS,
                                     n_phases: int = 5,
@@ -263,6 +374,9 @@ def load_library(profile: bool = False):
         ctypes.c_void_p,                           # stream
     ]
     lib.auction_launch.restype = ctypes.c_int
+    lib.auction_twin_launch.argtypes = (lib.auction_launch.argtypes[:14]
+                                        + [ctypes.c_void_p])    # stream
+    lib.auction_twin_launch.restype = ctypes.c_int
     lib.auction_profile_parts.argtypes = []
     lib.auction_profile_parts.restype = ctypes.c_char_p
     _LIBS[profile] = lib
@@ -278,14 +392,14 @@ def profile_parts() -> tuple:
 
 
 def _prepare(profile, cost, row_mask, col_mask, thresh, max_iters, n_phases,
-             phase_factor, sweeps):
-    """Check the arguments and allocate the outputs of a launch of the
-    timed build or, with ``profile`` a (B, PROFILE_WARPS, parts) int64 CUDA
-    tensor, of the profiling build. Returns (fire, batched, r2c (B, N),
-    c2r (B, M)): ``fire()`` launches the kernel once on these arguments
-    and raises if the launch is refused."""
+             phase_factor, sweeps, twin=False):
+    """Check the arguments and allocate the outputs of a launch of K2's
+    timed build, of K4 (``twin``) or, with ``profile`` a (B, PROFILE_WARPS,
+    parts) int64 CUDA tensor, of K2's profiling build. Returns (fire,
+    batched, r2c (B, N), c2r (B, M)): ``fire()`` launches the kernel once
+    on these arguments and raises if the launch is refused."""
     if not cost.is_cuda:
-        raise ValueError("masked_assignment_auction_cuda needs CUDA tensors")
+        raise ValueError("the auction kernels need CUDA tensors")
     if cost.dtype != torch.float32 or not cost.is_contiguous():
         raise ValueError("cost must be a contiguous float32 tensor")
     if cost.dim() not in (2, 3):
@@ -319,19 +433,25 @@ def _prepare(profile, cost, row_mask, col_mask, thresh, max_iters, n_phases,
     args = (cost.data_ptr(), n * m if cost.dim() == 3 else 0,
             rm.data_ptr(), cm.data_ptr(), th.data_ptr(), powers,
             b, n, m, n_phases, max_iters, r2c.data_ptr(), c2r.data_ptr(),
-            sweeps.data_ptr() if sweeps is not None else None,
-            profile.data_ptr() if profile is not None else None)
+            sweeps.data_ptr() if sweeps is not None else None)
+    if twin:
+        launch = lib.auction_twin_launch
+    else:
+        launch = lib.auction_launch
+        args += (profile.data_ptr() if profile is not None else None,)
     # every buffer the kernel reads or writes lives as long as fire does
     keep = (cost, rm, cm, th, r2c, c2r, sweeps, profile)
 
     def fire():
-        global LAUNCHES
+        global LAUNCHES, LAUNCHES_K4
         stream = torch.cuda.current_stream(keep[0].device).cuda_stream
-        err = lib.auction_launch(*args, stream)
+        err = launch(*args, stream)
         if err != 0:
             raise RuntimeError(
                 f"auction kernel launch failed: CUDA error {err}")
-        if profile is None:
+        if twin:
+            LAUNCHES_K4 += 1
+        elif profile is None:
             LAUNCHES += 1
 
     return fire, batched, r2c, c2r
@@ -403,4 +523,47 @@ def masked_assignment_auction(cost, row_mask, col_mask, thresh,
     if cost.device.type != "cpu":
         raise ValueError(f"no auction implementation for {cost.device}")
     return masked_assignment_auction_torch(
+        cost, row_mask, col_mask, thresh, max_iters, n_phases, phase_factor)
+
+
+# ---------------------------------------------------------------------------
+# K4: the XLA twin (masked_assignment_v2), the trackers' solver
+# ---------------------------------------------------------------------------
+
+def masked_assignment_twin_cuda(cost, row_mask, col_mask, thresh,
+                                max_iters: int = TWIN_MAX_ITERS,
+                                n_phases: int = 5, phase_factor: float = 4.0,
+                                sweeps=None):
+    """Launch the K4 kernel (csrc/auction.cu, auction_twin_launch): all
+    phases of every problem in one launch, one block each. Arguments as
+    :func:`masked_assignment_auction_cuda`."""
+    fire, batched, r2c, c2r = _prepare(None, cost, row_mask, col_mask, thresh,
+                                       max_iters, n_phases, phase_factor,
+                                       sweeps, twin=True)
+    fire()
+    return (r2c, c2r) if batched else (r2c[0], c2r[0])
+
+
+def prepared_twin(cost, row_mask, col_mask, thresh,
+                  max_iters: int = TWIN_MAX_ITERS, n_phases: int = 5,
+                  phase_factor: float = 4.0):
+    """``fire``: one launch of the K4 kernel on these arguments per call,
+    as :func:`prepared_auction` does for K2. For measuring."""
+    return _prepare(None, cost, row_mask, col_mask, thresh, max_iters,
+                    n_phases, phase_factor, None, twin=True)[0]
+
+
+def masked_assignment_twin(cost, row_mask, col_mask, thresh,
+                           max_iters: int = TWIN_MAX_ITERS, n_phases: int = 5,
+                           phase_factor: float = 4.0):
+    """K4 on the tensor's device: the plain version for a CPU tensor, the
+    CUDA kernel for a CUDA tensor. Returns int32 (r2c (..., N),
+    c2r (..., M))."""
+    if cost.is_cuda:
+        return masked_assignment_twin_cuda(
+            cost, row_mask, col_mask, thresh, max_iters, n_phases,
+            phase_factor)
+    if cost.device.type != "cpu":
+        raise ValueError(f"no auction implementation for {cost.device}")
+    return masked_assignment_twin_torch(
         cost, row_mask, col_mask, thresh, max_iters, n_phases, phase_factor)
