@@ -8,11 +8,13 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each of which must pass:
   1. build   -- nvcc builds csrc/auction.cu (K4, the XLA twin's form of
                 the private-dummy auction, the trackers' solver
-                ops/assignment.solve_assignment; and K2, the Pallas
-                kernel's form, which no path runs), csrc/auction_square.cu
-                (K1 and K3, the square lapjv-extended auction) and the
-                profiling build of each (-DAUCTION_PROFILE; K2's and
-                K1/K3's) for sm_90a from the checkout, side by side.
+                ops/assignment.solve_assignment, with its cascade entry,
+                deepsort's matching cascade in one launch; and K2, the
+                Pallas kernel's form, which no path runs),
+                csrc/auction_square.cu (K1 and K3, the square
+                lapjv-extended auction) and the profiling build of each
+                (-DAUCTION_PROFILE; K4's and K2's, K1/K3's) for sm_90a
+                from the checkout, side by side.
   2. kernels -- each kernel against its plain PyTorch version on the card
                 at the tracker's shape (128, 300), exact equality of
                 r2c/c2r and of every problem's sweep count. K4 and K2,
@@ -28,7 +30,12 @@ Phases, each of which must pass:
                 masked out, max_iters hit, a phase that ends on an
                 unchanged state,
                 5 phases at factor 4, a (B, N, M) cost with B thresholds,
-                and B = 264. K1: seeded association-shaped and dense
+                and B = 264. K4's cascade entry against its plain
+                version (r2c, c2r, every level's sweeps) on seeded
+                DeepSORT-shaped cascades of 30 levels, a level 0 that takes
+                every column, a batch of 4 with a threshold each, the
+                unstaged (256, 300) and scalar-staged (127, 301) shapes,
+                and no row. K1: seeded association-shaped and dense
                 problems, against scipy too. K3: batches of 8 and 16, of
                 which each problem is also solved alone by K1 with the
                 same result (a block that leaves when its own problem is
@@ -77,9 +84,10 @@ Phases, each of which must pass:
                 TF32 flags (cuDNN may use TF32), as a user's process
                 would: the pipeline itself runs ReID in float32. For each:
                 K4 launches (reset just before the run, read just after)
-                equal to its solves a frame x 16, no K2 launch (deepsort
-                and strongsort also timed with K2, before K4, and K4 as
-                the solver in turns); every tracker step under
+                equal to its solves a frame x 16 (deepsort: 2 K4 and one
+                launch of K4's cascade entry a frame), no K2 launch
+                (strongsort also timed with K2, before K4, and K4 as the
+                solver in turns); every tracker step under
                 torch.cuda.set_sync_debug_mode("error") (a host sync inside
                 a step fails the phase), for botsort and strongsort also
                 without the GMC's warp; a CPU replay of the tracker step on
@@ -89,8 +97,14 @@ Phases, each of which must pass:
                 reid_forward on the card against the CPU (relative 1e-3), ECC
                 on two frames of the pan (the 8-px shift within 0.5 px),
                 strongsort's frame split into crops, ReID forward, ECC and
-                tracker step, and the deepsort cascade's K4 levels timed
-                from a CUDA graph. deepmot runs here twice at its
+                tracker step, and deepsort's cascade: its last frame's
+                cascade captured on the CPU, the cascade entry held against
+                its plain version on it and timed (CUDA graph, and through
+                solve_cascade), a step profiled (launches a step), and the
+                run's steps replayed on the card with the cascade in one
+                launch and as the per-level K4 loop, in turns, the two MOT
+                txts byte for byte (cascade_forms).
+                deepmot runs here twice at its
                 registered capacities (128 x 48): with the trained GRU
                 DHN (weights/dhn_h32.msgpack) and with the Sinkhorn DHN
                 (weights/dhn_sinkhorn.msgpack); its CPU replay takes the
@@ -280,14 +294,15 @@ Phases, each of which must pass:
                 steps 4-12) and peak memory a rank. Prints the parallel
                 JSON line.
 Through phases 3-13 every "K4 launch" is a call of the trackers' solver
-on the card; the counts of each path go into K4's record, and K2's record
+on the card; the counts of each path go into K4's record, deepsort's
+cascade launches (phase 6) into the cascade entry's, and K2's record
 holds K2's launches on the main path (none). Then K4 and K2 on the
 offline path's last stage-1 and stage-2/3 problems and on the last tick's
 2S problems, K1 on step_frame's last problem and K3 on the last tick's are
-timed (ms, us per sweep, bound), K2, K1 and K3 profiled (where a solve's
-cycles go, by the profiling builds, which no path uses), and the
+timed (ms, us per sweep, bound), K4, K2, K1 and K3 profiled (where a
+solve's cycles go, by the profiling builds, which no path uses), and the
 problems are written to chiprun_out/chip_smoke/k2_problems.pt and
-square_problems.pt.
+square_problems.pt (deepsort's last cascade to cascade_problems.pt).
 It prints the trackers JSON line, the train JSON line, the train2 JSON
 line, the models JSON line, the parallel JSON line, the kernel JSON line,
 the card's name and power limit, and last
@@ -301,9 +316,11 @@ given the file a full run wrote, the timing and profile on the paths'
 problems. It prints no result line.
 
     python3 chip_smoke.py --k2-only [--problems k2_problems.pt]
+        [--cascade-problems cascade_problems.pt]
 
-is its twin for work on the private-dummy kernels: it builds, checks and
-times K4 and K2 (and profiles K2).
+is its twin for work on the private-dummy kernels: it builds, checks,
+times and profiles K4 and K2, and checks K4's cascade entry (and times it
+on deepsort's cascade, given the file).
 
     python3 chip_smoke.py --train-only
 
@@ -348,6 +365,8 @@ SOURCE = "yolov7_tracker_tpu_torch/csrc/auction.cu"
 # K4 is not a Pallas kernel: it replaces the XLA twin that the JAX
 # package's solve_assignment runs on its chip (ops/assignment.py:75)
 REPLACES_K4 = "yolov7_tracker_tpu/ops/assignment.py:311"
+# K4's cascade entry replaces the lax.scan of JAX's matching_cascade
+REPLACES_CASCADE = "yolov7_tracker_tpu/trackers/appearance.py:66"
 REPLACES_K1 = "yolov7_tracker_tpu/ops/pallas_auction.py:196"
 REPLACES_K3 = "yolov7_tracker_tpu/ops/pallas_auction.py:631"
 SOURCE_SQUARE = "yolov7_tracker_tpu_torch/csrc/auction_square.cu"
@@ -373,7 +392,9 @@ SCIPY_GAP_LIMIT = 0.05
 N_STREAMS = 8
 SERVE_TICKS = (16, 8)         # first call, resumed call
 # phase 6: (name, TrackerConfig fields, PipelineConfig fields, K4 solves a
-# frame); deepsort's cascade solves each of its max_time_lost (30) levels.
+# frame); deepsort's cascade solves all of its max_time_lost (30) levels in
+# one launch of K4's cascade entry (CASCADES_PER_FRAME), its stages 2 and 3
+# are the 2 K4.
 # The GMC trackers (botsort, strongsort) run on a camera pan (pan_frames):
 # between two unrelated noise frames of phase 3, ECC returns a wild but
 # finite warp (a scale of 4 and a 113 degree turn on the card), which the
@@ -391,7 +412,7 @@ TRACKER_RUNS = (
     ("c_bioutracker", dict(tracker="c_bioutracker"), {}, 3),
     ("uavmot", dict(tracker="uavmot"), {}, 3),
     ("botsort", dict(tracker="botsort"), dict(gmc_method="ecc"), 2),
-    ("deepsort", dict(tracker="deepsort"), dict(reid="deepsort_cnn"), 32),
+    ("deepsort", dict(tracker="deepsort"), dict(reid="deepsort_cnn"), 2),
     ("strongsort", dict(tracker="strongsort"),
      dict(reid="osnet_x1_0", reid_capacity=0, gmc_method="ecc"), 3),
     ("bytetrack_osnet", dict(tracker="bytetrack", feature_dim=512),
@@ -404,9 +425,12 @@ TRACKER_RUNS = (
                               dhn_weights=DHN_SINKHORN, dhn_arch="sinkhorn"),
      {}, 2),
 )
+CASCADES_PER_FRAME = {"deepsort": 1}
 # phase 6: the trackers also timed with K2 and K4 as the solver in turns,
 # as phase 3 is, each turn on the first TURN_FRAMES frames of the run
-K2_BEFORE = ("deepsort", "strongsort")
+# (deepsort's cascade does not go through the solver: its one launch is
+# timed against the per-level K4 loop instead, cascade_forms)
+K2_BEFORE = ("strongsort",)
 TURN_FRAMES = 8
 PAN_PX = 8                    # the pan's shift a frame
 REID_REL_TOL = 1e-3           # card vs CPU, float32 (TF32 off)
@@ -711,7 +735,35 @@ def kernel_phase(dev):
             log(f"{label} ({n}, {m}) {kind}, weights {name}: kernel "
                 f"{ms:.4f} ms, {int(sweeps)} sweeps, "
                 f"{ms * 1e3 / int(sweeps):.3f} us/sweep")
-    return worst
+    return max(worst, cascade_stress(auction, rng, dev))
+
+
+def k4_batch_timings(dev):
+    """K4 at B = 2 and B = 16, the sizes of the stages 2+3 launches of an
+    offline frame and of a serving tick, on seeded association problems
+    of the tracker's shape (128, 300) that have rows (the paths' own
+    stages 2+3 problems have none where stage 1 matched every track), at
+    the stages' thresholds 0.5 and 0.7 in turn. Returns {"b2": record,
+    "b16": record} as time_kernel gives them."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import auction
+
+    rng = np.random.default_rng(14)
+    out = {}
+    for b in (2, 16):
+        cost, rm, cm = (torch.from_numpy(np.stack(x)) for x in zip(
+            *(seeded_problem(rng) for _ in range(b))))
+        t = time_kernel(auction, (cost, rm, cm,
+                                  torch.tensor([0.5, 0.7] * (b // 2))), dev)
+        log(f"K4 seeded B={b} (128, 300) assoc with {int(rm.sum())} rows "
+            f"on {card_line()}: kernel {t['ms']:.4f} ms, sweeps "
+            f"{t['sweeps']}, {t['us_per_sweep']:.3f} us/sweep of the "
+            f"slowest, through the wrapper {t['wrapper_ms']:.4f} ms a call, "
+            f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']})")
+        out[f"b{b}"] = t
+    return out
 
 
 def scipy_pairs(cost, rm, cm, thresh, r2c):
@@ -763,8 +815,9 @@ def time_kernel(auction, problem, dev, kernel="k4"):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def k2_profile_line(auction, name, problem, dev):
-    """Log where the cycles of a K2 solve go, by the profiling build
+def k2_profile_line(auction, name, problem, dev, kernel="k2"):
+    """Log where the cycles of a K2 or K4 (``kernel``) solve go, by the
+    profiling build
     (clock64() sums on lane 0 of each warp): of a batch the problem with
     the most cycles, and of its warps the one with the most cycles outside
     the barriers (the block's warps meet at every barrier, so any warp's
@@ -772,15 +825,18 @@ def k2_profile_line(auction, name, problem, dev):
     timed one. Returns the cycles by part."""
     import torch
 
+    fn = PRIVATE_DUMMY[kernel][0]
+    prepared = getattr(auction, f"prepared_{fn}")
     cost, rm, cm, th = (t.to(dev) for t in problem)
     b = rm.shape[0] if rm.dim() == 2 else 1
     sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
-    *_, cycles = auction.profile_auction(cost, rm, cm, th, sweeps=sweeps,
-                                         **K2_STEEP)
-    prof_ms = graph_ms(auction.prepared_auction(
-        cost, rm, cm, th, profile=torch.zeros_like(cycles), **K2_STEEP))
-    timed_ms = graph_ms(auction.prepared_auction(cost, rm, cm, th,
-                                                 **K2_STEEP))
+    *_, cycles = getattr(auction, "profile_twin" if kernel == "k4" else
+                         "profile_auction")(cost, rm, cm, th, sweeps=sweeps,
+                                            **K2_STEEP)
+    prof_ms = graph_ms(prepared(cost, rm, cm, th,
+                                profile=torch.zeros_like(cycles),
+                                **K2_STEEP))
+    timed_ms = graph_ms(prepared(cost, rm, cm, th, **K2_STEEP))
     parts = auction.profile_parts()
     timed = [k for k, part in enumerate(parts) if not part.endswith("count")]
     counts = [k for k, part in enumerate(parts) if part.endswith("count")]
@@ -789,7 +845,7 @@ def k2_profile_line(auction, name, problem, dev):
     warp = int(cycles[slow][:, work].sum(dim=1).argmax())
     cyc = {parts[k]: int(cycles[slow, warp, k]) for k in timed}
     cyc.update({parts[k]: int(cycles[slow, :, k].sum()) for k in counts})
-    total = sum(cyc[parts[k]] for k in timed)
+    total = max(sum(cyc[parts[k]] for k in timed), 1)
     n_sweeps = max(int(sweeps[slow]), 1)
     log(f"profile of {name} (problem {slow} of {b}, warp {warp}; "
         f"{n_sweeps} sweeps; {total} cycles, {total / n_sweeps:.0f} a "
@@ -821,9 +877,10 @@ def k2_path_timings(auction, problems, dev):
                 f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.6f} ms "
                 f"({t['bound_by']})")
             out[kernel][name] = t
-    for name, problem in problems.items():
-        out["k2"][name]["profile_cycles"] = k2_profile_line(
-            auction, f"K2 {name}", problem, dev)
+    for kernel, (_, label) in PRIVATE_DUMMY.items():
+        for name, problem in problems.items():
+            out[kernel][name]["profile_cycles"] = k2_profile_line(
+                auction, f"{label} {name}", problem, dev, kernel)
     return out
 
 
@@ -1808,18 +1865,21 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
 
     pipe.step = recording_step
     torch.cuda.synchronize()
-    auction.LAUNCHES_K4 = auction.LAUNCHES = 0
+    auction.LAUNCHES_K4 = auction.LAUNCHES = auction.LAUNCHES_CASCADE = 0
     t0 = time.time()
     results, slab = pipe.run_sequence_stateful(iter(frames))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = auction.LAUNCHES_K4
+    launches, cascades = auction.LAUNCHES_K4, auction.LAUNCHES_CASCADE
     pipe.step = plain_step
     n = len(frames)
-    if launches != per_frame * n or auction.LAUNCHES != 0:
-        raise AssertionError(f"{name}: {launches} K4 and {auction.LAUNCHES} "
-                             f"K2 launches in {n} frames, expected "
-                             f"{per_frame} K4 a frame")
+    per_cascade = CASCADES_PER_FRAME.get(name, 0)
+    if (launches != per_frame * n or auction.LAUNCHES != 0
+            or cascades != per_cascade * n):
+        raise AssertionError(f"{name}: {launches} K4, {cascades} cascade "
+                             f"and {auction.LAUNCHES} K2 launches in {n} "
+                             f"frames, expected {per_frame} K4 and "
+                             f"{per_cascade} cascade a frame")
     tracks = [len(ids) for _, ids, _, _ in results]
     if len(results) != n or max(tracks) < 1 or int(slab.frame) != n:
         raise AssertionError(f"{name}: tracks per frame {tracks}")
@@ -1843,7 +1903,7 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
             f"{turns['k2']}, K4 {turns['k4']}")
     warps = torch.stack([d.warp.to(dev) for d in dets])
     rec = {"ms_per_frame": wall / n * 1e3, "solver_turns": turns,
-           "k4_launches": launches,
+           "k4_launches": launches, "cascade_launches": cascades,
            "k4_per_frame": per_frame, "tracks_per_frame_mean":
            float(np.mean(tracks)), "tracks_per_frame_max": max(tracks),
            "ids": int(slab.next_id), "cpu_replay": "same ids, boxes 1e-2",
@@ -1862,7 +1922,8 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
             f"otherwise in {len(dhn_report['pairing_differs'])} of "
             f"{dhn_report['frames']} frames {dhn_report['pairing_differs']}")
     log(f"{name} on {card_line()}: {wall / n * 1e3:.2f} ms/frame over {n} "
-        f"frames, {launches} K4 launches ({per_frame} a frame), tracks/frame "
+        f"frames, {launches} K4 launches ({per_frame} a frame), {cascades} "
+        f"of K4's cascade entry, tracks/frame "
         f"mean {np.mean(tracks):.1f} max {max(tracks)}, {int(slab.next_id)} "
         f"ids; CPU replay ({replay_s:.1f} s): same ids, boxes within 1e-2")
     return rec, pipe, dets, results
@@ -2089,53 +2150,252 @@ def conv_out_sizes(model, x):
 
 def cascade_timing(pipe, dets, dev):
     """deepsort's cascade on the run's last frame, replayed on the CPU to
-    capture its 30 level problems, each then timed on the card from a CUDA
-    graph (kernel only) and through the wrapper (a call as the path makes
-    it)."""
+    capture its inputs (kept in OUT_DIR/cascade_problems.pt for
+    --k2-only): K4's cascade entry held against its plain version on them
+    and timed (cascade_check), and a deepsort step of the last frame on
+    the card profiled (its launches a step)."""
+    import torch
+
     from yolov7_tracker_tpu_torch.ops import auction
     from yolov7_tracker_tpu_torch.trackers import appearance
     from yolov7_tracker_tpu_torch.trackers import slab as S
 
-    problems = []
-    solve = appearance.solve_assignment
+    cascades = []
+    cascade = appearance.matching_cascade
 
-    def capture(cost, rm, cm, th):
-        problems.append((cost.clone(), rm.clone(), cm.clone(), th))
-        return solve(cost, rm, cm, th)
+    def capture_cascade(cost, slab, rm, cm, th, depth, **kw):
+        cascades.append((cost.clone(), rm.clone(), cm.clone(),
+                         slab.time_since_update.clone(), th, depth))
+        return cascade(cost, slab, rm, cm, th, depth, **kw)
 
     slab = S.init_slab(pipe.tcfg, "cpu")
     for d in dets[:-1]:
         slab, _ = pipe.step(slab, S.DetSlab(*(x.cpu() for x in d)))
-    appearance.solve_assignment = capture
+    appearance.matching_cascade = capture_cascade
     try:
         pipe.step(slab, S.DetSlab(*(x.cpu() for x in dets[-1])))
     finally:
-        appearance.solve_assignment = solve
-    kernel, wrapper, rows = [], [], []
-    for cost, rm, cm, th in problems:
-        cost, rm, cm = (t.to(dev) for t in (cost, rm, cm))
-        kernel.append(graph_ms(auction.prepared_twin(
-            cost.contiguous(), rm, cm, th, **K2_STEEP)))
-        wrapper.append(cuda_ms(lambda: auction.masked_assignment_twin_cuda(
-            cost.contiguous(), rm, cm, th, **K2_STEEP), 20))
-        rows.append(int(rm.sum()))
-    empty = [k for k, r in zip(kernel, rows) if r == 0]
+        appearance.matching_cascade = cascade
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.save({"cascade": cascades[-1]},
+               os.path.join(OUT_DIR, "cascade_problems.pt"))
+    rec = cascade_check(auction, cascades[-1], dev)
+    _, rm, _, tsu, _, depth = cascades[-1]
+    rows = [int((rm & (tsu == 1 + lvl)).sum()) for lvl in range(depth)]
     card_slab = S.init_slab(pipe.tcfg, dev)
     for d in dets[:-1]:
         card_slab, _ = pipe.step(card_slab, d)
     log("deepsort step of the last frame on the card:")
     step_ops = profile_ops(lambda: pipe.step(card_slab, dets[-1]))
-    rec = {"levels": len(problems), "rows_per_level": rows,
-           "step_profile": step_ops,
-           "kernel_ms_sum": float(sum(kernel)),
-           "kernel_ms_empty_level": float(np.mean(empty)) if empty else None,
-           "kernel_ms_max": float(max(kernel)),
-           "wrapper_ms_sum": float(sum(wrapper))}
-    log(f"deepsort cascade on {card_line()}: {len(problems)} levels, rows "
-        f"{rows}; K4 from a CUDA graph {sum(kernel):.4f} ms in all "
-        f"({rec['kernel_ms_empty_level']} ms an empty level, "
-        f"{max(kernel):.4f} the longest); through the wrapper "
-        f"{sum(wrapper):.3f} ms a frame")
+    rec.update({"rows_per_level": rows, "step_profile": step_ops})
+    log(f"deepsort cascade on {card_line()}: {depth} levels, rows {rows}; "
+        f"launches a step {step_ops.get('launches')}")
+    return rec
+
+
+def cascade_check(auction, cascade, dev, name="deepsort's last frame"):
+    """K4's cascade entry against its plain version on one captured cascade
+    (cost, row_mask, col_mask, time_since_update, thresh, depth): max
+    |difference| over r2c, c2r and each level's sweeps (raises unless 0),
+    then the kernel's ms from a CUDA graph, ms a call through
+    solve_cascade, the plain version's ms and the bound. Returns a
+    record."""
+    from yolov7_tracker_tpu_torch.ops import assignment
+
+    cost, rm, cm, tsu, th, depth = to_card(cascade, dev)
+    cost = cost.float().contiguous()
+    d, r2c, sweeps = cascade_both(auction, cost, rm, cm, tsu, th, depth, dev)
+    if d != 0:
+        raise AssertionError(f"K4's cascade entry differs from its plain "
+                             f"version on {name}: {d}")
+    ms = graph_ms(auction.prepared_twin_cascade(cost, rm, cm, tsu, th, depth,
+                                                **K2_STEEP))
+    wrapper_ms = cuda_ms(lambda: assignment.solve_cascade(
+        cost, rm, cm, tsu, th, depth), 20)
+    plain_ms = cuda_ms(
+        lambda: assignment.masked_assignment_twin_cascade_torch(
+            cost, rm, cm, tsu, th, depth, **K2_STEEP), 1)
+    n, m = cost.shape[-2:]
+    b = rm.shape[0] if rm.dim() == 2 else 1
+    # the cost, masks, ages and thresholds read once, r2c, c2r and the
+    # sweeps written once; the operations of level 0 (as time_kernel
+    # counts them: every row a pass over its m + n columns a sweep)
+    nbytes = (cost.numel() * 4 + b * (n + m) + b * n * 4 + b * 4
+              + b * (n + m) * 4 + b * depth * 4)
+    ops = int(sweeps[:, 0].sum()) * n * (m + n) * 2 if depth else 0
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    rec = {"max_abs_err": float(d), "ms": ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "sweeps_per_level": sweeps.tolist(),
+           "pairs": int((r2c >= 0).sum())}
+    log(f"K4's cascade entry on {name} ({tuple(cost.shape)}, {depth} "
+        f"levels): == plain (r2c, c2r, sweeps per level); {ms:.4f} ms from a "
+        f"CUDA graph, {wrapper_ms:.4f} ms through solve_cascade, plain "
+        f"{plain_ms:.2f} ms, bound {rec['bound_ms']:.6f} ms "
+        f"({rec['bound_by']}); sweeps by level {sweeps.tolist()}")
+    return rec
+
+
+def cascade_both(auction, cost, rm, cm, tsu, th, depth, dev, **kw):
+    """K4's cascade entry and its plain version on one cascade or a batch
+    of them on the card: the max |difference| over r2c, c2r and every
+    level's sweeps (0 means bit-identical), the kernel's r2c and its sweeps
+    (B, depth)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import assignment
+
+    kw = {**K2_STEEP, **kw}
+    b = rm.shape[0] if rm.dim() == 2 else 1
+    ks = torch.zeros((b, depth), dtype=torch.int32, device=dev)
+    ps = torch.zeros((b, depth), dtype=torch.int32, device=dev)
+    kr, kc = auction.masked_assignment_twin_cascade_cuda(
+        cost, rm, cm, tsu, th, depth, sweeps=ks, **kw)
+    pr, pc = assignment.masked_assignment_twin_cascade_torch(
+        cost, rm, cm, tsu, th, depth, sweeps=ps, **kw)
+    torch.cuda.synchronize()
+    worst = max(int((kr.long() - pr.long()).abs().max()),
+                int((kc.long() - pc.long()).abs().max()),
+                int((ks - ps).abs().max()) if depth else 0)
+    return worst, kr, ks
+
+
+def cascade_problem(rng, n=128, m=300, depth=30, kind="deepsort"):
+    """One seeded (cost, row_mask, col_mask, time_since_update) cascade,
+    numpy (tests/test_torch_auction.py and tests/test_torch_cuda.py use it
+    too). 'deepsort' is DeepSORT's gated appearance cost (the cosine
+    distance of 128-d embeddings, tracks sharing a component, each det a
+    track's embedding plus noise; above 0.15 set to 1e5), 'dense' U[0, 1]
+    costs. Most tracks are at age 1 and the rest at even ages up to past
+    the last level, so every odd level above 1 has no row."""
+    if kind == "deepsort":
+        def unit(x):
+            return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+        base = unit(rng.normal(size=128))
+        tracks = unit(0.8 * base + unit(rng.normal(size=(n, 128))))
+        dets = unit(tracks[rng.permutation(max(n, m))[:m] % n]
+                    + rng.normal(0, 0.04, (m, 128)))
+        cost = (1.0 - tracks @ dets.T).astype(np.float32)
+        cost = np.where(cost > 0.15, np.float32(1e5), cost)
+    else:
+        cost = rng.random((n, m)).astype(np.float32)
+    ages = np.where(rng.random(n) < 0.7, 1,
+                    2 * rng.integers(1, depth // 2 + 2, n))
+    return (cost, rng.random(n) < 0.85, rng.random(m) < 0.85,
+            ages.astype(np.int32))
+
+
+def cascade_stress(auction, rng, dev):
+    """K4's cascade entry against its plain version on seeded cascades
+    that stress it: DeepSORT-shaped (128, 300) over 30 levels, a level 0
+    that takes every column, a batch with a threshold for each problem,
+    the unstaged (256, 300) and scalar-staged (127, 301) ways of holding
+    the weights, and no row at all. Returns the max |difference| (raises
+    unless 0)."""
+    import torch
+
+    def on_card(*xs):
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in xs)
+
+    cases = []
+    for k in range(4):
+        cases.append((f"DeepSORT-shaped {k}", *on_card(*cascade_problem(
+            rng, kind="deepsort")), 0.9, 30))
+    cost, rm, cm, tsu = cascade_problem(rng, 128, 64, kind="dense")
+    cost[:100] *= np.float32(0.01)
+    tsu[:100], rm[:100], cm[:] = 1, True, True
+    cases.append(("level 0 takes every column", *on_card(cost, rm, cm, tsu),
+                  0.9, 30))
+    probs = [cascade_problem(rng, kind="deepsort" if k % 2 else "dense")
+             for k in range(4)]
+    cases.append(("B = 4, a threshold each",
+                  *on_card(*(np.stack(x) for x in zip(*probs))),
+                  torch.tensor([0.5, 0.7, 0.8, 0.9]), 30))
+    for n, m in ((256, 300), (127, 301)):
+        cases.append((f"({n}, {m}) dense", *on_card(*cascade_problem(
+            rng, n, m, 8, "dense")), 0.7, 8))
+    cost, rm, cm, tsu = cascade_problem(rng)
+    cases.append(("no row", *on_card(cost, np.zeros_like(rm), cm, tsu), 0.9,
+                  30))
+    worst = 0
+    t0 = time.time()
+    for name, cost, rm, cm, tsu, th, depth in cases:
+        th = th.to(dev) if torch.is_tensor(th) else th
+        d, r2c, sweeps = cascade_both(auction, cost, rm, cm, tsu, th, depth,
+                                      dev)
+        worst = max(worst, d)
+        log(f"K4 cascade stress, {name}: max |kernel - plain| (r2c, c2r, "
+            f"sweeps by level) = {d}; pairs {int((r2c >= 0).sum())}, sweeps "
+            f"{int(sweeps.sum())} over {sweeps.numel()} levels")
+    log(f"K4 cascade stress problems: {time.time() - t0:.1f} s")
+    if worst != 0:
+        raise AssertionError(f"K4's cascade entry differs from its plain "
+                             f"version: {worst}")
+    return worst
+
+
+def cascade_forms(pipe, dets, results, dev):
+    """deepsort's steps on the card, replayed from the run's detections
+    with the cascade in one launch (the path) and as the per-level K4 loop
+    (solve_stage1=solve_assignment), in turns one launch, loop, loop, one
+    launch: the MOT txt of the two forms byte for byte, the one-launch
+    replay's ids the run's, the launches of each form (2 K4 + 1 cascade
+    against 32 K4 a frame) and ms a frame of each turn (host clock,
+    synchronized; the tracker step alone). Returns a record."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.data import writer
+    from yolov7_tracker_tpu_torch.ops import assignment, auction
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    forms = {"one_launch": {},
+             "loop": {"solve_stage1": assignment.solve_assignment}}
+    ms, text, launches = {k: [] for k in forms}, {}, {}
+    for form in ("one_launch", "loop", "loop", "one_launch"):
+        slab = S.init_slab(pipe.tcfg, dev)
+        rows, outs = [], []
+        auction.LAUNCHES_K4 = auction.LAUNCHES_CASCADE = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for det in dets:
+            slab, out = pipe.step(slab, det, **forms[form])
+            outs.append(out)
+        torch.cuda.synchronize()
+        ms[form].append((time.time() - t0) / len(dets) * 1e3)
+        if form in text:
+            continue
+        launches[form] = (auction.LAUNCHES_K4, auction.LAUNCHES_CASCADE)
+        for k, out in enumerate(outs):
+            v = out.valid.cpu().numpy()
+            rows.append((k + 1, out.track_id.cpu().numpy()[v].tolist(),
+                         list(out.tlwh.cpu().numpy()[v]),
+                         out.cls.cpu().numpy()[v].astype(int).tolist()))
+            if form == "one_launch" and rows[-1][1] != results[k][1]:
+                raise AssertionError(f"deepsort replay on the card differs "
+                                     f"from its run at frame {k}")
+        path = writer.save_results(os.path.join(OUT_DIR, f"deepsort_{form}"),
+                                   "synthetic", rows)
+        with open(path, "rb") as f:
+            text[form] = f.read()
+    n = len(dets)
+    if text["one_launch"] != text["loop"]:
+        raise AssertionError("deepsort's MOT txt differs between the "
+                             "one-launch cascade and the per-level K4 loop")
+    if launches != {"one_launch": (2 * n, n), "loop": (32 * n, 0)}:
+        raise AssertionError(f"deepsort replay launches (K4, cascade): "
+                             f"{launches}")
+    rec = {"mot_txt_equal": True, "mot_bytes": len(text["loop"]),
+           "launches": {k: list(v) for k, v in launches.items()},
+           "ms_per_frame": ms}
+    log(f"deepsort replayed on {card_line()} from the run's {n} frames of "
+        f"detections: MOT txt byte-equal ({len(text['loop'])} bytes) between "
+        f"the one-launch cascade and the per-level K4 loop; launches (K4, "
+        f"cascade) {launches}; tracker step ms a frame in turns one launch "
+        f"{ms['one_launch']}, loop {ms['loop']}")
     return rec
 
 
@@ -2173,6 +2433,7 @@ def run_trackers(sd, dev):
             strongsort_rows = results
         if name == "deepsort":
             rec["cascade"] = cascade_timing(pipe, dets, dev)
+            rec["cascade_forms"] = cascade_forms(pipe, dets, results, dev)
         out[name] = rec
         launches[name] = rec["k4_launches"]
         del pipe, dets
@@ -5995,22 +6256,27 @@ def square_only(dev, problems_file):
     return 0
 
 
-def k2_only(dev, problems_file):
-    """The short run behind --k2-only: build csrc/auction.cu (K2 and K4)
-    and K2's profiling build, hold K4 and K2 against their plain versions
-    (seeded and stress problems, K4 against scipy), and, given the
-    k2_problems.pt that a full run wrote, time both (and profile K2) on
-    those problems of the paths."""
+def k2_only(dev, problems_file, cascade_file):
+    """The short run behind --k2-only: build csrc/auction.cu (K2, K4 and
+    K4's cascade entry) and its profiling build, hold them against their
+    plain versions (seeded and stress problems, K4 against scipy), time K4
+    at B = 2 and 16 on seeded problems with rows, and, given the
+    k2_problems.pt that a full run wrote, time and profile K4
+    and K2 on those problems of the paths; given its cascade_problems.pt,
+    hold and time the cascade entry on deepsort's captured cascade."""
     import torch
 
     from yolov7_tracker_tpu_torch.ops import auction
 
     build_kernels([(auction, SOURCE, ()), (auction, SOURCE, (True,))])
     kernel_phase(dev)
+    k4_batch_timings(dev)
     if problems_file:
         saved = torch.load(problems_file)
         k2_path_timings(auction, {name: to_card(problem, dev)
                                   for name, problem in saved.items()}, dev)
+    if cascade_file:
+        cascade_check(auction, torch.load(cascade_file)["cascade"], dev)
     log("k2-only run done (not the smoke run: no result line)")
     return 0
 
@@ -6024,8 +6290,8 @@ def main(argv=None):
     ap.add_argument("--square-only", action="store_true",
                     help="only build, check, time and profile K1/K3")
     ap.add_argument("--k2-only", action="store_true",
-                    help="only build, check and time K4 and K2 (and "
-                         "profile K2)")
+                    help="only build, check, time and profile K4 and K2, "
+                         "and check K4's cascade entry")
     ap.add_argument("--train-only", action="store_true",
                     help="only phase 10 (training and the detector test)")
     ap.add_argument("--train2-only", action="store_true",
@@ -6041,6 +6307,9 @@ def main(argv=None):
                     help="with --square-only or --k2-only: the "
                          "square_problems.pt or k2_problems.pt written by a "
                          "full run (the paths' own last problems)")
+    ap.add_argument("--cascade-problems", default="",
+                    help="with --k2-only: the cascade_problems.pt written by "
+                         "a full run (deepsort's last cascade)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6056,7 +6325,7 @@ def main(argv=None):
     if args.square_only:
         return square_only(dev, args.problems)
     if args.k2_only:
-        return k2_only(dev, args.problems)
+        return k2_only(dev, args.problems, args.cascade_problems)
     if args.train_only:
         print(json.dumps({"train": train_phase(dev)}))
         log("train-only run done (not the smoke run: no result line)")
@@ -6089,6 +6358,7 @@ def main(argv=None):
                    (square, SOURCE_SQUARE, (True,))])
 
     worst = kernel_phase(dev)
+    k4_seeded = k4_batch_timings(dev)
     worst_sq, t_k1, t_k3 = square_phase(dev)
     sd, pipe = build_w6(dev)
     launches, k2_launches, solves, main_ms = main_phase(pipe, dev)
@@ -6156,9 +6426,20 @@ def main(argv=None):
               "max_abs_err": float(worst), "library_ms": None, **t1,
               **{f"{k}_b2": v for k, v in t2.items()},
               **{f"{k}_serving": v for k, v in t16.items()},
+              "seeded_with_rows": k4_seeded,
               "offline_bytetrack": main_ms,
               "trackers_solver_turns": {
                   k: trackers[k]["solver_turns"] for k in K2_BEFORE}}
+    # K4's cascade entry: deepsort's stage 1 in phase 6, timed on its last
+    # frame's cascade (cascade_timing)
+    casc = trackers["deepsort"]["cascade"]
+    rec_cascade = {"name": "auction_k4_cascade", "route": "cuda",
+                   "source": SOURCE, "replaces": REPLACES_CASCADE,
+                   "launches": trackers["deepsort"]["cascade_launches"],
+                   "library_ms": None,
+                   **{k: v for k, v in casc.items() if k != "step_profile"},
+                   "launches_a_step": casc["step_profile"].get("launches"),
+                   "forms": trackers["deepsort"]["cascade_forms"]}
     t1, t2, t16 = on_path["k2"].values()
     # K2 is on no path (as in JAX): it is held against its plain version on
     # the seeded and stress problems and on every problem the paths gave K4
@@ -6197,7 +6478,8 @@ def main(argv=None):
     log(f"total {time.time() - t0:.1f} s")
     for line in ({"trackers": trackers}, {"train": train}, {"train2": train2},
                  {"models": models}, {"parallel": parallel},
-                 {"kernels": [rec_k1, record, rec_k3, rec_k4]}):
+                 {"kernels": [rec_k1, record, rec_k3, rec_k4,
+                              rec_cascade]}):
         keep(json.dumps(line))
     keep(card_line())
     print(json.dumps({"ok": True, "device": {

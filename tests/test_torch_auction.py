@@ -21,8 +21,10 @@ from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from yolov7_tracker_tpu.ops.pallas_auction import masked_assignment_pallas_v2
 from yolov7_tracker_tpu_torch.ops import auction
 from yolov7_tracker_tpu_torch.ops.assignment import (
-    linear_assignment_host, solve_assignment,
+    linear_assignment_host, masked_assignment_twin_cascade_torch,
+    solve_assignment,
 )
+from chip_smoke import cascade_problem
 
 STEEP = dict(n_phases=2, phase_factor=4.0 ** 2.5)
 
@@ -619,3 +621,315 @@ def test_profiling_build_is_cached_under_its_own_name(monkeypatch, tmp_path):
     with pytest.raises(ValueError):
         auction.profile_auction(cost, rm, cm, 0.8)
     assert loads == []          # a CPU tensor builds and loads nothing
+
+
+# ---------------------------------------------------------------------------
+# K4's solve as the CUDA kernel makes it, modelled in numpy: the release
+# fixpoint tests every assigned row in full only in a phase's first
+# iteration, then only the columns the iteration before freed; the bidders
+# of a round are the losers and the evicted rows of the round before,
+# handed on in a list; a column's winner is the maximum of (bid image,
+# ~row) keys, cleared a round late. K2's shortcut (a row that won since the
+# last price fall passes if cur >= b2 - eps, b2 its bid's second-best
+# value) is sound here too, but the fixpoint's whole-row tests all come
+# with a new, smaller eps, under which it never passes: the model counts
+# where it would, and the kernel does not carry it.
+# ---------------------------------------------------------------------------
+
+def _twin_model(cost, rm, cm, thresh, n_phases, phase_factor,
+                max_iters=auction.TWIN_MAX_ITERS, on_sweep=None):
+    """K4's solve in numpy float32 on the compact n x (m + n) problem.
+    Returns (r2c, c2r, sweeps, counts): counts of whole-row release scans,
+    of those K2's second-best shortcut would have passed, of freed-column
+    tests and of bid scans."""
+    n, m = cost.shape
+    w = _weights(cost, rm, cm, thresh)
+    sched, cap = auction.eps_schedule(
+        torch.tensor([thresh], dtype=torch.float32), n_phases, phase_factor)
+    sched, cap = sched[0].numpy(), cap.numpy()[0]
+    prices = np.zeros(m + n, np.float32)
+    c2r = np.full(m + n, -1)
+    r2c = np.full(n, -1)
+    for i in np.flatnonzero(~rm):           # masked-out rows: own dummies
+        r2c[i], c2r[m + i] = m + i, i
+    keys = [[0] * (m + n), [0] * (m + n)]   # taken in turn, round by round
+    bidders = [int(i) for i in np.flatnonzero(rm)]
+    won_cols = []                           # the last round's, keys to clear
+    hint, won_epoch, epoch = [_ZERO] * n, [-1] * n, 0
+    sweeps = rounds = 0
+    counts = dict(whole=0, b2_would_pass=0, column_tests=0, bid=0)
+
+    def held(i):
+        rc = r2c[i]
+        return (w[i, rc] if rc < m else _ZERO) - prices[rc]
+
+    def row_max(i):
+        return max((w[i] - prices[:m]).max(), _ZERO - prices[m + i])
+
+    for ph in range(n_phases):
+        eps = sched[ph]
+        freed = None                 # None: a phase's first iteration
+        for it in range(n + 1):
+            released = []
+            for i in range(n):
+                if r2c[i] < 0 or not rm[i]:
+                    continue         # masked-out rows hold their dummies
+                h = held(i)
+                if freed is None:
+                    if won_epoch[i] == epoch and h >= hint[i] - eps:
+                        # no price fell since its bid: nothing else is worth
+                        # more to it than that bid's second-best value
+                        counts["b2_would_pass"] += 1
+                        assert h >= row_max(i) - eps
+                    counts["whole"] += 1
+                    if not h >= row_max(i) - eps:
+                        released.append(i)
+                else:
+                    # it passed the iteration before: only a freed column,
+                    # now at price 0, can fail it
+                    real = [j for j in freed if j < m]
+                    counts["column_tests"] += len(real)
+                    ok = all(h >= (w[i, j] - prices[j]) - eps for j in real)
+                    assert ok == bool(h >= row_max(i) - eps)
+                    if not ok:
+                        released.append(i)
+            freed = [int(r2c[i]) for i in released]
+            for i in released:
+                rc = r2c[i]
+                r2c[i], c2r[rc], prices[rc] = -1, -1, _ZERO
+                bidders.append(i)
+            epoch += bool(released)
+            sweeps += 1
+            if on_sweep is not None:
+                on_sweep(ph, "release", it, r2c, c2r, prices)
+            if not released:
+                break
+        for it in range(max_iters):
+            if not bidders:
+                break
+            key, key_before = keys[rounds & 1], keys[~rounds & 1]
+            for j in won_cols:
+                key_before[j] = 0
+            assert not any(key_before) and not any(key)
+            assert len(set(bidders)) == len(bidders)
+            assert set(bidders) == set(np.flatnonzero(r2c < 0).tolist())
+            bids = []
+            for i in bidders:
+                counts["bid"] += 1
+                values = w[i] - prices[:m]
+                bi = int(values.argmax())               # the first maximum
+                b1 = values[bi]
+                b2 = np.delete(values, bi).max() if m > 1 else -np.inf
+                own_v = _ZERO - prices[m + i]
+                if own_v > b1:
+                    b1, bi, b2 = own_v, m + i, b1
+                else:
+                    b2 = max(b2, own_v)
+                b2 = max(b2, _NEG)
+                bv = (prices[bi] + min(b1 - b2, cap)) + eps
+                assert bv.dtype == np.float32
+                key[bi] = max(key[bi], (_image(bv) << 32) | (0x7fffffff - i))
+                bids.append((bi, bv, b2))
+            handed_on, won_cols = [], []
+            for i, (bi, bv, b2) in zip(bidders, bids):
+                if 0x7fffffff - (key[bi] & 0xffffffff) != i:
+                    handed_on.append(i)
+                    continue
+                prev = int(c2r[bi])
+                if prev >= 0:
+                    r2c[prev] = -1
+                    handed_on.append(prev)
+                c2r[bi], r2c[i], prices[bi] = i, bi, bv
+                won_epoch[i], hint[i] = epoch, b2
+                won_cols.append(bi)
+            assert sum(map(bool, key)) == len(won_cols)
+            bidders = handed_on
+            rounds += 1
+            sweeps += 1
+            if on_sweep is not None:
+                on_sweep(ph, "bid", it, r2c, c2r, prices)
+    return r2c, c2r, sweeps, counts
+
+
+def _twin_model_cases():
+    """name -> (cost, rm, cm, thresh, solver arguments): the stress cases,
+    the twelve dense host cases and ReID-like dense problems."""
+    cases = dict(_stress_cases())
+    for name, kw in (("max_iters_hit", dict(max_iters=3)),
+                     ("more_rows_than_columns", dict(max_iters=64))):
+        *case, steep = cases[name]
+        cases[name] = (*case, {**steep, **kw})
+    for k, case in enumerate(_host_cases()):
+        cases[f"host_{k}"] = (*case, STEEP)
+    for k, case in enumerate(_reid_cases(0.06, 6)):
+        cases[f"reid_{k}"] = (*case, STEEP)
+    return cases
+
+
+@pytest.mark.parametrize("name", sorted(_twin_model_cases()))
+def test_twin_kernel_model_equals_plain_version_after_every_sweep(name):
+    """The numpy model of K4's solve leaves the plain version's (r2c, c2r,
+    prices), bit for bit, after every release iteration and every bid
+    round of every phase, with as many sweeps; it scans a whole row in the
+    release fixpoint only in a phase's first iteration."""
+    cost, rm, cm, thresh, kw = _twin_model_cases()[name]
+    n, m = cost.shape
+    sched, cap = auction.eps_schedule(
+        torch.tensor([thresh], dtype=torch.float32), kw["n_phases"],
+        kw["phase_factor"])
+    max_iters = kw.get("max_iters", auction.TWIN_MAX_ITERS)
+    plain, model = [], []
+
+    def seen(into):
+        def on_sweep(ph, kind, it, r2c, c2r, prices):
+            r2c, c2r = np.asarray(r2c).copy(), np.asarray(c2r).copy()
+            # the plain version clamps unowned prices at the next step
+            prices = np.where(c2r < 0, _ZERO, np.asarray(prices))
+            into.append(((ph, kind, it), r2c, c2r, prices))
+        return on_sweep
+
+    p_r2c, p_c2r, p_sweeps = auction._solve_one_twin(
+        *(torch.from_numpy(np.asarray(x)) for x in (cost, rm, cm)),
+        torch.tensor(thresh, dtype=torch.float32), sched[0], cap[0],
+        max_iters, on_sweep=seen(plain))
+    r2c, _, sweeps, counts = _twin_model(
+        cost, rm, cm, thresh, kw["n_phases"], kw["phase_factor"], max_iters,
+        on_sweep=seen(model))
+    assert sweeps == p_sweeps == len(plain) == len(model)
+    for (step, *want), (got_step, *got) in zip(plain, model):
+        assert step == got_step
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(
+                a.view(np.int32) if a.dtype == np.float32 else a,
+                b.view(np.int32) if b.dtype == np.float32 else b,
+                err_msg=str(step))
+    gated = [j if 0 <= j < m and rm[i] and cost[i, j] <= np.float32(thresh)
+             else -1 for i, j in enumerate(r2c)]
+    assert gated == p_r2c.tolist()
+    # whole-row release scans: at most every masked-in row once a phase;
+    # K2's second-best shortcut would have spared none of them
+    assert counts["whole"] <= int(rm.sum()) * kw["n_phases"]
+    assert counts["b2_would_pass"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K4's cascade entry: matching_cascade in one call, against JAX's lax.scan
+# over masked_assignment_v2 at the TPU branch's arguments
+# ---------------------------------------------------------------------------
+
+def _jax_cascade(cost, rm, cm, tsu, thresh, depth, monkeypatch):
+    """JAX's matching_cascade with the solver its chip runs at every
+    level (masked_assignment_v2, steep schedule)."""
+    import types
+
+    from yolov7_tracker_tpu.trackers import appearance as JA
+
+    monkeypatch.setattr(JA, "masked_assignment",
+                        lambda c, r, k, t: masked_assignment_v2(c, r, k, t,
+                                                                **STEEP))
+    slab = types.SimpleNamespace(time_since_update=jnp.asarray(tsu))
+    r2c, c2r = JA.matching_cascade(jnp.asarray(cost), slab, jnp.asarray(rm),
+                                   jnp.asarray(cm), thresh, depth)
+    return np.asarray(r2c), np.asarray(c2r)
+
+
+@pytest.mark.parametrize("kind,thresh", [("dense", 0.7), ("deepsort", 0.9),
+                                         ("all_taken_at_level_0", 0.9)])
+def test_twin_cascade_plain_version_equals_jax_cascade(kind, thresh,
+                                                        monkeypatch):
+    """masked_assignment_twin_cascade_torch against JAX's matching_cascade
+    on masked_assignment_v2, r2c and c2r bit for bit: levels with no rows
+    (chip_smoke.cascade_problem leaves every odd age above 1 out), rows
+    beyond the last level, DeepSORT's gated costs, and a level 0 that
+    takes every column (the later levels solve with no column left)."""
+    rng = np.random.default_rng(len(kind))
+    depth = 8
+    if kind == "all_taken_at_level_0":
+        cost, rm, cm, tsu = cascade_problem(rng, 30, 12, depth, "dense")
+        cost[:14] *= np.float32(0.01)
+        tsu[:14] = 1
+        rm[:14] = True
+        cm[:] = True
+    else:
+        cost, rm, cm, tsu = cascade_problem(rng, 40, 36, depth, kind)
+    ages = set(tsu[rm].tolist())
+    assert not ages >= set(range(1, depth + 1)) and max(ages) > depth
+    j_r2c, j_c2r = _jax_cascade(cost, rm, cm, tsu, thresh, depth,
+                                monkeypatch)
+    t_r2c, t_c2r = masked_assignment_twin_cascade_torch(
+        *(torch.from_numpy(x) for x in (cost, rm, cm, tsu)), thresh, depth,
+        **STEEP)
+    np.testing.assert_array_equal(t_r2c.numpy(), j_r2c)
+    np.testing.assert_array_equal(t_c2r.numpy(), j_c2r)
+    assert int((t_r2c >= 0).sum()) > 0
+    if kind == "all_taken_at_level_0":
+        assert int((t_c2r >= 0).sum()) == cost.shape[1]
+        assert (t_r2c.numpy()[tsu > 1] < 0).all()
+
+
+def test_twin_cascade_batch_equals_jax_and_level_sweeps(monkeypatch):
+    """A (B, N, M) cascade with a threshold for each problem: each problem
+    as JAX's cascade gives it, and the sweeps of each level those of the
+    twin solved level by level (empty levels included)."""
+    rng = np.random.default_rng(8)
+    depth, ths = 6, (0.5, 0.7, 0.9)
+    cases = [cascade_problem(rng, 24, 20, depth, kind)
+             for kind in ("dense", "deepsort", "dense")]
+    cost, rm, cm, tsu = (np.stack(x) for x in zip(*cases))
+    sweeps = torch.zeros((3, depth), dtype=torch.int32)
+    r2c, c2r = masked_assignment_twin_cascade_torch(
+        *(torch.from_numpy(x) for x in (cost, rm, cm, tsu)),
+        torch.tensor(ths), depth, sweeps=sweeps, **STEEP)
+    for b, th in enumerate(ths):
+        j_r2c, j_c2r = _jax_cascade(cost[b], rm[b], cm[b], tsu[b], th,
+                                    depth, monkeypatch)
+        np.testing.assert_array_equal(r2c[b].numpy(), j_r2c)
+        np.testing.assert_array_equal(c2r[b].numpy(), j_c2r)
+        avail = torch.from_numpy(cm[b])
+        for lvl in range(depth):
+            rows = torch.from_numpy(rm[b] & (tsu[b] == 1 + lvl))
+            one = torch.zeros(1, dtype=torch.int32)
+            _, c2r_l = auction.masked_assignment_twin_torch(
+                torch.from_numpy(cost[b]), rows, avail, th, sweeps=one,
+                **STEEP)
+            assert int(one) == int(sweeps[b, lvl]), (b, lvl)
+            avail = avail & (c2r_l < 0)
+    # an empty level: one release iteration in each phase, no bid round
+    assert int(sweeps.min()) == 2
+
+
+def test_matching_cascade_on_cpu_never_reaches_a_kernel(monkeypatch):
+    """trackers/appearance.matching_cascade with no solver given runs the
+    plain cascade on a CPU tensor (no kernel, no launch count), equal to
+    the level-by-level loop over solve_assignment."""
+    from yolov7_tracker_tpu_torch.trackers import appearance as TA
+
+    def boom(*a, **k):
+        raise AssertionError("kernel path taken for a CPU tensor")
+
+    for name in ("load_library", "masked_assignment_twin_cuda",
+                 "masked_assignment_twin_cascade_cuda"):
+        monkeypatch.setattr(auction, name, boom)
+    before = (auction.LAUNCHES, auction.LAUNCHES_K4,
+              auction.LAUNCHES_CASCADE)
+    cost, rm, cm, tsu = (torch.from_numpy(x) for x in cascade_problem(
+        np.random.default_rng(2), 30, 25, 5, "dense"))
+    import types
+    slab = types.SimpleNamespace(time_since_update=tsu)
+    one = TA.matching_cascade(cost, slab, rm, cm, 0.7, 5)
+    loop = TA.matching_cascade(cost, slab, rm, cm, 0.7, 5,
+                               solve=solve_assignment)
+    assert torch.equal(one[0], loop[0]) and torch.equal(one[1], loop[1])
+    assert (one[0] >= 0).any()
+    assert (auction.LAUNCHES, auction.LAUNCHES_K4,
+            auction.LAUNCHES_CASCADE) == before
+
+
+def test_cascade_and_k4_profile_wrappers_refuse_cpu_tensors():
+    cost, rm, cm, tsu = (torch.from_numpy(x) for x in cascade_problem(
+        np.random.default_rng(3), 8, 8, 3, "dense"))
+    with pytest.raises(ValueError):
+        auction.masked_assignment_twin_cascade_cuda(cost, rm, cm, tsu, 0.8,
+                                                    3)
+    with pytest.raises(ValueError):
+        auction.profile_twin(cost, rm, cm, 0.8)

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from yolov7_tracker_tpu_torch.ops import auction, auction_square
+from yolov7_tracker_tpu_torch.ops import assignment, auction, auction_square
 
 STEEP = dict(n_phases=2, phase_factor=4.0 ** 2.5)
 
@@ -131,6 +131,88 @@ def test_solve_assignment_launches_k4(card):
                                                        before[1])
     p = auction.masked_assignment_twin_torch(cost, rm, cm, 0.7, **STEEP)
     assert torch.equal(r2c, p[0]) and torch.equal(c2r, p[1])
+
+
+def _cascade(rng, n, m, depth, b=None):
+    """chip_smoke.cascade_problem's DeepSORT-shaped cascade as tensors, or
+    b of them stacked."""
+    from chip_smoke import cascade_problem
+
+    probs = [cascade_problem(rng, n, m, depth) for _ in range(b or 1)]
+    return tuple(torch.from_numpy(np.stack(x) if b else x[0])
+                 for x in zip(*probs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,b", [(128, 300, None), (128, 300, 4),
+                                   (256, 300, None), (127, 301, None)])
+def test_twin_cascade_kernel_equals_plain_version(card, n, m, b):
+    """K4's cascade entry bit-exact on the card (r2c, c2r, every level's
+    sweeps) with the weights staged with 16-byte loads (128 x 300), read
+    through L2 (256 x 300) and staged with scalar loads (127 x 301); a
+    batch with a threshold each; one launch of the entry, no K4."""
+    rng = np.random.default_rng(n + m + (b or 0))
+    depth = 30 if m == 300 and n == 128 else 8
+    cost, rm, cm, tsu = (t.to(card) for t in _cascade(rng, n, m, depth, b))
+    th = 0.9 if b is None else torch.tensor([0.5, 0.7, 0.8, 0.9],
+                                            device=card)
+    k_sw = torch.zeros((b or 1, depth), dtype=torch.int32, device=card)
+    p_sw = torch.zeros_like(k_sw)
+    before = auction.LAUNCHES_CASCADE, auction.LAUNCHES_K4
+    k = auction.masked_assignment_twin_cascade_cuda(
+        cost, rm, cm, tsu, th, depth, sweeps=k_sw, **STEEP)
+    assert (auction.LAUNCHES_CASCADE, auction.LAUNCHES_K4) == (
+        before[0] + 1, before[1])
+    p = assignment.masked_assignment_twin_cascade_torch(
+        cost, rm, cm, tsu, th, depth, sweeps=p_sw, **STEEP)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert torch.equal(k_sw, p_sw) and int((k[0] >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_matching_cascade_is_one_launch_on_the_card(card):
+    """trackers/appearance.matching_cascade on a CUDA tensor with no solver
+    given: one launch of K4's cascade entry and no per-level K4, equal to
+    the level-by-level loop over solve_assignment (30 K4 launches)."""
+    import types
+
+    from yolov7_tracker_tpu_torch.ops.assignment import solve_assignment
+    from yolov7_tracker_tpu_torch.trackers import appearance
+
+    cost, rm, cm, tsu = (t.to(card) for t in _cascade(
+        np.random.default_rng(5), 128, 300, 30))
+    slab = types.SimpleNamespace(time_since_update=tsu)
+    before = auction.LAUNCHES_CASCADE, auction.LAUNCHES_K4, auction.LAUNCHES
+    one = appearance.matching_cascade(cost, slab, rm, cm, 0.9, 30)
+    assert (auction.LAUNCHES_CASCADE, auction.LAUNCHES_K4,
+            auction.LAUNCHES) == (before[0] + 1, before[1], before[2])
+    loop = appearance.matching_cascade(cost, slab, rm, cm, 0.9, 30,
+                                       solve=solve_assignment)
+    assert auction.LAUNCHES_K4 == before[1] + 30
+    assert torch.equal(one[0], loop[0]) and torch.equal(one[1], loop[1])
+
+
+@pytest.mark.cuda
+def test_twin_profiling_build_solves_the_same_and_counts_cycles(card):
+    """K4's -DAUCTION_PROFILE build (the same library as K2's) gives the
+    timed build's result and sweeps, fills a cycle count for every warp
+    of the block, and adds to no launch count."""
+    cost, rm, cm = (t.to(card) for t in _problem(
+        np.random.default_rng(6), 128, 300, "dense"))
+    before = auction.LAUNCHES_K4
+    sw = torch.zeros(1, dtype=torch.int32, device=card)
+    r2c, c2r, cycles = auction.profile_twin(cost, rm, cm, 0.9, sweeps=sw,
+                                            **STEEP)
+    assert auction.LAUNCHES_K4 == before
+    ks = torch.zeros(1, dtype=torch.int32, device=card)
+    k = auction.masked_assignment_twin_cuda(cost, rm, cm, 0.9, sweeps=ks,
+                                            **STEEP)
+    assert torch.equal(r2c, k[0]) and torch.equal(c2r, k[1])
+    assert torch.equal(sw, ks)
+    parts = auction.profile_parts()
+    timed = [i for i, part in enumerate(parts) if not part.endswith("count")]
+    assert bool((cycles[0, :16][:, timed].sum(dim=1) > 0).all())
+    assert int(cycles[0, 16:].sum()) == 0
 
 
 @pytest.mark.cuda

@@ -891,40 +891,481 @@ auction_kernel(const float* __restrict__ cost, long long cost_bstride,
 // with no release inside them, until no row is unassigned or max_iters
 // rounds have run; masked-out rows start on their own dummies. Fusing the
 // release into every bid sweep (K2) lets (release, re-bid) cycles leave
-// weight on the table on dense costs; this form does not.
+// weight on the table on dense costs; this form does not. The plain
+// version (ops/auction.py: _solve_one_twin) computes the same bits: r2c,
+// c2r and each problem's sweeps (release iterations plus bid rounds).
 //
-// A simple kernel: one block per problem, every phase in the launch; a
-// warp scans a row (row_top2 / row_max above, so a row's other dummies are
-// left out exactly as in K2), and every iteration is dense over the rows.
-// A release iteration: clamp, barrier, release tests (a failing row frees
-// its column at once: the tests read only prices and their own r2c), and a
-// barrier that also tells whether any row was released. A bid round: a
-// barrier that tells whether any row is unassigned, bids (a column keeps
-// its best (bid, ~row) key), barrier, awards. The keys of a round are
-// cleared by their bidders in the next round, in the other of two arrays.
+// Two entries share the solve: auction_twin_launch (B problems, one block
+// each) and auction_twin_cascade_launch, which replaces the JAX package's
+// matching_cascade (yolov7_tracker_tpu/trackers/appearance.py:66, a
+// lax.scan over max_time_lost levels of masked_assignment) with one block
+// a problem that runs every level: level l solves the twin on the rows
+// row_mask & (time_since_update == 1 + l) against the columns no level
+// before took, gates, and merges into r2c. The weights are staged once: a
+// column that a level takes leaves det_avail for good, so writing -1e9 into
+// its staged weights gives the bits of where(valid, ..., -1e9). A problem
+// or a level with no row (most of deepsort's 30 levels, and the stages 2
+// and 3 of a frame whose tracks stage 1 all matched) is one barrier: the
+// twin solves it to nothing in one release iteration a phase, so its
+// sweeps are n_phases.
+//
+// What bounds it on the card: neither bytes (one 150 KB cost in, two index
+// vectors out) nor arithmetic (a few hundred thousand subtractions and
+// compares a solve), but the latency of dependent sweeps: each release
+// iteration and bid round must see the prices and the matching the one
+// before left, and a row's scan, reduce and bid is a chain that a warp
+// cannot overlap with its next row's. There is no product in an auction,
+// so the tensor cores (wgmma) have no part in it. The design shortens the
+// chain and scans only what a sweep can change; each step is held against
+// the plain version by a numpy model after every sweep
+// (tests/test_torch_auction.py, _twin_model):
+//   * the release fixpoint tests every assigned, masked-in row in full only
+//     in a phase's first iteration (a new eps, and the bid rounds moved the
+//     prices). From the second iteration on, a row that kept its column
+//     passed the iteration before, and the only prices that moved since are
+//     those of the columns that iteration freed, which fell to 0. Rounded
+//     subtraction is monotone, so cur >= max_j(v_j) - eps holds exactly
+//     when cur >= v_j - eps holds for every column j: those rows test the
+//     freed real columns alone, a lane a row (a freed dummy is worth -1e9 to
+//     every other row and can fail none). The first clamp of a phase is a
+//     no-op (a column is unowned only after a release, which zeroes its
+//     price at once) and is not run. K2's second-best shortcut (a row that
+//     won since the last price fall passes if cur >= b2 - eps) is sound
+//     here too, but every whole-row test comes with a smaller eps than the
+//     bid's, under which the model finds it never passes: it is not carried;
+//   * the bidders of a round are never searched for: the first round's are
+//     the rows the fixpoint released plus those no round has placed (every
+//     masked-in row in phase 0), a later round's are the losers and the
+//     evicted rows of the round before, handed on in a list; the awards
+//     pass walks that list, not all n rows;
+//   * a column's winner -- highest bid, lowest row on a tie -- is one 64-bit
+//     atomicMax in shared memory on (bid, ~row); the keys of a round are
+//     cleared in the next one, in the other of two key arrays, by the list
+//     of that round's won columns;
+//   * while a sweep scans many rows (a phase's first bid round and its
+//     first release iteration: about a hundred of the tracker's 128), 8
+//     lanes scan a row, four rows a warp side by side; while it scans few,
+//     a whole warp scans each row (the shortest chain). Both merge the top
+//     two exactly (row_top2 / row_max above; a row's other dummies are left
+//     out exactly as in K2);
+//   * the cost rows are staged as K2 stages them (stage_rows_vec): 16-byte
+//     loads, a warp two rows at a time with all their loads in flight,
+//     turned into weights in registers, (thresh - c) + jit in two rounded
+//     ops. Staging with cp.async, all copies in flight while the block sets
+//     up prices, keys, c2r, r2c and the bidder list, then turning the
+//     copies into weights in place, took 12,130 cycles against these
+//     loads' 11,161 on the tracker's stage-1 problem (H100, the profiling
+//     build, one run of each): the setup it hides is short, and the
+//     in-place pass reads and writes the weights once more. Shapes whose weights do not fit a
+//     block's shared memory recompute them from the cost matrix through L2
+//     (MODE_GLOBAL), and odd widths stage with scalar loads;
+//   * a list is filled with one shared atomicAdd a warp (warp_slot), not
+//     one a row: a hundred rows on one counter serialise.
+// A release iteration is: tests, barrier, free the released (and a
+// barrier, if any). A bid round is: key clears and bids, barrier, awards,
+// barrier.
 // ---------------------------------------------------------------------------
 
 struct TwinLayout {
-  size_t ws, jit, cmask, rmask, prices, key0, key1, c2r, r2c, bj, bid, total;
+  size_t ws, jit, cmask, rmask, prices, key0, key1, c2r, r2c, bids, list0,
+      list1, rel_row, rel_col0, rel_col1, failed, won, taken, total;
 };
 
 __host__ __device__ inline TwinLayout twin_layout(int n, int m, int mode) {
   const size_t mt = (size_t)n + m;
+  const size_t rows = align16((size_t)n * 4);
   TwinLayout l;
   l.ws = 0;
   l.jit = align16(mode != MODE_GLOBAL ? (size_t)n * m * 4 : 0);
   l.cmask = align16(l.jit +
                     (mode == MODE_VEC ? (size_t)jit_len(m) * 16 : 0));
-  l.rmask = align16(l.cmask + (mode == MODE_VEC ? (size_t)m : 0));
+  l.rmask = align16(l.cmask + (size_t)m);
   l.prices = align16(l.rmask + (size_t)n);
   l.key0 = align16(l.prices + mt * 4);
   l.key1 = align16(l.key0 + mt * 8);
   l.c2r = align16(l.key1 + mt * 8);
   l.r2c = align16(l.c2r + mt * 4);
-  l.bj = align16(l.r2c + (size_t)n * 4);
-  l.bid = align16(l.bj + (size_t)n * 4);
-  l.total = align16(l.bid + (size_t)n * 4);
+  l.bids = l.r2c + rows;
+  l.list0 = l.bids + 4 * rows;
+  l.list1 = l.list0 + rows;
+  l.rel_row = l.list1 + rows;
+  l.rel_col0 = l.rel_row + rows;
+  l.rel_col1 = l.rel_col0 + rows;
+  l.failed = l.rel_col1 + rows;
+  l.won = l.failed + rows;
+  l.taken = l.won + rows;
+  l.total = l.taken + align16((size_t)m * 4);
   return l;
+}
+
+// A block's arrays in dynamic shared memory.
+struct Twin {
+  float* ws;                 // (n * m,) staged weights (not MODE_GLOBAL)
+  float* jit;                // (4, jit_len(m)) MODE_VEC's jitter table
+  unsigned char* cmask;      // (m,) the columns still to match
+  unsigned char* rmask;      // (n,) the rows of this solve
+  float* prices;             // (mt,)
+  unsigned long long* key0;  // (mt,) a round's best (bid, ~row) by column,
+  unsigned long long* key1;  //   in two arrays taken in turn
+  int* c2r;                  // (mt,)
+  int* r2c;                  // (n,)
+  int4* bids;                // (n,) by list slot: (row, column, bid, -)
+  int* list0;                // (n,) the unassigned rows: this round's
+  int* list1;                //   bidders and the next one's
+  int* rel_row;              // (n,) the rows this iteration releases
+  int* rel_col0;             // (n,) the columns they held: this
+  int* rel_col1;             //   iteration's and the one's before
+  int* failed;               // (n,) set by the first warp that fails a row
+  int* won;                  // (n,) the columns won in the last round
+  int* taken;                // (m,) the columns a cascade level took
+};
+
+__device__ __forceinline__ Twin twin_arrays(unsigned char* smem,
+                                            const TwinLayout& l) {
+  Twin t;
+  t.ws = reinterpret_cast<float*>(smem + l.ws);
+  t.jit = reinterpret_cast<float*>(smem + l.jit);
+  t.cmask = smem + l.cmask;
+  t.rmask = smem + l.rmask;
+  t.prices = reinterpret_cast<float*>(smem + l.prices);
+  t.key0 = reinterpret_cast<unsigned long long*>(smem + l.key0);
+  t.key1 = reinterpret_cast<unsigned long long*>(smem + l.key1);
+  t.c2r = reinterpret_cast<int*>(smem + l.c2r);
+  t.r2c = reinterpret_cast<int*>(smem + l.r2c);
+  t.bids = reinterpret_cast<int4*>(smem + l.bids);
+  t.list0 = reinterpret_cast<int*>(smem + l.list0);
+  t.list1 = reinterpret_cast<int*>(smem + l.list1);
+  t.rel_row = reinterpret_cast<int*>(smem + l.rel_row);
+  t.rel_col0 = reinterpret_cast<int*>(smem + l.rel_col0);
+  t.rel_col1 = reinterpret_cast<int*>(smem + l.rel_col1);
+  t.failed = reinterpret_cast<int*>(smem + l.failed);
+  t.won = reinterpret_cast<int*>(smem + l.won);
+  t.taken = reinterpret_cast<int*>(smem + l.taken);
+  return t;
+}
+
+// A block's counters, each in two copies taken in turn: a copy is reset
+// only where a barrier separates its last reader from its next writer.
+struct TwinCounters {
+  int listed[2];     // by list: rows handed on by a round's awards
+  int winners[2];    // by round parity: columns won
+  int released[2];   // by release iteration parity: rows released
+  int taken[2];      // by cascade level parity: columns a level took
+};
+
+// The profiling build's per-warp sums, carried across the levels of a
+// cascade.
+struct Prof {
+#ifdef AUCTION_PROFILE
+  unsigned v[P_SLOTS];
+  unsigned last;
+#endif
+};
+
+// Slots for the lanes of a warp that take one each in a shared list whose
+// length is *counter: one atomicAdd for the warp, in lane order. Every lane
+// of the warp calls it.
+__device__ __forceinline__ int warp_slot(int* counter, bool take, int lane) {
+  const unsigned ballot = __ballot_sync(FULL, take);
+  int base = 0;
+  if (lane == 0 && ballot != 0u) base = atomicAdd(counter, __popc(ballot));
+  base = __shfl_sync(FULL, base, 0);
+  return base + __popc(ballot & ((1u << lane) - 1u));
+}
+
+// A solve's counters to 0, by thread 0; the caller puts a barrier between
+// this and their next writers, and their last readers before it.
+__device__ __forceinline__ void twin_zero_counters(TwinCounters& cnt) {
+  if (threadIdx.x == 0) {
+    cnt.listed[0] = cnt.listed[1] = 0;
+    cnt.winners[0] = cnt.winners[1] = 0;
+    cnt.released[0] = cnt.released[1] = 0;
+  }
+}
+
+// The state a solve starts from, on the rows of t.rmask (written before a
+// barrier): every price 0 and no key; a masked-out row holds its own
+// dummy, the others nothing and stand in list0 to bid.
+__device__ __forceinline__ void twin_init(const Twin& t, TwinCounters& cnt,
+                                          int n, int m) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  for (int j = tid; j < m + n; j += THREADS) {
+    t.prices[j] = 0.0f;
+    t.key0[j] = t.key1[j] = 0ull;
+    t.c2r[j] = (j >= m && !t.rmask[j - m]) ? j - m : -1;
+  }
+  for (int i0 = warp * 32; i0 < n; i0 += THREADS) {
+    const int i = i0 + lane;
+    const bool on = i < n && t.rmask[i];
+    if (i < n) {
+      t.r2c[i] = on ? -1 : m + i;
+      t.failed[i] = 0;
+    }
+    const int slot = warp_slot(&cnt.listed[0], on, lane);
+    if (on) t.list0[slot] = i;
+  }
+}
+
+// The real weights of the rows of p.row_mask, (thresh - c) + jit in two
+// rounded ops or -1e9 for a masked column: MODE_VEC's by K2's 16-byte
+// loads (stage_rows_vec), MODE_STAGED's a column a load. Reads the jitter
+// table and cmask.
+template <int MODE>
+__device__ __forceinline__ void twin_weights(const Problem& p, const Twin& t,
+                                             int warp, int lane) {
+  if (MODE == MODE_VEC) {
+    stage_rows_vec(p, t.ws, t.jit, t.cmask, p.row_mask, warp, lane);
+  } else if (MODE == MODE_STAGED) {
+    for (int i = warp; i < p.n; i += WARPS) {
+      if (!p.row_mask[i]) continue;
+      for (int j = lane; j < p.m; j += 32)
+        t.ws[i * p.m + j] = real_weight(p, i, j);
+    }
+  }
+}
+
+// The block's setup before its staging: the jitter table (MODE_VEC) and
+// cmask from p.col_mask.
+template <int MODE>
+__device__ __forceinline__ void twin_tables(const Problem& p, const Twin& t) {
+  const int tid = threadIdx.x;
+  if (MODE == MODE_VEC) {
+    const int len = jit_len(p.m);
+    for (int c = 0; c < 4; ++c)
+      for (int x = tid; x < len; x += THREADS)
+        t.jit[c * len + x] = jitter((7 * (x + c)) % 17);
+  }
+  for (int j = tid; j < p.m; j += THREADS) t.cmask[j] = p.col_mask[j];
+}
+
+// One solve of the twin, every phase, by the whole block, on the rows of
+// t.rmask against the columns of t.cmask; p.row_mask and p.col_mask point
+// at them (MODE_GLOBAL's weights read them). Starts from twin_init's state
+// (a barrier after it), leaves the ungated matching in t.r2c and returns
+// the sweeps (release iterations plus bid rounds).
+template <int MODE>
+__device__ __forceinline__ int twin_solve(const Problem& p, const Twin& t,
+                                          TwinCounters& cnt,
+                                          const Powers& powers, int n_phases,
+                                          int max_iters, Prof& pr) {
+  constexpr bool VEC = MODE == MODE_VEC;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n = p.n, m = p.m;
+#ifdef AUCTION_PROFILE
+  unsigned* prof = pr.v;
+  unsigned& prof_last = pr.last;
+#endif
+  // the twin's float32 schedule and bid cap (assignment.py:338-345)
+  const float scale = __fadd_rn(p.thresh, 1.0f);
+  const float cap = __fmul_rn(2.0f, scale);
+
+  int sweeps = 0;
+  int n_bid = cnt.listed[0];   // rows in the current list
+  int cur = 0;                 // which list holds them
+  int rounds = 0;              // bid rounds so far: which key array
+  int n_won = 0;               // columns won in the last round
+  int rel_it = 0;              // release iterations so far: which counter
+  for (int ph = 0; ph < n_phases; ++ph) {
+    const float eps = fmaxf(__fdiv_rn(scale, powers.v[ph]), EPS_FLOOR);
+
+    // ---- the release fixpoint. A row keeps its column rc iff cur >=
+    // (best value of the row) - eps at the prices the iteration before
+    // left; a row that fails is only listed here, nothing it holds changes
+    // before every test has read the prices. A masked-out row holds its
+    // own dummy and passes: nothing else is worth more than -1e9 to it.
+    int n_freed = 0;
+    for (int it = 0; it < n + 1; ++it, ++rel_it) {
+      int* const rel_col = (it & 1) ? t.rel_col1 : t.rel_col0;
+      const int* const freed = (it & 1) ? t.rel_col0 : t.rel_col1;
+      int* const list = cur ? t.list1 : t.list0;
+      int* const n_rel_at = &cnt.released[rel_it & 1];
+      if (it == 0) {
+        // every assigned row, in full: L lanes a row, 32 / L rows a warp
+        auto test_rows = [&](auto lanes) {
+          constexpr int L = decltype(lanes)::value;
+          constexpr int G = 32 / L;
+          const int g = lane / L, l = lane % L;
+          for (int i0 = warp * G; i0 < n; i0 += WARPS * G) {
+            const int i = i0 + g;
+            const int rc = i < n ? t.r2c[i] : -1;
+            const bool scan = rc >= 0 && t.rmask[i];
+            const unsigned scans = __ballot_sync(FULL, scan && l == 0);
+            if (scans == 0u) continue;
+            PROF_COUNT(P_N_RELEASE_SCANS, __popc(scans));
+            const float v1 = row_max<MODE, L>(p, t.prices, i, l, scan);
+            if (scan && l == 0) {
+              const float held = __fsub_rn(
+                  rc < m ? weight<MODE>(p, i, rc) : 0.0f, t.prices[rc]);
+              if (!(held >= __fsub_rn(v1, eps))) {
+                const int k = atomicAdd(n_rel_at, 1);
+                t.rel_row[k] = i;
+                rel_col[k] = rc;
+              }
+            }
+          }
+        };
+        if (VEC && n > WARPS)
+          test_rows(std::integral_constant<int, MANY>{});
+        else
+          test_rows(std::integral_constant<int, FEW>{});
+      } else if (warp / ROW_GROUPS < n_freed) {
+        // every assigned row passed the iteration before: the freed real
+        // columns alone, now at price 0. A lane takes a row, the warps of
+        // a row's group share out the columns.
+        for (int i = (warp % ROW_GROUPS) * 32 + lane; i < n;
+             i += ROW_GROUPS * 32) {
+          const int rc = t.r2c[i];
+          if (rc < 0 || !t.rmask[i]) continue;
+          const float held = __fsub_rn(
+              rc < m ? weight<MODE>(p, i, rc) : 0.0f, t.prices[rc]);
+          bool keep = true;
+#pragma unroll 4
+          for (int f = warp / ROW_GROUPS; f < n_freed;
+               f += WARPS / ROW_GROUPS) {
+            // a freed dummy fails no other row: test column 0 in its
+            // place, without a branch, and ignore the answer
+            const int j = freed[f];
+            const int jr = j < m ? j : 0;
+            const bool ok = held >= __fsub_rn(
+                __fsub_rn(weight<MODE>(p, i, jr), t.prices[jr]), eps);
+            keep = keep && (ok || j >= m);
+          }
+          // several warps may fail the row: the first lists it
+          if (!keep && atomicExch(&t.failed[i], 1) == 0) {
+            const int k = atomicAdd(n_rel_at, 1);
+            t.rel_row[k] = i;
+            rel_col[k] = rc;
+          }
+        }
+      }
+      PROF(P_RELEASE);
+      __syncthreads();
+      PROF(P_BAR_RELEASE);
+      // free what the released rows held (price 0: the next iteration's
+      // clamp) and list them as bidders. The other counter's last reader
+      // is past the barrier above, its next writer past the next one.
+      const int n_rel = *n_rel_at;
+      if (tid == 0) cnt.released[(rel_it + 1) & 1] = 0;
+      for (int k = tid; k < n_rel; k += THREADS) {
+        const int i = t.rel_row[k];
+        const int rc = rel_col[k];
+        t.r2c[i] = -1;
+        t.c2r[rc] = -1;
+        t.prices[rc] = 0.0f;
+        t.failed[i] = 0;
+        list[n_bid + k] = i;
+      }
+      ++sweeps;
+      n_bid += n_rel;
+      n_freed = n_rel;
+      if (n_rel == 0) break;
+      __syncthreads();
+      PROF(P_FREE);
+    }
+
+    // ---- Jacobi bid rounds until every row is assigned: the listed rows
+    // bid for their first best column, raising it by min(v1 - v2, cap) +
+    // eps; a column keeps its best bid in its key
+    int it = 0;
+    for (; it < max_iters && n_bid > 0; ++it) {
+      int* const list = cur ? t.list1 : t.list0;
+      int* const next = cur ? t.list0 : t.list1;
+      unsigned long long* const key = (rounds & 1) ? t.key1 : t.key0;
+      unsigned long long* const key_before = (rounds & 1) ? t.key0 : t.key1;
+      // the last round's keys: the columns it awarded
+      for (int k = tid; k < n_won; k += THREADS) key_before[t.won[k]] = 0ull;
+      auto bid_rows = [&](auto lanes) {
+        constexpr int L = decltype(lanes)::value;
+        constexpr int G = 32 / L;   // rows a warp scans side by side
+        const int g = lane / L, l = lane % L;
+        for (int k0 = warp * G; k0 < n_bid; k0 += WARPS * G) {
+          const int k = k0 + g;
+          const bool scan = k < n_bid;
+          const int i = scan ? list[k] : 0;
+          PROF_COUNT(P_N_BID_SCANS,
+                     __popc(__ballot_sync(FULL, scan && l == 0)));
+          float b1, b2;
+          int bi;
+          row_top2<MODE, L>(p, t.prices, i, l, scan, b1, bi, b2);
+          if (scan && l == 0) {
+            // the other rows' dummies and the masked best: -1e9
+            b2 = fmaxf(b2, NEG_F);
+            const float bv = __fadd_rn(
+                __fadd_rn(t.prices[bi], fminf(__fsub_rn(b1, b2), cap)), eps);
+            t.bids[k] = make_int4(i, bi, __float_as_int(bv), 0);
+            atomicMax(&key[bi], bid_key(bv, i));
+          }
+        }
+      };
+      if (VEC && n_bid > WARPS)
+        bid_rows(std::integral_constant<int, MANY>{});
+      else
+        bid_rows(std::integral_constant<int, FEW>{});
+      PROF(P_BID);
+      __syncthreads();
+      PROF(P_BAR_BID);
+      // each bid-on column goes to its highest bidder, ties to the lowest
+      // row; the previous owner is evicted (it held a column, so it made no
+      // bid in this round). The counters the next round fills were last
+      // read before the barrier above.
+      if (tid == 0) {
+        cnt.listed[cur] = 0;
+        cnt.winners[(rounds + 1) & 1] = 0;
+      }
+      int* const n_next = &cnt.listed[cur ^ 1];
+      int* const n_winners = &cnt.winners[rounds & 1];
+      for (int k0 = warp * 32; k0 < n_bid; k0 += THREADS) {
+        const int k = k0 + lane;
+        int4 mine = make_int4(-1, 0, 0, 0);
+        bool win = false;
+        int prev = -1;
+        if (k < n_bid) {
+          mine = t.bids[k];
+          win = key_row(key[mine.y]) == mine.x;
+          if (win) prev = t.c2r[mine.y];
+        }
+        // handed on: a loser itself, or the owner its winner evicts
+        const bool hand = k < n_bid && (!win || prev >= 0);
+        const int slot = warp_slot(n_next, hand, lane);
+        const int won_slot = warp_slot(n_winners, win, lane);
+        if (hand) next[slot] = win ? prev : mine.x;
+        if (win) {
+          const int i = mine.x, j = mine.y;
+          if (prev >= 0) t.r2c[prev] = -1;
+          t.c2r[j] = i;
+          t.r2c[i] = j;
+          t.prices[j] = __int_as_float(mine.z);
+          t.won[won_slot] = j;
+        }
+      }
+      PROF(P_AWARD);
+      __syncthreads();
+      PROF(P_BAR_AWARD);
+      n_bid = *n_next;
+      n_won = *n_winners;
+      cur ^= 1;
+      ++rounds;
+      ++sweeps;
+    }
+    // with no round, nothing stands between the release counter reset
+    // above and the next phase's first tests
+    if (it == 0) __syncthreads();
+  }
+  return sweeps;
+}
+
+// Gate a solve's matching: keep real pairs of the solve's rows with
+// cost <= thresh.
+__device__ __forceinline__ int twin_gated(const Problem& p, const Twin& t,
+                                          int i) {
+  const int j = t.r2c[i];
+  const bool keep = j >= 0 && j < p.m && t.rmask[i] &&
+                    p.cost[(int64_t)i * p.m + j] <= p.thresh;
+  return keep ? j : -1;
 }
 
 template <int MODE>
@@ -934,31 +1375,22 @@ twin_kernel(const float* __restrict__ cost, long long cost_bstride,
             const unsigned char* __restrict__ col_mask,
             const float* __restrict__ thresh, Powers powers, int n, int m,
             int n_phases, int max_iters, int* __restrict__ r2c_out,
-            int* __restrict__ c2r_out, int* __restrict__ sweeps_out) {
-  constexpr bool VEC = MODE == MODE_VEC;
+            int* __restrict__ c2r_out, int* __restrict__ sweeps_out,
+            long long* __restrict__ prof_out) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int mt = m + n;
-
   extern __shared__ __align__(16) unsigned char smem[];
-  const TwinLayout lay = twin_layout(n, m, MODE);
-  float* ws = reinterpret_cast<float*>(smem + lay.ws);          // (n*m,)
-  float* jit = reinterpret_cast<float*>(smem + lay.jit);        // (4, len)
-  unsigned char* cmask = smem + lay.cmask;                      // (m,)
-  unsigned char* rmask = smem + lay.rmask;                      // (n,)
-  float* prices = reinterpret_cast<float*>(smem + lay.prices);  // (mt,)
-  unsigned long long* key0 =
-      reinterpret_cast<unsigned long long*>(smem + lay.key0);   // (mt,)
-  unsigned long long* key1 =
-      reinterpret_cast<unsigned long long*>(smem + lay.key1);   // (mt,)
-  int* c2r = reinterpret_cast<int*>(smem + lay.c2r);            // (mt,)
-  int* r2c = reinterpret_cast<int*>(smem + lay.r2c);            // (n,)
-  // by row: the column it bid for in the last round, -1 if it made no bid,
-  // and the bid
-  int* bj = reinterpret_cast<int*>(smem + lay.bj);              // (n,)
-  float* bid = reinterpret_cast<float*>(smem + lay.bid);        // (n,)
+  const Twin t = twin_arrays(smem, twin_layout(n, m, MODE));
+  __shared__ TwinCounters cnt;
+  Prof pr;
+#ifdef AUCTION_PROFILE
+  for (int k = 0; k < P_SLOTS; ++k) pr.v[k] = 0;
+  pr.last = (unsigned)clock64();
+  unsigned* prof = pr.v;
+  unsigned& prof_last = pr.last;
+#endif
 
   Problem p;
   p.cost = cost + (int64_t)b * cost_bstride;
@@ -968,138 +1400,164 @@ twin_kernel(const float* __restrict__ cost, long long cost_bstride,
   p.thresh = thresh[b];
   p.n = n;
   p.m = m;
-  // the twin's float32 schedule and bid cap (assignment.py:338-345)
-  const float scale = __fadd_rn(p.thresh, 1.0f);
-  const float cap = __fmul_rn(2.0f, scale);
-
-  // every price 0; a masked-out row holds its own dummy, the others nothing
-  for (int j = tid; j < mt; j += THREADS) {
-    prices[j] = 0.0f;
-    key0[j] = key1[j] = 0ull;
-    c2r[j] = (j >= m && !p.row_mask[j - m]) ? j - m : -1;
-  }
-  for (int i = tid; i < n; i += THREADS) {
-    rmask[i] = p.row_mask[i];
-    r2c[i] = rmask[i] ? -1 : m + i;
-    bj[i] = -1;
-  }
-  if (VEC) {
-    const int len = jit_len(m);
-    for (int c = 0; c < 4; ++c)
-      for (int x = tid; x < len; x += THREADS)
-        jit[c * len + x] = jitter((7 * (x + c)) % 17);
-    for (int j = tid; j < m; j += THREADS) cmask[j] = p.col_mask[j];
-    __syncthreads();
-    stage_rows_vec(p, ws, jit, cmask, rmask, warp, lane);
-  } else if (MODE == MODE_STAGED) {
-    for (int i = warp; i < n; i += WARPS) {
-      if (!p.row_mask[i]) continue;
-      for (int j = lane; j < m; j += 32) ws[i * m + j] = real_weight(p, i, j);
-    }
-  }
-  if (MODE != MODE_GLOBAL) p.ws = ws;
-  __syncthreads();
-
-  int sweeps = 0;   // release iterations + bid rounds
-  int rounds = 0;   // bid rounds of every phase: which key array is in use
-  for (int ph = 0; ph < n_phases; ++ph) {
-    const float eps = fmaxf(__fdiv_rn(scale, powers.v[ph]), EPS_FLOOR);
-
-    // ---- clamp-and-release fixpoint. A masked-out row holds its own
-    // dummy at price 0 and passes (nothing else is worth more than -1e9 to
-    // it): it is never scanned, and its weights were never staged.
-    bool released = true;
-    for (int it = 0; it < n + 1 && released; ++it) {
-      for (int j = tid; j < mt; j += THREADS)
-        if (c2r[j] < 0) prices[j] = 0.0f;
-      __syncthreads();
-      bool any = false;
-      for (int i = warp; i < n; i += WARPS) {
-        const int rc = r2c[i];
-        if (rc < 0 || !rmask[i]) continue;   // warp-uniform
-        const float v1 = row_max<MODE, 32>(p, prices, i, lane, true);
-        const float held =
-            __fsub_rn(rc < m ? weight<MODE>(p, i, rc) : 0.0f, prices[rc]);
-        if (!(held >= __fsub_rn(v1, eps))) {
-          any = true;
-          if (lane == 0) {
-            c2r[rc] = -1;
-            r2c[i] = -1;
-          }
-        }
-      }
-      released = __syncthreads_or(any) != 0;
-      ++sweeps;
-    }
-    for (int j = tid; j < mt; j += THREADS)
-      if (c2r[j] < 0) prices[j] = 0.0f;
-
-    // ---- Jacobi bid rounds until every row is assigned. After a round
-    // the unassigned rows are its losers and the rows it evicted, so the
-    // awards tell whether one is left (r2c itself may still be changing).
-    bool open = false;
-    for (int i = tid; i < n; i += THREADS) open = open || r2c[i] < 0;
-    for (int it = 0;; ++it) {
-      if (!__syncthreads_or(open) || it >= max_iters) break;
-      unsigned long long* key = (rounds & 1) ? key1 : key0;
-      unsigned long long* key_before = (rounds & 1) ? key0 : key1;
-      for (int i = warp; i < n; i += WARPS) {
-        if (lane == 0 && bj[i] >= 0) key_before[bj[i]] = 0ull;
-        if (r2c[i] >= 0) {                   // warp-uniform
-          if (lane == 0) bj[i] = -1;
-          continue;
-        }
-        float b1, b2;
-        int bi;
-        row_top2<MODE, 32>(p, prices, i, lane, true, b1, bi, b2);
-        if (lane == 0) {
-          // the other rows' dummies and the masked best: -1e9
-          b2 = fmaxf(b2, NEG_F);
-          const float bv = __fadd_rn(
-              __fadd_rn(prices[bi], fminf(__fsub_rn(b1, b2), cap)), eps);
-          bj[i] = bi;
-          bid[i] = bv;
-          atomicMax(&key[bi], bid_key(bv, i));
-        }
-      }
-      __syncthreads();
-      // each bid-on column goes to its highest bidder, ties to the lowest
-      // row; the previous owner is evicted (it held a column, so it made no
-      // bid in this round)
-      open = false;
-      for (int i = tid; i < n; i += THREADS) {
-        const int j = bj[i];
-        if (j < 0) continue;
-        if (key_row(key[j]) != i) {
-          open = true;
-          continue;
-        }
-        const int prev = c2r[j];
-        if (prev >= 0) {
-          r2c[prev] = -1;
-          open = true;
-        }
-        c2r[j] = i;
-        r2c[i] = j;
-        prices[j] = bid[i];
-      }
-      ++rounds;
-      ++sweeps;
-    }
-  }
-  if (sweeps_out != nullptr && tid == 0) sweeps_out[b] = sweeps;
-
-  // ---- gate: keep real pairs with cost <= thresh; rebuild c2r
   int* out_r = r2c_out + (int64_t)b * n;
   int* out_c = c2r_out + (int64_t)b * m;
-  for (int j = tid; j < m; j += THREADS) out_c[j] = -1;
-  __syncthreads();
+  // the masks and the jitter table, then the solve's state and weights
+  twin_zero_counters(cnt);
+  bool any = false;
   for (int i = tid; i < n; i += THREADS) {
-    const int j = r2c[i];
-    const bool keep = j >= 0 && j < m && p.row_mask[i] &&
-                      p.cost[(int64_t)i * m + j] <= p.thresh;
-    out_r[i] = keep ? j : -1;
-    if (keep) out_c[j] = i;
+    const bool on = p.row_mask[i];
+    t.rmask[i] = on;
+    any = any || on;
+  }
+  twin_tables<MODE>(p, t);
+  for (int j = tid; j < m; j += THREADS) out_c[j] = -1;
+  if (!__syncthreads_or(any)) {
+    // no row: the twin solves it to nothing in one release iteration a
+    // phase (nothing is assigned, so nothing is released, and no row
+    // bids), as a cascade's empty level
+    if (sweeps_out != nullptr && tid == 0) sweeps_out[b] = n_phases;
+    for (int i = tid; i < n; i += THREADS) out_r[i] = -1;
+  } else {
+    p.row_mask = t.rmask;
+    p.col_mask = t.cmask;
+    twin_init(t, cnt, n, m);
+    twin_weights<MODE>(p, t, warp, lane);
+    if (MODE != MODE_GLOBAL) p.ws = t.ws;
+    __syncthreads();
+    PROF(P_STAGE);
+    const int sweeps =
+        twin_solve<MODE>(p, t, cnt, powers, n_phases, max_iters, pr);
+    if (sweeps_out != nullptr && tid == 0) sweeps_out[b] = sweeps;
+    // ---- gate: keep real pairs with cost <= thresh; c2r was set to -1
+    // above, before the barriers of the solve
+    for (int i = tid; i < n; i += THREADS) {
+      const int j = twin_gated(p, t, i);
+      out_r[i] = j;
+      if (j >= 0) out_c[j] = i;
+    }
+  }
+#ifdef AUCTION_PROFILE
+  __syncthreads();
+  PROF(P_GATE);
+  if (lane == 0 && prof_out != nullptr)
+    for (int k = 0; k < P_SLOTS; ++k)
+      prof_out[((int64_t)b * PROFILE_WARPS + warp) * P_SLOTS + k] = pr.v[k];
+#else
+  (void)prof_out;
+#endif
+}
+
+// matching_cascade in one block a problem: `depth` levels of the twin. A
+// level with no row is not run (its sweeps are n_phases, as twin_kernel's
+// problem with no row).
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+twin_cascade_kernel(const float* __restrict__ cost, long long cost_bstride,
+                    const unsigned char* __restrict__ row_mask,
+                    const unsigned char* __restrict__ col_mask,
+                    const int* __restrict__ tsu,
+                    const float* __restrict__ thresh, Powers powers, int n,
+                    int m, int depth, int n_phases, int max_iters,
+                    int* __restrict__ r2c_out, int* __restrict__ c2r_out,
+                    int* __restrict__ sweeps_out) {
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Twin t = twin_arrays(smem, twin_layout(n, m, MODE));
+  __shared__ TwinCounters cnt;
+  Prof pr;   // the profiling build's sums, which this entry does not write
+#ifdef AUCTION_PROFILE
+  for (int k = 0; k < P_SLOTS; ++k) pr.v[k] = 0;
+  pr.last = (unsigned)clock64();
+  unsigned* prof = pr.v;
+  unsigned& prof_last = pr.last;
+#endif
+
+  const unsigned char* rm = row_mask + (int64_t)b * n;
+  const int* ts = tsu + (int64_t)b * n;
+  int* out_r = r2c_out + (int64_t)b * n;
+  int* out_c = c2r_out + (int64_t)b * m;
+  Problem p;
+  p.cost = cost + (int64_t)b * cost_bstride;
+  p.row_mask = rm;             // staged: every row some level may solve
+  p.col_mask = col_mask + (int64_t)b * m;
+  p.ws = nullptr;
+  p.thresh = thresh[b];
+  p.n = n;
+  p.m = m;
+  // each level's rows are t.rmask: rm & (tsu == 1 + level)
+  auto level_rows = [&](int lvl) {
+    bool any = false;
+    for (int i = tid; i < n; i += THREADS) {
+      const bool on = rm[i] && ts[i] == 1 + lvl;
+      t.rmask[i] = on;
+      any = any || on;
+    }
+    return any;
+  };
+  twin_zero_counters(cnt);
+  if (tid == 0) cnt.taken[0] = cnt.taken[1] = 0;
+  for (int i = tid; i < n; i += THREADS) out_r[i] = -1;
+  for (int j = tid; j < m; j += THREADS) out_c[j] = -1;
+  const bool any0 = depth > 0 && level_rows(0);
+  twin_tables<MODE>(p, t);                // cmask: det_avail
+  bool any = __syncthreads_or(any0) != 0;
+  // level 0's state, and the weights of every row some level solves
+  twin_init(t, cnt, n, m);
+  twin_weights<MODE>(p, t, warp, lane);
+  if (MODE != MODE_GLOBAL) p.ws = t.ws;
+  p.row_mask = t.rmask;
+  p.col_mask = t.cmask;
+  __syncthreads();
+  PROF(P_STAGE);
+
+  int tk = 0;   // levels run: which taken counter
+  for (int lvl = 0; lvl < depth; ++lvl) {
+    if (lvl > 0) {
+      // the counters' last readers are past the last level's gate barrier
+      twin_zero_counters(cnt);
+      any = __syncthreads_or(level_rows(lvl)) != 0;
+      if (any) {
+        twin_init(t, cnt, n, m);
+        __syncthreads();
+      }
+      PROF(P_STAGE);
+    }
+    if (!any) {
+      if (sweeps_out != nullptr && tid == 0)
+        sweeps_out[(int64_t)b * depth + lvl] = n_phases;
+      continue;
+    }
+    const int sweeps =
+        twin_solve<MODE>(p, t, cnt, powers, n_phases, max_iters, pr);
+    if (sweeps_out != nullptr && tid == 0)
+      sweeps_out[(int64_t)b * depth + lvl] = sweeps;
+    // gate, merge into r2c, and take the matched columns out of det_avail
+    for (int i = tid; i < n; i += THREADS) {
+      const int j = twin_gated(p, t, i);
+      if (j >= 0) {
+        out_r[i] = j;
+        out_c[j] = i;
+        t.taken[atomicAdd(&cnt.taken[tk & 1], 1)] = j;
+      }
+    }
+    __syncthreads();
+    // the other counter's last reader is a level back, its next writer a
+    // level on, past the next run's barriers
+    const int n_taken = cnt.taken[tk & 1];
+    if (tid == 0) cnt.taken[(tk + 1) & 1] = 0;
+    ++tk;
+    for (int k = tid; k < n_taken; k += THREADS) t.cmask[t.taken[k]] = 0;
+    if (MODE != MODE_GLOBAL) {
+      for (int x = tid; x < n_taken * n; x += THREADS)
+        t.ws[(x % n) * m + t.taken[x / n]] = NEG_F;
+    }
+    PROF(P_GATE);
+    // the next level starts with a barrier: the masks and weights are
+    // written before its solve reads them
   }
 }
 
@@ -1149,39 +1607,90 @@ extern "C" int auction_launch(const float* cost, long long cost_bstride,
   return (int)cudaGetLastError();
 }
 
+// The widest way of holding K4's weights whose layout fits a block's
+// shared memory; -1 if none does.
+static int twin_mode(int N, int M, const float* cost) {
+  int mode = -1;
+  if (twin_layout(N, M, MODE_GLOBAL).total <= SMEM_LIMIT) mode = MODE_GLOBAL;
+  if (twin_layout(N, M, MODE_STAGED).total <= SMEM_LIMIT) mode = MODE_STAGED;
+  if (M % 4 == 0 && (uintptr_t)cost % 16 == 0 &&
+      twin_layout(N, M, MODE_VEC).total <= SMEM_LIMIT)
+    mode = MODE_VEC;
+  return mode;
+}
+
+// Raise a kernel's dynamic shared memory limit once for each size: the
+// call costs more host time than a short solve takes on the card.
+template <typename Kernel>
+static int allow_smem(Kernel kernel, size_t smem, size_t* allowed) {
+  if (smem <= *allowed) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  *allowed = smem;
+  return 0;
+}
+
 // K4, the twin: B problems, one block each, all phases in one launch. The
-// arguments are auction_launch's (no profiling build); sweeps_out (nullable)
-// receives each problem's release iterations plus bid rounds.
+// arguments are auction_launch's; sweeps_out (nullable) receives each
+// problem's release iterations plus bid rounds, prof_out (nullable) the
+// profiling build's cycles as auction_launch's does.
 extern "C" int auction_twin_launch(const float* cost, long long cost_bstride,
                                    const unsigned char* row_mask,
                                    const unsigned char* col_mask,
                                    const float* thresh, const float* powers,
                                    int B, int N, int M, int n_phases,
                                    int max_iters, int* r2c_out, int* c2r_out,
-                                   int* sweeps_out, void* stream) {
+                                   int* sweeps_out, long long* prof_out,
+                                   void* stream) {
   if (B <= 0 || N <= 0 || M <= 0 || n_phases <= 0 || n_phases > MAX_PHASES)
     return (int)cudaErrorInvalidValue;
   Powers pw = {};
   for (int k = 0; k < n_phases; ++k) pw.v[k] = powers[k];
-  int mode = MODE_GLOBAL;
-  if (twin_layout(N, M, MODE_STAGED).total <= SMEM_LIMIT) mode = MODE_STAGED;
-  if (M % 4 == 0 && (uintptr_t)cost % 16 == 0 &&
-      twin_layout(N, M, MODE_VEC).total <= SMEM_LIMIT)
-    mode = MODE_VEC;
+  const int mode = twin_mode(N, M, cost);
+  if (mode < 0) return (int)cudaErrorInvalidValue;
   const size_t smem = twin_layout(N, M, mode).total;
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const auto kernel = mode == MODE_VEC      ? twin_kernel<MODE_VEC>
                       : mode == MODE_STAGED ? twin_kernel<MODE_STAGED>
                                             : twin_kernel<MODE_GLOBAL>;
   static size_t allowed[3] = {48 * 1024, 48 * 1024, 48 * 1024};
-  if (smem > allowed[mode]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    allowed[mode] = smem;
-  }
+  const int e = allow_smem(kernel, smem, &allowed[mode]);
+  if (e != 0) return e;
   kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
       cost, cost_bstride, row_mask, col_mask, thresh, pw, N, M, n_phases,
-      max_iters, r2c_out, c2r_out, sweeps_out);
+      max_iters, r2c_out, c2r_out, sweeps_out, prof_out);
+  return (int)cudaGetLastError();
+}
+
+// K4's cascade: matching_cascade of B problems, one block each, all
+// `depth` levels in one launch. tsu: (B, N) int32 time_since_update; level
+// l solves the rows row_mask & (tsu == 1 + l). r2c_out (B, N) and c2r_out
+// (B, M) receive the merged matching, sweeps_out (nullable) each level's
+// sweeps (B, depth); the other arguments are auction_twin_launch's (no
+// profile).
+extern "C" int auction_twin_cascade_launch(
+    const float* cost, long long cost_bstride, const unsigned char* row_mask,
+    const unsigned char* col_mask, const int* tsu, const float* thresh,
+    const float* powers, int B, int N, int M, int depth, int n_phases,
+    int max_iters, int* r2c_out, int* c2r_out, int* sweeps_out,
+    void* stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || depth < 0 || n_phases <= 0 ||
+      n_phases > MAX_PHASES)
+    return (int)cudaErrorInvalidValue;
+  Powers pw = {};
+  for (int k = 0; k < n_phases; ++k) pw.v[k] = powers[k];
+  const int mode = twin_mode(N, M, cost);
+  if (mode < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = twin_layout(N, M, mode).total;
+  const auto kernel = mode == MODE_VEC ? twin_cascade_kernel<MODE_VEC>
+                      : mode == MODE_STAGED
+                          ? twin_cascade_kernel<MODE_STAGED>
+                          : twin_cascade_kernel<MODE_GLOBAL>;
+  static size_t allowed[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+  const int e = allow_smem(kernel, smem, &allowed[mode]);
+  if (e != 0) return e;
+  kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
+      cost, cost_bstride, row_mask, col_mask, tsu, thresh, pw, N, M, depth,
+      n_phases, max_iters, r2c_out, c2r_out, sweeps_out);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,11 @@ release fixpoint is kept apart from its bid rounds (ops/auction.py: the
 hand-written CUDA kernel K4 on a CUDA tensor, its plain version on a CPU
 tensor), with the steep schedule of that branch: 2 eps phases at factor
 4^(n/2), which ends at the same final eps as n phases at factor 4, and at
-most 512 bid rounds a phase.
+most 512 bid rounds a phase. ``solve_cascade`` runs every level of the
+trackers' age-layered matching cascade with that solver: one launch of
+K4's cascade entry on a CUDA tensor, ``masked_assignment_twin_cascade_torch``
+(the level loop ``cascade_levels`` over the twin's plain version) on a
+CPU tensor.
 ``masked_assignment`` is the JAX module's function of that name: the
 square lapjv-extended auction (ops/auction_square.py: the K1/K3 CUDA
 kernels on a CUDA tensor, their plain version on a CPU tensor). It is the
@@ -20,11 +24,16 @@ one; the streaming entry points of pipeline.py use it for stage 1.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from . import auction
 from .auction import masked_assignment_twin
 from .auction_square import masked_assignment_square
 
 DEFAULT_PHASES = 5
+# the twin's steep schedule: 2 phases ending at the eps of DEFAULT_PHASES
+# phases at factor 4
+STEEP_FACTOR = 4.0 ** (DEFAULT_PHASES / 2.0)
 
 
 def solve_assignment(cost, row_mask, col_mask, thresh,
@@ -39,6 +48,80 @@ def solve_assignment(cost, row_mask, col_mask, thresh,
     return masked_assignment_twin(
         cost.float().contiguous(), row_mask, col_mask, thresh, n_phases=2,
         phase_factor=4.0 ** (n_phases / 2.0))
+
+
+def rows_to_cols_inverse(r2c, n_cols: int):
+    """col_to_row (..., D) of a row_to_col (..., T), -1 where unmatched."""
+    t = r2c.shape[-1]
+    c2r = torch.full(r2c.shape[:-1] + (n_cols + 1,), -1, dtype=torch.int32,
+                     device=r2c.device)
+    rows = torch.arange(t, dtype=torch.int32, device=r2c.device)
+    c2r.scatter_(-1, torch.where(r2c >= 0, r2c, n_cols).long(),
+                 torch.where(r2c >= 0, rows, -1))
+    return c2r[..., :n_cols]
+
+
+def cascade_levels(cost, row_mask, col_mask, time_since_update, thresh,
+                   depth: int, solve):
+    """The matching cascade's level loop (matching.py:216-277): level l
+    solves the rows ``row_mask & (time_since_update == 1 + l)`` against the
+    columns no level before took with ``solve(cost, rows, cols, thresh)``
+    -> (row_to_col, col_to_row), and merges its pairs into row_to_col.
+    Every one of the ``depth`` levels is solved, empty or not. Returns
+    int32 (row_to_col (..., N), col_to_row (..., M))."""
+    r2c = torch.full(row_mask.shape, -1, dtype=torch.int32,
+                     device=cost.device)
+    det_avail = col_mask
+    for lvl in range(depth):
+        rows_l = row_mask & (time_since_update == 1 + lvl)
+        r2c_l, c2r_l = solve(cost, rows_l, det_avail, thresh)
+        r2c = torch.where(rows_l & (r2c_l >= 0), r2c_l, r2c)
+        det_avail = det_avail & (c2r_l < 0)
+    return r2c, rows_to_cols_inverse(r2c, cost.shape[-1])
+
+
+def masked_assignment_twin_cascade_torch(
+        cost, row_mask, col_mask, time_since_update, thresh, depth: int,
+        max_iters: int = auction.TWIN_MAX_ITERS, n_phases: int = 5,
+        phase_factor: float = 4.0, sweeps=None):
+    """Plain PyTorch version of K4's cascade entry: :func:`cascade_levels`
+    over the twin's plain version (``_solve_one_twin`` a problem). Shapes
+    as ``auction.masked_assignment_twin`` plus time_since_update (N,) or
+    (B, N); ``sweeps`` (B, depth) int32, if given, receives each level's
+    sweeps."""
+    counts = []
+
+    def solve(c, rows, cols, th):
+        level = torch.zeros(rows.shape[0] if rows.dim() == 2 else 1,
+                            dtype=torch.int32)
+        out = auction.masked_assignment_twin_torch(
+            c, rows, cols, th, max_iters, n_phases, phase_factor,
+            sweeps=level)
+        counts.append(level)
+        return out
+
+    r2c, c2r = cascade_levels(cost.float(), row_mask.bool(), col_mask.bool(),
+                              time_since_update, thresh, depth, solve)
+    if sweeps is not None and depth:
+        sweeps.copy_(torch.stack(counts, dim=1))
+    return r2c, c2r
+
+
+def solve_cascade(cost, row_mask, col_mask, time_since_update, thresh,
+                  depth: int):
+    """The matching cascade with :func:`solve_assignment` at every level,
+    on the cost's device: one launch of K4's cascade entry on a CUDA
+    tensor (no per-level fallback), its plain version on a CPU tensor.
+    Returns int32 (row_to_col (..., N), col_to_row (..., M))."""
+    args = (cost.float().contiguous(), row_mask, col_mask,
+            time_since_update, thresh, depth)
+    if cost.is_cuda:
+        return auction.masked_assignment_twin_cascade_cuda(
+            *args, n_phases=2, phase_factor=STEEP_FACTOR)
+    if cost.device.type != "cpu":
+        raise ValueError(f"no auction implementation for {cost.device}")
+    return masked_assignment_twin_cascade_torch(
+        *args, n_phases=2, phase_factor=STEEP_FACTOR)
 
 
 def masked_assignment(cost, row_mask, col_mask, thresh,

@@ -32,8 +32,12 @@ into every sweep (and so, on dense costs, may stop short of the optimum).
 ``masked_assignment_twin_torch`` is its plain version,
 ``masked_assignment_twin_cuda`` the kernel (the second entry of
 ``csrc/auction.cu``), ``masked_assignment_twin`` the dispatcher; it is the
-solver of ops/assignment.solve_assignment. K2 stays as the counterpart of
-the Pallas kernel, which no tracker path calls, in JAX as here.
+solver of ops/assignment.solve_assignment. K4's cascade entry (the third)
+runs every level of the trackers' matching cascade in one launch:
+``masked_assignment_twin_cascade_cuda`` launches it, under
+ops/assignment.solve_cascade, where its plain version is (the cascade's
+level loop over the twin's). K2 stays as the counterpart of the Pallas
+kernel, which no tracker path calls, in JAX as here.
 """
 
 from __future__ import annotations
@@ -50,10 +54,11 @@ MAX_ITERS = 4096
 TWIN_MAX_ITERS = 512    # masked_assignment_v2's max_iters (bid rounds a phase)
 _MAX_PHASES = 8     # csrc/auction.cu MAX_PHASES
 
-# K2 and K4 launches since the last reset; chip_smoke.py reads them to
-# show which kernel the paths went through.
+# K2, K4 and K4's cascade launches since the last reset; chip_smoke.py
+# reads them to show which kernel the paths went through.
 LAUNCHES = 0
 LAUNCHES_K4 = 0
+LAUNCHES_CASCADE = 0
 
 _LIBS = {}          # bound libraries: False the timed build, True profiling
 BUILD_SECONDS = None
@@ -225,11 +230,13 @@ def _batched_args(cost, row_mask, col_mask, thresh):
 
 
 def _solve_one_twin(cost, row_mask, col_mask, thresh, sched, cap,
-                    max_iters):
+                    max_iters, on_sweep=None):
     """One problem of the twin, every phase, as ``masked_assignment_v2``
     computes it: the dense (n, m + n) weights, a release fixpoint, then
     Jacobi bid rounds. Returns (r2c, c2r, sweeps): sweeps counts release
-    iterations and bid rounds together."""
+    iterations and bid rounds together. ``on_sweep(phase, kind, it, r2c,
+    c2r, prices)``, if given, sees the state after each release iteration
+    (kind "release"; prices not yet clamped) and each bid round ("bid")."""
     n, m = cost.shape
     dev = cost.device
     mt = m + n
@@ -247,7 +254,7 @@ def _solve_one_twin(cost, row_mask, col_mask, thresh, sched, cap,
     c2r[m + row_ids] = torch.where(row_mask, -1, row_ids)
     prices = torch.zeros(mt, dtype=torch.float32, device=dev)
     sweeps = 0
-    for eps in sched:
+    for ph, eps in enumerate(sched):
         # clamp unowned columns to price 0 and release the eps-CS violators
         # until none is released (at most n + 1 times)
         it, n_rel = 0, 1
@@ -262,6 +269,8 @@ def _solve_one_twin(cost, row_mask, col_mask, thresh, sched, cap,
             c2r[r2c[rel]] = -1
             r2c = torch.where(keep, r2c, -1)
             n_rel = int(rel.sum())
+            if on_sweep is not None:
+                on_sweep(ph, "release", it, r2c, c2r, prices)
             it += 1
             sweeps += 1
         prices = torch.where(c2r < 0, zero, prices)
@@ -294,6 +303,8 @@ def _solve_one_twin(cost, row_mask, col_mask, thresh, sched, cap,
             r2c = torch.where(won, best_j, r2c)
             c2r = torch.where(contested, winner, c2r)
             prices = torch.where(contested, col_best, prices)
+            if on_sweep is not None:
+                on_sweep(ph, "bid", it, r2c, c2r, prices)
             it += 1
             sweeps += 1
     return _gate(cost, r2c, row_mask, thresh) + (sweeps,)
@@ -374,9 +385,16 @@ def load_library(profile: bool = False):
         ctypes.c_void_p,                           # stream
     ]
     lib.auction_launch.restype = ctypes.c_int
-    lib.auction_twin_launch.argtypes = (lib.auction_launch.argtypes[:14]
-                                        + [ctypes.c_void_p])    # stream
+    lib.auction_twin_launch.argtypes = lib.auction_launch.argtypes
     lib.auction_twin_launch.restype = ctypes.c_int
+    lib.auction_twin_cascade_launch.argtypes = (
+        lib.auction_launch.argtypes[:4]            # cost .. col_mask
+        + [ctypes.c_void_p]                        # time_since_update
+        + lib.auction_launch.argtypes[4:9]         # thresh .. M
+        + [ctypes.c_int]                           # depth
+        + lib.auction_launch.argtypes[9:14]        # n_phases .. sweeps
+        + [ctypes.c_void_p])                       # stream
+    lib.auction_twin_cascade_launch.restype = ctypes.c_int
     lib.auction_profile_parts.argtypes = []
     lib.auction_profile_parts.restype = ctypes.c_char_p
     _LIBS[profile] = lib
@@ -392,12 +410,15 @@ def profile_parts() -> tuple:
 
 
 def _prepare(profile, cost, row_mask, col_mask, thresh, max_iters, n_phases,
-             phase_factor, sweeps, twin=False):
-    """Check the arguments and allocate the outputs of a launch of K2's
-    timed build, of K4 (``twin``) or, with ``profile`` a (B, PROFILE_WARPS,
-    parts) int64 CUDA tensor, of K2's profiling build. Returns (fire,
-    batched, r2c (B, N), c2r (B, M)): ``fire()`` launches the kernel once
-    on these arguments and raises if the launch is refused."""
+             phase_factor, sweeps, twin=False, cascade=None):
+    """Check the arguments and allocate the outputs of a launch of K2, of
+    K4 (``twin``) or of K4's cascade (``cascade`` = (time_since_update
+    (B, N), depth); ``sweeps`` then (B, depth)); with ``profile`` a (B,
+    PROFILE_WARPS, parts) int64 CUDA tensor, of K2's or K4's profiling
+    build.
+    Returns (fire, batched, r2c (B, N), c2r (B, M)): ``fire()`` launches
+    the kernel once on these arguments and raises if the launch is
+    refused."""
     if not cost.is_cuda:
         raise ValueError("the auction kernels need CUDA tensors")
     if cost.dtype != torch.float32 or not cost.is_contiguous():
@@ -414,7 +435,14 @@ def _prepare(profile, cost, row_mask, col_mask, thresh, max_iters, n_phases,
         raise ValueError(
             f"mask shapes {tuple(rm.shape)}, {tuple(cm.shape)} do not "
             f"match cost {tuple(cost.shape)}")
-    for t in (rm, cm):
+    tsu = None
+    if cascade is not None:
+        tsu, depth = cascade
+        tsu = (tsu if batched else tsu[None]).to(torch.int32).contiguous()
+        if tsu.shape != (b, n) or depth < 0:
+            raise ValueError(f"time_since_update {tuple(tsu.shape)} does "
+                             f"not match cost {tuple(cost.shape)}")
+    for t in (rm, cm) + ((tsu,) if tsu is not None else ()):
         if t.device != cost.device:
             raise ValueError("masks must be on the cost's device")
     rm = rm.contiguous()
@@ -425,33 +453,46 @@ def _prepare(profile, cost, row_mask, col_mask, thresh, max_iters, n_phases,
     powers = (ctypes.c_float * n_phases)(*_powers(n_phases, phase_factor))
     r2c = torch.empty((b, n), dtype=torch.int32, device=cost.device)
     c2r = torch.empty((b, m), dtype=torch.int32, device=cost.device)
-    if sweeps is not None and (sweeps.shape != (b,)
+    shape = (b,) if cascade is None else (b, cascade[1])
+    if sweeps is not None and (sweeps.shape != shape
                                or sweeps.dtype != torch.int32
-                               or sweeps.device != cost.device):
-        raise ValueError("sweeps must be a (B,) int32 tensor on the device")
+                               or sweeps.device != cost.device
+                               or not sweeps.is_contiguous()):
+        raise ValueError(f"sweeps must be a {shape} int32 tensor on the "
+                         "device")
     lib = load_library(profile is not None)
-    args = (cost.data_ptr(), n * m if cost.dim() == 3 else 0,
-            rm.data_ptr(), cm.data_ptr(), th.data_ptr(), powers,
-            b, n, m, n_phases, max_iters, r2c.data_ptr(), c2r.data_ptr(),
+    head = (cost.data_ptr(), n * m if cost.dim() == 3 else 0,
+            rm.data_ptr(), cm.data_ptr())
+    tail = (r2c.data_ptr(), c2r.data_ptr(),
             sweeps.data_ptr() if sweeps is not None else None)
-    if twin:
-        launch = lib.auction_twin_launch
+    if cascade is not None:
+        if profile is not None:
+            raise ValueError("K4's cascade entry has no profiling build")
+        launch = lib.auction_twin_cascade_launch
+        args = head + (tsu.data_ptr(), th.data_ptr(), powers, b, n, m,
+                       cascade[1], n_phases, max_iters) + tail
     else:
-        launch = lib.auction_launch
-        args += (profile.data_ptr() if profile is not None else None,)
+        launch = lib.auction_twin_launch if twin else lib.auction_launch
+        args = head + (th.data_ptr(), powers, b, n, m, n_phases,
+                       max_iters) + tail + (
+            profile.data_ptr() if profile is not None else None,)
     # every buffer the kernel reads or writes lives as long as fire does
-    keep = (cost, rm, cm, th, r2c, c2r, sweeps, profile)
+    keep = (cost, rm, cm, th, tsu, r2c, c2r, sweeps, profile)
 
     def fire():
-        global LAUNCHES, LAUNCHES_K4
+        global LAUNCHES, LAUNCHES_K4, LAUNCHES_CASCADE
         stream = torch.cuda.current_stream(keep[0].device).cuda_stream
         err = launch(*args, stream)
         if err != 0:
             raise RuntimeError(
                 f"auction kernel launch failed: CUDA error {err}")
-        if twin:
+        if profile is not None:
+            return
+        if cascade is not None:
+            LAUNCHES_CASCADE += 1
+        elif twin:
             LAUNCHES_K4 += 1
-        elif profile is None:
+        else:
             LAUNCHES += 1
 
     return fire, batched, r2c, c2r
@@ -546,11 +587,29 @@ def masked_assignment_twin_cuda(cost, row_mask, col_mask, thresh,
 
 def prepared_twin(cost, row_mask, col_mask, thresh,
                   max_iters: int = TWIN_MAX_ITERS, n_phases: int = 5,
-                  phase_factor: float = 4.0):
+                  phase_factor: float = 4.0, profile=None):
     """``fire``: one launch of the K4 kernel on these arguments per call,
-    as :func:`prepared_auction` does for K2. For measuring."""
-    return _prepare(None, cost, row_mask, col_mask, thresh, max_iters,
+    as :func:`prepared_auction` does for K2 (``profile``: K4's profiling
+    build). For measuring."""
+    return _prepare(profile, cost, row_mask, col_mask, thresh, max_iters,
                     n_phases, phase_factor, None, twin=True)[0]
+
+
+def profile_twin(cost, row_mask, col_mask, thresh,
+                 max_iters: int = TWIN_MAX_ITERS, n_phases: int = 5,
+                 phase_factor: float = 4.0, sweeps=None):
+    """:func:`profile_auction` for K4: its profiling build on these
+    arguments; returns (r2c, c2r, cycles (B, PROFILE_WARPS, parts))."""
+    if not cost.is_cuda:
+        raise ValueError("profile_twin needs CUDA tensors")
+    b = row_mask.shape[0] if row_mask.dim() == 2 else 1
+    cycles = torch.zeros((b, PROFILE_WARPS, len(profile_parts())),
+                         dtype=torch.int64, device=cost.device)
+    fire, batched, r2c, c2r = _prepare(cycles, cost, row_mask, col_mask,
+                                       thresh, max_iters, n_phases,
+                                       phase_factor, sweeps, twin=True)
+    fire()
+    return ((r2c, c2r) if batched else (r2c[0], c2r[0])) + (cycles,)
 
 
 def masked_assignment_twin(cost, row_mask, col_mask, thresh,
@@ -567,3 +626,36 @@ def masked_assignment_twin(cost, row_mask, col_mask, thresh,
         raise ValueError(f"no auction implementation for {cost.device}")
     return masked_assignment_twin_torch(
         cost, row_mask, col_mask, thresh, max_iters, n_phases, phase_factor)
+
+
+# ---------------------------------------------------------------------------
+# K4's cascade: matching_cascade (trackers/appearance.py) in one launch
+# ---------------------------------------------------------------------------
+
+def masked_assignment_twin_cascade_cuda(cost, row_mask, col_mask,
+                                        time_since_update, thresh,
+                                        depth: int,
+                                        max_iters: int = TWIN_MAX_ITERS,
+                                        n_phases: int = 5,
+                                        phase_factor: float = 4.0,
+                                        sweeps=None):
+    """Launch K4's cascade entry (csrc/auction.cu,
+    auction_twin_cascade_launch): every level of every problem in one
+    launch, one block a problem, the weights staged once. Arguments as
+    ops/assignment.masked_assignment_twin_cascade_torch, on the card."""
+    fire, batched, r2c, c2r = _prepare(
+        None, cost, row_mask, col_mask, thresh, max_iters, n_phases,
+        phase_factor, sweeps, twin=True, cascade=(time_since_update, depth))
+    fire()
+    return (r2c, c2r) if batched else (r2c[0], c2r[0])
+
+
+def prepared_twin_cascade(cost, row_mask, col_mask, time_since_update,
+                          thresh, depth: int,
+                          max_iters: int = TWIN_MAX_ITERS, n_phases: int = 5,
+                          phase_factor: float = 4.0):
+    """``fire``: one launch of K4's cascade entry on these arguments per
+    call, as :func:`prepared_twin` does for K4. For measuring."""
+    return _prepare(None, cost, row_mask, col_mask, thresh, max_iters,
+                    n_phases, phase_factor, None, twin=True,
+                    cascade=(time_since_update, depth))[0]

@@ -16,7 +16,7 @@ import math
 import torch
 
 from ..ops import kalman
-from ..ops.assignment import solve_assignment
+from ..ops.assignment import cascade_levels, solve_cascade
 from . import slab as S
 
 CHI2INV95_4 = 9.4877  # kalman_filter.py:11-20, 4 dof
@@ -73,34 +73,21 @@ def gate_cost_matrix(cost, slab: S.TrackSlab, dets: S.DetSlab, fmt: str,
     return torch.where(gd > CHI2INV95_4, gated, cost)
 
 
-def rows_to_cols_inverse(r2c, n_cols: int):
-    """col_to_row (..., D) of a row_to_col (..., T), -1 where unmatched."""
-    t = r2c.shape[-1]
-    c2r = torch.full(r2c.shape[:-1] + (n_cols + 1,), -1, dtype=torch.int32,
-                     device=r2c.device)
-    rows = torch.arange(t, dtype=torch.int32, device=r2c.device)
-    c2r.scatter_(-1, torch.where(r2c >= 0, r2c, n_cols).long(),
-                 torch.where(r2c >= 0, rows, -1))
-    return c2r[..., :n_cols]
-
-
 def matching_cascade(cost, slab: S.TrackSlab, row_mask, col_mask,
                      thresh: float, depth: int, solve=None):
     """Age-layered assignment (matching.py:216-277): level l matches the
     tracks with time_since_update == 1 + l against the detections still
     unmatched. Every one of the ``depth`` levels is solved, empty or not
-    (the JAX package's lax.scan; no host test). Returns (row_to_col,
+    (the JAX package's lax.scan; no host test). With ``solve`` None every
+    level is the trackers' solver, all in one call of
+    ops/assignment.solve_cascade (one kernel launch on the card); a
+    ``solve`` given is called level by level. Returns (row_to_col,
     col_to_row)."""
-    solve = solve or solve_assignment
-    r2c = torch.full(row_mask.shape, -1, dtype=torch.int32,
-                     device=cost.device)
-    det_avail = col_mask
-    for lvl in range(depth):
-        rows_l = row_mask & (slab.time_since_update == 1 + lvl)
-        r2c_l, c2r_l = solve(cost, rows_l, det_avail, thresh)
-        r2c = torch.where(rows_l & (r2c_l >= 0), r2c_l, r2c)
-        det_avail = det_avail & (c2r_l < 0)
-    return r2c, rows_to_cols_inverse(r2c, cost.shape[-1])
+    if solve is None:
+        return solve_cascade(cost, row_mask, col_mask,
+                             slab.time_since_update, thresh, depth)
+    return cascade_levels(cost, row_mask, col_mask, slab.time_since_update,
+                          thresh, depth, solve)
 
 
 def _turn_pairs(r, x, axis: int):

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import boxes as boxops
-from ..ops.assignment import solve_assignment
+from ..ops.assignment import rows_to_cols_inverse, solve_assignment
 from . import appearance as A
 from . import slab as S
 from .bytetrack import solve_pair
@@ -58,7 +58,7 @@ def uavmot_step(slab: S.TrackSlab, dets: S.DetSlab, cfg: S.TrackerConfig,
     sdist = A.structure_distance(slab.mean[..., :2], pmask, det_xy, high)
     r2c_b, _ = solve_stage1(0.98 * cost + 0.02 * sdist, pmask, high, 0.8)
     r2c = torch.where(any_matched, r2c_b, r2c_a)
-    c2r = A.rows_to_cols_inverse(r2c, dets.tlbr.shape[-2])
+    c2r = rows_to_cols_inverse(r2c, dets.tlbr.shape[-2])
     was_tracked = slab.state == S.TRACKED
     slab = S.apply_matches(slab, dets, r2c, fmt, cfg, pool_rank=pool_rank)
 
