@@ -1252,13 +1252,13 @@ def main_phase(pipe, dev):
 
     pipe.detect_batch = recording_detect
     bytetrack.solve_assignment = recording_solve
-    auction.LAUNCHES_K4 = auction.LAUNCHES = 0
     torch.cuda.synchronize()
-    t0 = time.time()
-    results, slab = pipe.run_sequence_stateful(iter(frames))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches, k2_launches = auction.LAUNCHES_K4, auction.LAUNCHES
+    with counting() as counts:
+        t0 = time.time()
+        results, slab = pipe.run_sequence_stateful(iter(frames))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches, k2_launches = counts["launches.k4"], counts["launches.k2"]
     bytetrack.solve_assignment = solve
     del pipe.detect_batch
 
@@ -1415,7 +1415,6 @@ def serving_phase(sd, pipe, dev):
 
     from yolov7_tracker_tpu_torch import pipeline as pipeline_mod
     from yolov7_tracker_tpu_torch.cli import serve
-    from yolov7_tracker_tpu_torch.ops import auction
     from yolov7_tracker_tpu_torch.ops import auction_square as square
     from yolov7_tracker_tpu_torch.trackers import bytetrack
 
@@ -1458,12 +1457,11 @@ def serving_phase(sd, pipe, dev):
                         "1088", "--conf_thresh", "0.5", "--capacity", "128",
                         "--det_capacity", "300", "--max_frames", str(ticks),
                         "--save_dir", save_dir, "--state_dir", state_dir]
-                auction.LAUNCHES_K4 = 0
-                square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
-                results, preempted = serve.main(argv)
-                torch.cuda.synchronize()
-                counts.append((square.LAUNCHES_K3, auction.LAUNCHES_K4,
-                               square.LAUNCHES_K1))
+                with counting() as got:
+                    results, preempted = serve.main(argv)
+                    torch.cuda.synchronize()
+                counts.append((got["launches.k3"], got["launches.k4"],
+                               got["launches.k1"]))
                 if preempted or [len(r) for r in results] != \
                         [ticks] * N_STREAMS:
                     raise AssertionError(
@@ -1611,16 +1609,16 @@ def step_frame_phase(pipe, dev):
 
     pipeline_mod.masked_assignment = recording
     try:
-        square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
         slab = pipe.init_tracker()
         per_frame = []
-        for f in frames:
-            torch.cuda.synchronize()
-            t0 = time.time()
-            slab, out = pipe.step_frame(slab, f)
-            torch.cuda.synchronize()
-            per_frame.append((time.time() - t0) * 1e3)
-        k1, k3 = square.LAUNCHES_K1, square.LAUNCHES_K3
+        with counting() as got:
+            for f in frames:
+                torch.cuda.synchronize()
+                t0 = time.time()
+                slab, out = pipe.step_frame(slab, f)
+                torch.cuda.synchronize()
+                per_frame.append((time.time() - t0) * 1e3)
+        k1, k3 = got["launches.k1"], got["launches.k3"]
     finally:
         pipeline_mod.masked_assignment = solve1
     if (k1, k3) != (len(frames), 0):
@@ -1844,7 +1842,6 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     pipe, the detections the step got, the results)."""
     import torch
 
-    from yolov7_tracker_tpu_torch.ops import auction
     from yolov7_tracker_tpu_torch.trackers import slab as S
 
     pipe = tracker_pipeline(sd, dev, tracker_kw, pipe_kw)
@@ -1865,19 +1862,19 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
 
     pipe.step = recording_step
     torch.cuda.synchronize()
-    auction.LAUNCHES_K4 = auction.LAUNCHES = auction.LAUNCHES_CASCADE = 0
-    t0 = time.time()
-    results, slab = pipe.run_sequence_stateful(iter(frames))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches, cascades = auction.LAUNCHES_K4, auction.LAUNCHES_CASCADE
+    with counting() as got:
+        t0 = time.time()
+        results, slab = pipe.run_sequence_stateful(iter(frames))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches, cascades = got["launches.k4"], got["launches.k4_cascade"]
     pipe.step = plain_step
     n = len(frames)
     per_cascade = CASCADES_PER_FRAME.get(name, 0)
-    if (launches != per_frame * n or auction.LAUNCHES != 0
+    if (launches != per_frame * n or got["launches.k2"] != 0
             or cascades != per_cascade * n):
         raise AssertionError(f"{name}: {launches} K4, {cascades} cascade "
-                             f"and {auction.LAUNCHES} K2 launches in {n} "
+                             f"and {got['launches.k2']} K2 launches in {n} "
                              f"frames, expected {per_frame} K4 and "
                              f"{per_cascade} cascade a frame")
     tracks = [len(ids) for _, ids, _, _ in results]
@@ -2349,7 +2346,7 @@ def cascade_forms(pipe, dets, results, dev):
     import torch
 
     from yolov7_tracker_tpu_torch.data import writer
-    from yolov7_tracker_tpu_torch.ops import assignment, auction
+    from yolov7_tracker_tpu_torch.ops import assignment
     from yolov7_tracker_tpu_torch.trackers import slab as S
 
     forms = {"one_launch": {},
@@ -2358,17 +2355,17 @@ def cascade_forms(pipe, dets, results, dev):
     for form in ("one_launch", "loop", "loop", "one_launch"):
         slab = S.init_slab(pipe.tcfg, dev)
         rows, outs = [], []
-        auction.LAUNCHES_K4 = auction.LAUNCHES_CASCADE = 0
         torch.cuda.synchronize()
-        t0 = time.time()
-        for det in dets:
-            slab, out = pipe.step(slab, det, **forms[form])
-            outs.append(out)
-        torch.cuda.synchronize()
+        with counting() as got:
+            t0 = time.time()
+            for det in dets:
+                slab, out = pipe.step(slab, det, **forms[form])
+                outs.append(out)
+            torch.cuda.synchronize()
         ms[form].append((time.time() - t0) / len(dets) * 1e3)
         if form in text:
             continue
-        launches[form] = (auction.LAUNCHES_K4, auction.LAUNCHES_CASCADE)
+        launches[form] = (got["launches.k4"], got["launches.k4_cascade"])
         for k, out in enumerate(outs):
             v = out.valid.cpu().numpy()
             rows.append((k + 1, out.track_id.cpu().numpy()[v].tolist(),
@@ -2538,8 +2535,6 @@ def serving_reid_phase(sd, dev, reid_path):
 
     from yolov7_tracker_tpu_torch import pipeline as pipeline_mod
     from yolov7_tracker_tpu_torch.cli import serve
-    from yolov7_tracker_tpu_torch.ops import auction
-    from yolov7_tracker_tpu_torch.ops import auction_square as square
 
     total = sum(SERVE_TICKS)
     streams = serve_streams(total)
@@ -2575,12 +2570,11 @@ def serving_reid_phase(sd, dev, reid_path):
                                                    name)]
                 if state:
                     argv += ["--state_dir", state]
-                auction.LAUNCHES_K4 = 0
-                square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
-                results, preempted = serve.main(argv)
-                torch.cuda.synchronize()
-                counts.append((square.LAUNCHES_K3, auction.LAUNCHES_K4,
-                               square.LAUNCHES_K1))
+                with counting() as got:
+                    results, preempted = serve.main(argv)
+                    torch.cuda.synchronize()
+                counts.append((got["launches.k3"], got["launches.k4"],
+                               got["launches.k1"]))
                 if preempted or [len(r) for r in results] != \
                         [ticks] * N_STREAMS:
                     raise AssertionError(
@@ -2643,8 +2637,6 @@ def step_frame_reid_phase(sd, dev, reid_path):
     import torch
 
     from yolov7_tracker_tpu_torch.data.sequence import SynthFrames
-    from yolov7_tracker_tpu_torch.ops import auction
-    from yolov7_tracker_tpu_torch.ops import auction_square as square
     from yolov7_tracker_tpu_torch.reid import resolve_reid
 
     name, reid_sd = resolve_reid("strongsort", reid_path)
@@ -2654,17 +2646,15 @@ def step_frame_reid_phase(sd, dev, reid_path):
     frames = list(SynthFrames("synth://8x1080x1920?seed=11&shift=8"))
     pipe.step_frame(pipe.init_tracker(), frames[0])     # warm-up
     torch.cuda.synchronize()
-    auction.LAUNCHES_K4 = 0
-    square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
     slab, per_frame = pipe.init_tracker(), []
-    with path_solves(2) as kept:        # the last frame's K1, K4, K4
-        for f in frames:
+    with path_solves(2) as kept, counting() as got:
+        for f in frames:        # kept: the last frame's K1, K4, K4
             torch.cuda.synchronize()
             t0 = time.time()
             slab, out = pipe.step_frame(slab, f)
             torch.cuda.synchronize()
             per_frame.append((time.time() - t0) * 1e3)
-    k1, k4, k3 = square.LAUNCHES_K1, auction.LAUNCHES_K4, square.LAUNCHES_K3
+    k1, k4, k3 = got["launches.k1"], got["launches.k4"], got["launches.k3"]
     n = len(frames)
     if (k1, k4, k3) != (n, 2 * n, 0):
         raise AssertionError(f"step_frame with ReID: {k1} K1, {k4} K4, {k3} "
@@ -2695,8 +2685,6 @@ def deepmot_streams_phase(sd, dev):
     import torch
 
     from yolov7_tracker_tpu_torch.data.sequence import SynthFrames
-    from yolov7_tracker_tpu_torch.ops import auction
-    from yolov7_tracker_tpu_torch.ops import auction_square as square
 
     pipe = tracker_pipeline(sd, dev, dict(
         tracker="deepmot", det_capacity=48, dhn_weights=DHN_GRU,
@@ -2706,12 +2694,11 @@ def deepmot_streams_phase(sd, dev):
     frames = [np.stack(f) for f in zip(*cams)]
     pipe.process_multistream(pipe.init_multistream(N_STREAMS), frames[0])
     torch.cuda.synchronize()
-    auction.LAUNCHES_K4 = 0
-    square.LAUNCHES_K1 = square.LAUNCHES_K3 = 0
     cpu_dhn = copy.deepcopy(pipe.step.keywords["dhn"]).cpu()
     dhn_kept = recording_dhn(pipe)
     slabs, per_tick, tracks = pipe.init_multistream(N_STREAMS), [], []
-    with path_solves(1) as kept:        # the last tick's K3 and K4
+    # kept: the last tick's K3 and K4
+    with path_solves(1) as kept, counting() as got:
         for f in frames:
             torch.cuda.synchronize()
             t0 = time.time()
@@ -2721,7 +2708,7 @@ def deepmot_streams_phase(sd, dev):
             tracks.append(outs.valid.sum(dim=1).tolist())
             if not bool(torch.isfinite(outs.tlwh[outs.valid]).all()):
                 raise AssertionError(f"deepmot at S = {N_STREAMS}: boxes")
-    k3, k4, k1 = square.LAUNCHES_K3, auction.LAUNCHES_K4, square.LAUNCHES_K1
+    k3, k4, k1 = got["launches.k3"], got["launches.k4"], got["launches.k1"]
     if (k3, k4, k1) != (ticks, ticks, 0):
         raise AssertionError(f"deepmot at S = {N_STREAMS}: {k3} K3, {k4} K4, "
                              f"{k1} K1 launches in {ticks} ticks")
@@ -2998,6 +2985,24 @@ def no_sync_after_first(step):
 
 
 @contextlib.contextmanager
+def counting():
+    """The tracer's counters of the block (utils/trace.py records inside
+    it): a Counter, filled as the block closes, of the kernels' launches
+    (``launches.k1`` ... ``launches.k4_cascade``) and the host syncs; what
+    the tracer kept is dropped before and after."""
+    from yolov7_tracker_tpu_torch.utils import trace
+
+    got = collections.Counter()
+    trace.reset()
+    try:
+        with trace.recording():
+            yield got
+        got.update(trace.counters())
+    finally:
+        trace.reset()
+
+
+@contextlib.contextmanager
 def steps_without_sync():
     """Every tracker step and predict-only step of a TrackingPipeline
     built inside the block, but the first of each, runs under
@@ -3087,7 +3092,6 @@ def scoring_phase(dev):
 
     from yolov7_tracker_tpu_torch.cli import evaluate, track
     from yolov7_tracker_tpu_torch.eval import evaluator
-    from yolov7_tracker_tpu_torch.ops import auction
     from yolov7_tracker_tpu_torch.pipeline import TrackingPipeline
 
     root = os.path.join(OUT_DIR, "mot17_smoke")
@@ -3112,14 +3116,13 @@ def scoring_phase(dev):
                     "--output_dir", os.path.join(root, f"{tracker}_{device}")]
             seq_runs, scored = [], []
             torch.cuda.synchronize()
-            auction.LAUNCHES_K4 = 0
-            with steps_without_sync(), \
+            with steps_without_sync(), counting() as got, \
                     recording(TrackingPipeline, "run_sequence_detections",
                               seq_runs, sync=True), \
                     recording(track, "evaluate_run", scored):
                 folder = track.main(argv)
             runs[device] = {
-                "folder": folder, "launches": auction.LAUNCHES_K4,
+                "folder": folder, "launches": got["launches.k4"],
                 "track_s": sum(t for t, _, _ in seq_runs),
                 "score_s": scored[0][0], "table": scored[0][1],
                 "files": read_tree(folder), "pipe": seq_runs[0][2][0],
@@ -3217,7 +3220,6 @@ def detect_every_phase(sd, dev):
     import torch
 
     from yolov7_tracker_tpu_torch.data import writer
-    from yolov7_tracker_tpu_torch.ops import auction
     from yolov7_tracker_tpu_torch.trackers import slab as S
     from yolov7_tracker_tpu_torch.trackers.registry import (
         build_predict_only, build_tracker)
@@ -3239,12 +3241,12 @@ def detect_every_phase(sd, dev):
 
         pipe.step = recording_step
         torch.cuda.synchronize()
-        auction.LAUNCHES_K4 = 0
-        t0 = time.time()
-        results, _ = pipe.run_sequence_stateful(iter(frames))
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launched = auction.LAUNCHES_K4
+        with counting() as got:
+            t0 = time.time()
+            results, _ = pipe.run_sequence_stateful(iter(frames))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launched = got["launches.k4"]
         pipe.step = step
         detected = list(range(0, n, k))
         if len(kept) != len(detected) or launched != 2 * len(detected):
@@ -3353,7 +3355,6 @@ def zoo_run(name, spread, boost, frames, dev, spec=None, keep=None,
     from yolov7_tracker_tpu_torch.models import zoo
     from yolov7_tracker_tpu_torch.models.fuse import fuse_state_dict
     from yolov7_tracker_tpu_torch.models.yolo import random_state_dict
-    from yolov7_tracker_tpu_torch.ops import auction
     from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
                                                    TrackingPipeline)
     from yolov7_tracker_tpu_torch.trackers import slab as S
@@ -3390,12 +3391,12 @@ def zoo_run(name, spread, boost, frames, dev, spec=None, keep=None,
 
     pipe.detect_batch, pipe.step = recording_detect, recording_step
     torch.cuda.synchronize()
-    auction.LAUNCHES_K4 = 0
-    t0 = time.time()
-    results, slab = pipe.run_sequence_stateful(iter(frames))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = auction.LAUNCHES_K4
+    with counting() as got:
+        t0 = time.time()
+        results, slab = pipe.run_sequence_stateful(iter(frames))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches = got["launches.k4"]
     del pipe.detect_batch
     pipe.step = step
     n = len(frames)
@@ -5036,19 +5037,18 @@ def dhn_deepmot_run(sd, dev, frames, path, arch, hidden):
     just after), tracks on the frames."""
     import torch
 
-    from yolov7_tracker_tpu_torch.ops import auction
 
     pipe = tracker_pipeline(sd, dev, dict(
         tracker="deepmot", det_capacity=48, dhn_weights=path,
         dhn_hidden=hidden, dhn_arch=arch), {})
     pipe.run_sequence(iter(frames[:8]))        # warm-up, not counted
     torch.cuda.synchronize()
-    auction.LAUNCHES_K4 = 0
-    t0 = time.time()
-    results, slab = pipe.run_sequence_stateful(iter(frames))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = auction.LAUNCHES_K4
+    with counting() as got:
+        t0 = time.time()
+        results, slab = pipe.run_sequence_stateful(iter(frames))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches = got["launches.k4"]
     n = len(frames)
     tracks = [len(ids) for _, ids, _, _ in results]
     if launches != 2 * n or max(tracks) < 1:
@@ -5326,15 +5326,15 @@ def int8_serving(dev, sd, pipe):
     qpipe.detect_batch, qpipe.step = recording_detect, recording_step
     bytetrack.solve_assignment = recording_solve
     torch.cuda.synchronize()
-    auction.LAUNCHES_K4 = 0
     t0 = time.time()
     try:
-        results, slab = qpipe.run_sequence_stateful(iter(frames))
-        torch.cuda.synchronize()
+        with counting() as got:
+            results, slab = qpipe.run_sequence_stateful(iter(frames))
+            torch.cuda.synchronize()
     finally:
         bytetrack.solve_assignment = solve
     wall = time.time() - t0
-    launches = auction.LAUNCHES_K4
+    launches = got["launches.k4"]
     del qpipe.detect_batch
     qpipe.step = step
     n = len(frames)
@@ -5877,8 +5877,6 @@ def par_track(mesh, inp):
     problems re-solved by the plain versions."""
     import torch
 
-    from yolov7_tracker_tpu_torch.ops import auction
-    from yolov7_tracker_tpu_torch.ops import auction_square as square
     from yolov7_tracker_tpu_torch.parallel import mesh as M
     from yolov7_tracker_tpu_torch.parallel.tracking import (
         make_sharded_tracker, stack_slabs)
@@ -5894,14 +5892,12 @@ def par_track(mesh, inp):
     slabs0 = stack_slabs(cfg, PAR_STREAMS, dev)
     tracker(slabs0, dets)
     torch.cuda.synchronize()
-    auction.LAUNCHES_K4 = 0
-    square.LAUNCHES_K3 = 0
-    with path_solves(1) as kept:
+    with path_solves(1) as kept, counting() as got:
         t0 = time.time()
         slabs, outs = tracker(slabs0, dets)
         torch.cuda.synchronize()
         ms = (time.time() - t0) * 1e3 / PAR_FRAMES
-    launches = torch.tensor([[square.LAUNCHES_K3, auction.LAUNCHES_K4]],
+    launches = torch.tensor([[got["launches.k3"], got["launches.k4"]]],
                             device=dev)
     path_solves_check(kept, f"13a {mesh.backend} rank {mesh.rank}", dev)
     return {"ms_per_frame": ms,

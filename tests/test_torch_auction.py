@@ -24,9 +24,17 @@ from yolov7_tracker_tpu_torch.ops.assignment import (
     linear_assignment_host, masked_assignment_twin_cascade_torch,
     solve_assignment,
 )
+from yolov7_tracker_tpu_torch.utils import trace
 from chip_smoke import cascade_problem
 
 STEEP = dict(n_phases=2, phase_factor=4.0 ** 2.5)
+
+
+def _launches(*kernels):
+    """The launches of each kernel (k1, k2, k3, k4, k4_cascade) that the
+    tracer has counted."""
+    got = trace.counters()
+    return tuple(got.get("launches." + k, 0) for k in kernels)
 
 
 def _problem(rng, n, m, kind):
@@ -281,16 +289,18 @@ def test_cpu_tensor_never_reaches_the_kernel(monkeypatch):
     monkeypatch.setattr(auction, "load_library", boom)
     monkeypatch.setattr(auction, "masked_assignment_auction_cuda", boom)
     monkeypatch.setattr(auction, "masked_assignment_twin_cuda", boom)
-    before = auction.LAUNCHES, auction.LAUNCHES_K4
-    cost, rm, cm = _problem(np.random.default_rng(1), 12, 9, "assoc")
-    r2c, _ = solve_assignment(torch.from_numpy(cost), torch.from_numpy(rm),
-                              torch.from_numpy(cm), 0.8)
-    assert r2c.dtype == torch.int32 and (r2c >= 0).any()
-    r2c, _ = auction.masked_assignment_auction(
-        torch.from_numpy(cost), torch.from_numpy(rm), torch.from_numpy(cm),
-        0.8)
-    assert (r2c >= 0).any()
-    assert (auction.LAUNCHES, auction.LAUNCHES_K4) == before
+    with trace.recording():
+        before = _launches("k2", "k4")
+        cost, rm, cm = _problem(np.random.default_rng(1), 12, 9, "assoc")
+        r2c, _ = solve_assignment(torch.from_numpy(cost),
+                                  torch.from_numpy(rm), torch.from_numpy(cm),
+                                  0.8)
+        assert r2c.dtype == torch.int32 and (r2c >= 0).any()
+        r2c, _ = auction.masked_assignment_auction(
+            torch.from_numpy(cost), torch.from_numpy(rm),
+            torch.from_numpy(cm), 0.8)
+        assert (r2c >= 0).any()
+        assert _launches("k2", "k4") == before
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -910,19 +920,19 @@ def test_matching_cascade_on_cpu_never_reaches_a_kernel(monkeypatch):
     for name in ("load_library", "masked_assignment_twin_cuda",
                  "masked_assignment_twin_cascade_cuda"):
         monkeypatch.setattr(auction, name, boom)
-    before = (auction.LAUNCHES, auction.LAUNCHES_K4,
-              auction.LAUNCHES_CASCADE)
-    cost, rm, cm, tsu = (torch.from_numpy(x) for x in cascade_problem(
-        np.random.default_rng(2), 30, 25, 5, "dense"))
     import types
-    slab = types.SimpleNamespace(time_since_update=tsu)
-    one = TA.matching_cascade(cost, slab, rm, cm, 0.7, 5)
-    loop = TA.matching_cascade(cost, slab, rm, cm, 0.7, 5,
-                               solve=solve_assignment)
-    assert torch.equal(one[0], loop[0]) and torch.equal(one[1], loop[1])
-    assert (one[0] >= 0).any()
-    assert (auction.LAUNCHES, auction.LAUNCHES_K4,
-            auction.LAUNCHES_CASCADE) == before
+
+    with trace.recording():
+        before = _launches("k2", "k4", "k4_cascade")
+        cost, rm, cm, tsu = (torch.from_numpy(x) for x in cascade_problem(
+            np.random.default_rng(2), 30, 25, 5, "dense"))
+        slab = types.SimpleNamespace(time_since_update=tsu)
+        one = TA.matching_cascade(cost, slab, rm, cm, 0.7, 5)
+        loop = TA.matching_cascade(cost, slab, rm, cm, 0.7, 5,
+                                   solve=solve_assignment)
+        assert torch.equal(one[0], loop[0]) and torch.equal(one[1], loop[1])
+        assert (one[0] >= 0).any()
+        assert _launches("k2", "k4", "k4_cascade") == before
 
 
 def test_cascade_and_k4_profile_wrappers_refuse_cpu_tensors():

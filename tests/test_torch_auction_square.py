@@ -12,12 +12,13 @@ import torch
 import jax.numpy as jnp
 
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
-from tests.test_torch_auction import _host_cases
+from tests.test_torch_auction import _host_cases, _launches
 from yolov7_tracker_tpu.ops.assignment import masked_assignment as j_masked
 from yolov7_tracker_tpu.ops.pallas_auction import (
     masked_assignment_pallas, masked_assignment_pallas_batched,
 )
 from yolov7_tracker_tpu_torch.ops import auction_square
+from yolov7_tracker_tpu_torch.utils import trace
 from yolov7_tracker_tpu_torch.ops.assignment import (
     linear_assignment_host, masked_assignment,
 )
@@ -185,14 +186,14 @@ def test_cpu_tensor_never_reaches_the_kernels(monkeypatch):
 
     monkeypatch.setattr(auction_square, "load_library", boom)
     monkeypatch.setattr(auction_square, "masked_assignment_square_cuda", boom)
-    before = (auction_square.LAUNCHES_K1, auction_square.LAUNCHES_K3)
-    cost, rm, cm = _pallas_test_problems()[0]
-    r2c, _ = masked_assignment(*_t(cost, rm, cm), 0.8)
-    assert r2c.dtype == torch.int32 and (r2c >= 0).any()
-    r2c, _ = masked_assignment(*_t(cost[None], rm[None], cm[None]), 0.8)
-    assert r2c.shape == (1, 24)
-    assert (auction_square.LAUNCHES_K1,
-            auction_square.LAUNCHES_K3) == before
+    with trace.recording():
+        before = _launches("k1", "k3")
+        cost, rm, cm = _pallas_test_problems()[0]
+        r2c, _ = masked_assignment(*_t(cost, rm, cm), 0.8)
+        assert r2c.dtype == torch.int32 and (r2c >= 0).any()
+        r2c, _ = masked_assignment(*_t(cost[None], rm[None], cm[None]), 0.8)
+        assert r2c.shape == (1, 24)
+        assert _launches("k1", "k3") == before
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

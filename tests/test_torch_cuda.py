@@ -10,15 +10,25 @@ import pytest
 import torch
 
 from yolov7_tracker_tpu_torch.ops import assignment, auction, auction_square
+from yolov7_tracker_tpu_torch.utils import trace
 
 STEEP = dict(n_phases=2, phase_factor=4.0 ** 2.5)
 
 
 @pytest.fixture
 def card():
+    """The card; the test runs while the tracer records, so ``launches``
+    reads the kernels' launch counters."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the auction kernel has no CPU mode")
-    return torch.device("cuda")
+    with trace.recording():
+        yield torch.device("cuda")
+
+
+def launches(kernel: str) -> int:
+    """The launches of ``kernel`` (k1, k2, k3, k4, k4_cascade) the tracer
+    has counted."""
+    return trace.counters().get("launches." + kernel, 0)
 
 
 def _problem(rng, n, m, kind):
@@ -45,10 +55,10 @@ def test_kernel_equals_plain_version(card, n, m):
     for kind in ("assoc", "dense"):
         cost, rm, cm = (t.to(card) for t in _problem(rng, n, m, kind))
         for th in (0.5, 0.9):
-            before = auction.LAUNCHES
+            before = launches("k2")
             k = auction.masked_assignment_auction_cuda(cost, rm, cm, th,
                                                        **STEEP)
-            assert auction.LAUNCHES == before + 1
+            assert launches("k2") == before + 1
             p = auction.masked_assignment_auction_torch(cost, rm, cm, th,
                                                         **STEEP)
             assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
@@ -65,11 +75,11 @@ def test_twin_kernel_equals_plain_version(card, n, m):
     for kind in ("assoc", "dense"):
         cost, rm, cm = (t.to(card) for t in _problem(rng, n, m, kind))
         for th in (0.5, 0.9):
-            before = auction.LAUNCHES_K4, auction.LAUNCHES
+            before = launches("k4"), launches("k2")
             ks = torch.zeros(1, dtype=torch.int32, device=card)
             k = auction.masked_assignment_twin_cuda(cost, rm, cm, th,
                                                     sweeps=ks, **STEEP)
-            assert (auction.LAUNCHES_K4, auction.LAUNCHES) == (
+            assert (launches("k4"), launches("k2")) == (
                 before[0] + 1, before[1])
             ps = torch.zeros(1, dtype=torch.int32, device=card)
             p = auction.masked_assignment_twin_torch(cost, rm, cm, th,
@@ -125,9 +135,9 @@ def test_solve_assignment_launches_k4(card):
 
     cost, rm, cm = (t.to(card) for t in _problem(
         np.random.default_rng(9), 128, 300, "dense"))
-    before = auction.LAUNCHES_K4, auction.LAUNCHES
+    before = launches("k4"), launches("k2")
     r2c, c2r = solve_assignment(cost, rm, cm, 0.7)
-    assert (auction.LAUNCHES_K4, auction.LAUNCHES) == (before[0] + 1,
+    assert (launches("k4"), launches("k2")) == (before[0] + 1,
                                                        before[1])
     p = auction.masked_assignment_twin_torch(cost, rm, cm, 0.7, **STEEP)
     assert torch.equal(r2c, p[0]) and torch.equal(c2r, p[1])
@@ -158,10 +168,10 @@ def test_twin_cascade_kernel_equals_plain_version(card, n, m, b):
                                             device=card)
     k_sw = torch.zeros((b or 1, depth), dtype=torch.int32, device=card)
     p_sw = torch.zeros_like(k_sw)
-    before = auction.LAUNCHES_CASCADE, auction.LAUNCHES_K4
+    before = launches("k4_cascade"), launches("k4")
     k = auction.masked_assignment_twin_cascade_cuda(
         cost, rm, cm, tsu, th, depth, sweeps=k_sw, **STEEP)
-    assert (auction.LAUNCHES_CASCADE, auction.LAUNCHES_K4) == (
+    assert (launches("k4_cascade"), launches("k4")) == (
         before[0] + 1, before[1])
     p = assignment.masked_assignment_twin_cascade_torch(
         cost, rm, cm, tsu, th, depth, sweeps=p_sw, **STEEP)
@@ -182,13 +192,13 @@ def test_matching_cascade_is_one_launch_on_the_card(card):
     cost, rm, cm, tsu = (t.to(card) for t in _cascade(
         np.random.default_rng(5), 128, 300, 30))
     slab = types.SimpleNamespace(time_since_update=tsu)
-    before = auction.LAUNCHES_CASCADE, auction.LAUNCHES_K4, auction.LAUNCHES
+    before = launches("k4_cascade"), launches("k4"), launches("k2")
     one = appearance.matching_cascade(cost, slab, rm, cm, 0.9, 30)
-    assert (auction.LAUNCHES_CASCADE, auction.LAUNCHES_K4,
-            auction.LAUNCHES) == (before[0] + 1, before[1], before[2])
+    assert (launches("k4_cascade"), launches("k4"),
+            launches("k2")) == (before[0] + 1, before[1], before[2])
     loop = appearance.matching_cascade(cost, slab, rm, cm, 0.9, 30,
                                        solve=solve_assignment)
-    assert auction.LAUNCHES_K4 == before[1] + 30
+    assert launches("k4") == before[1] + 30
     assert torch.equal(one[0], loop[0]) and torch.equal(one[1], loop[1])
 
 
@@ -199,11 +209,11 @@ def test_twin_profiling_build_solves_the_same_and_counts_cycles(card):
     of the block, and adds to no launch count."""
     cost, rm, cm = (t.to(card) for t in _problem(
         np.random.default_rng(6), 128, 300, "dense"))
-    before = auction.LAUNCHES_K4
+    before = launches("k4")
     sw = torch.zeros(1, dtype=torch.int32, device=card)
     r2c, c2r, cycles = auction.profile_twin(cost, rm, cm, 0.9, sweeps=sw,
                                             **STEEP)
-    assert auction.LAUNCHES_K4 == before
+    assert launches("k4") == before
     ks = torch.zeros(1, dtype=torch.int32, device=card)
     k = auction.masked_assignment_twin_cuda(cost, rm, cm, 0.9, sweeps=ks,
                                             **STEEP)
@@ -334,9 +344,9 @@ def test_profiling_build_solves_the_same_and_counts_cycles(card):
     adds to no launch count."""
     cost, rm, cm = (t.to(card) for t in _problem(
         np.random.default_rng(4), 128, 300, "dense"))
-    before = auction.LAUNCHES
+    before = launches("k2")
     r2c, c2r, cycles = auction.profile_auction(cost, rm, cm, 0.9, **STEEP)
-    assert auction.LAUNCHES == before
+    assert launches("k2") == before
     k = auction.masked_assignment_auction_cuda(cost, rm, cm, 0.9, **STEEP)
     assert torch.equal(r2c, k[0]) and torch.equal(c2r, k[1])
     parts = auction.profile_parts()
@@ -346,7 +356,7 @@ def test_profiling_build_solves_the_same_and_counts_cycles(card):
     assert int(cycles[0, 16:].sum()) == 0
     fire = auction.prepared_auction(cost, rm, cm, 0.9, **STEEP)
     fire()
-    assert auction.LAUNCHES == before + 2
+    assert launches("k2") == before + 2
 
 
 @pytest.mark.cuda
@@ -371,14 +381,14 @@ def test_square_kernel_k1_equals_plain_version(card, n, m):
     for kind in ("assoc", "dense"):
         cost, rm, cm = (t.to(card) for t in _problem(rng, n, m, kind))
         for th in (0.5, 0.9):
-            before = auction_square.LAUNCHES_K1
+            before = launches("k1")
             ks = torch.zeros((1, 5), dtype=torch.int32, device=card)
             ps = torch.zeros((1, 5), dtype=torch.int32, device=card)
             kn = torch.zeros(1, dtype=torch.int64, device=card)
             pn = torch.zeros(1, dtype=torch.int64, device=card)
             k = auction_square.masked_assignment_square_cuda(
                 cost, rm, cm, th, n_phases=5, sweeps=ks, cells=kn)
-            assert auction_square.LAUNCHES_K1 == before + 1
+            assert launches("k1") == before + 1
             p = auction_square.masked_assignment_square_torch(
                 cost, rm, cm, th, n_phases=5, sweeps=ps, cells=pn)
             assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
@@ -394,10 +404,10 @@ def test_square_kernel_k3_equals_plain_and_k1(card, b):
     probs = [_problem(rng, 128, 300, "assoc" if i % 4 else "dense")
              for i in range(b)]
     cost, rm, cm = (torch.stack(x).to(card) for x in zip(*probs))
-    before = auction_square.LAUNCHES_K3
+    before = launches("k3")
     kr, kc = auction_square.masked_assignment_square_cuda(cost, rm, cm, 0.9,
                                                           n_phases=5)
-    assert auction_square.LAUNCHES_K3 == before + 1
+    assert launches("k3") == before + 1
     pr, pc = auction_square.masked_assignment_square_torch(cost, rm, cm, 0.9,
                                                            n_phases=5)
     assert torch.equal(kr, pr) and torch.equal(kc, pc)
@@ -909,9 +919,9 @@ def test_v8_pipeline_on_the_card_equals_the_cpu(card, full_float32):
             S.TrackerConfig(tracker="bytetrack", conf_thresh=0.5,
                             capacity=64, det_capacity=300),
             state_dict=sd, spec=spec, device=dev)
-        before = auction.LAUNCHES_K4
+        before = launches("k4")
         results[str(dev)] = pipe.run_sequence(iter(frames))
-        launched = auction.LAUNCHES_K4 - before
+        launched = launches("k4") - before
     assert launched == 2 * len(frames)
     rows = 0
     for a, b in zip(results["cpu"], results[str(card)]):
@@ -1146,10 +1156,10 @@ def test_dhn_trainer_on_the_card_feeds_deepmot(card, tmp_path):
         dhn_weights=out, dhn_hidden=16), card)
     rng = np.random.default_rng(0)
     slab = S.init_slab(cfg, card)
-    before = auction.LAUNCHES_K4
+    before = launches("k4")
     for t in range(6):
         slab, _ = step(slab, _card_dets(cfg, rng, t, card))
-    assert auction.LAUNCHES_K4 - before == 12
+    assert launches("k4") - before == 12
     assert int(slab.next_id) > 1
 
 
@@ -1394,3 +1404,37 @@ def test_data_parallel_train_step_on_one_card(card, tmp_path):
                     assert err <= 1e-4 * float(v.abs().max()) or err == 0.0, (
                         sec, k, err)
     assert [s["ema_count"] for s, _ in out[2][0]] == [0, 1]
+
+
+@pytest.mark.cuda
+def test_tracer_times_on_the_card_without_a_sync(card):
+    """utils/trace.py on a CUDA tensor: spans opened and closed under
+    sync-debug "error" (two CUDA events each, no synchronize), the
+    device's time of queued matmuls read back after the fact (longer
+    than the host's time to launch them), and the events reused once
+    read back."""
+    x = torch.randn(2048, 2048, device=card)
+    x @ x                               # cuBLAS set up before the spans
+    trace.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            with trace.span("outer", x):
+                with trace.span("inner", x):
+                    for _ in range(20):
+                        x = (x @ x) * 1e-3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = trace.totals()
+    assert got["inner"]["count"] == got["outer"]["count"] == 3
+    assert got["inner"]["ms"] > 2 * got["inner"]["host_ms"]
+    assert got["inner"]["ms"] <= got["outer"]["ms"]
+    assert got["outer"]["self_ms"] == pytest.approx(
+        got["outer"]["ms"] - got["inner"]["ms"])
+    free = trace.TRACER.free[x.device]
+    assert len(free) == 12 and not trace.TRACER.pending
+    with trace.span("again", x):
+        pass
+    assert len(free) == 10
+    trace.reset()

@@ -47,7 +47,7 @@ def test_port_imports_no_jax():
                     "train", "train.loss", "train.datasets",
                     "train.metrics", "parallel", "parallel.train_step",
                     "utils.checkpoint", "utils.logging",
-                    "utils.artifacts", "utils.timer", "cli.train",
+                    "utils.artifacts", "utils.trace", "cli.train",
                     "cli.test", "models.ibin", "train.rank_losses",
                     "train.dhn_train", "train.autoanchor",
                     "train.evolve", "cli.detect", "data.converters",

@@ -241,20 +241,3 @@ def test_metrics_match_jax():
     rec = np.sort(rng.uniform(0, 1, 20))
     prec = rng.uniform(0, 1, 20)
     assert tmet.compute_ap(rec, prec) == jmet.compute_ap(rec, prec)
-
-
-def test_timer():
-    """utils/timer.py: the tic/toc average and block_and_time (which waits
-    for a card only where one exists)."""
-    from yolov7_tracker_tpu_torch.utils.timer import Timer, block_and_time
-
-    t = Timer()
-    for _ in range(3):
-        t.tic()
-        avg = t.toc()
-    assert t.calls == 3 and avg == t.total_time / 3 and avg >= 0
-    assert t.toc(average=False) == t.duration
-    t.clear()
-    assert t.calls == 0
-    out, secs = block_and_time(lambda a, b: a + b, 2, b=3)
-    assert out == 5 and secs >= 0

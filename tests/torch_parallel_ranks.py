@@ -102,22 +102,25 @@ def _track(mesh, case):
     """The sharded tracker over the case's streams, and each rank's
     launches of K3 and K4 (none on the CPU, where the plain versions
     run)."""
-    from yolov7_tracker_tpu_torch.ops import auction, auction_square
     from yolov7_tracker_tpu_torch.parallel.tracking import (
         make_sharded_tracker, stack_slabs)
     from yolov7_tracker_tpu_torch.trackers import slab as S
     from yolov7_tracker_tpu_torch.trackers.registry import build_tracker
+    from yolov7_tracker_tpu_torch.utils import trace
 
     dev = mesh.device
     step, cfg = build_tracker(S.TrackerConfig(**case["cfg"]), dev)
     dets = S.DetSlab(*(torch.as_tensor(x, device=dev)
                        for x in case["dets"]))
     n = dets.valid.shape[1]
-    k3, k4 = auction_square.LAUNCHES_K3, auction.LAUNCHES_K4
-    slabs, outs = make_sharded_tracker(step, mesh)(
-        stack_slabs(cfg, n, dev), dets)
-    launches = torch.tensor([auction_square.LAUNCHES_K3 - k3,
-                             auction.LAUNCHES_K4 - k4], device=dev)
+    with trace.recording():
+        before = trace.counters()
+        slabs, outs = make_sharded_tracker(step, mesh)(
+            stack_slabs(cfg, n, dev), dets)
+        after = trace.counters()
+    launches = torch.tensor([after.get(k, 0) - before.get(k, 0)
+                             for k in ("launches.k3", "launches.k4")],
+                            device=dev)
     return {"slabs": tuple(slabs), "outs": tuple(outs),
             "launches": M.gather_tensor(mesh, launches[None])}
 

@@ -233,6 +233,7 @@ def main(argv=None):
     from ..pipeline import PipelineConfig, TrackingPipeline
     from ..reid import resolve_reid
     from ..trackers import slab as S
+    from ..utils import trace
 
     n = len(opts.streams)
     reid, reid_state_dict = resolve_reid(opts.tracker, opts.reid_model_path)
@@ -376,6 +377,7 @@ def main(argv=None):
     def harvest(item):
         stepped, host, done = item
         if done is not None:
+            trace.count("host_syncs.rows_out")
             done.synchronize()
         out = pipe.unpack_output(host.numpy())
         for i in range(n):

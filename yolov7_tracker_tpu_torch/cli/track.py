@@ -33,12 +33,19 @@ checkpoints), a reference checkpoint (a state_dict in the reference's
 names, or a pickled one with --trust_model_path) or a torch state_dict in
 the port's module names. --gmc defaults to orb for botsort and ecc for
 strongsort, as in the JAX CLI; orb needs OpenCV on the host, so on a
-machine without it pass --gmc ecc or --gmc none.
+machine without it pass --gmc ecc or --gmc none. --profile PATH runs the
+tracking loop under torch.profiler (CPU and, on a card, CUDA) and writes
+its Chrome trace to PATH with the program's own spans (utils/trace.py:
+pipeline, detector, nms, tracker, tracker.solve, ...) on a row of their
+own, in the file's time base: the spans over the card's kernels in one
+timeline.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import os
 import time
 
@@ -139,6 +146,10 @@ def parse_args(argv=None):
                         "tracks from these instead of running the detector")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda, which must exist)")
+    p.add_argument("--profile", type=str, default="",
+                   help="write a Chrome trace of the tracking loop here: "
+                        "torch.profiler's events with the program's spans "
+                        "on a row of their own")
     return p.parse_args(argv)
 
 
@@ -226,6 +237,42 @@ def calibration_frames(frames, img_size: int, n: int = 4):
     return [resize_linear(arr, img_size, img_size, antialias=True)]
 
 
+def profiled(device):
+    """torch.profiler over the CPU and, on a card, CUDA; the tracer
+    (utils/trace.py) records while it collects."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..utils import trace
+
+    trace.reset()
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+def write_profile(prof, path: str) -> None:
+    """The profiler's Chrome trace at ``path`` with the tracer's spans
+    appended as complete events on a row of their own, in the file's time
+    base (``baseTimeNanoseconds``; Unix ns, the spans' clock)."""
+    from ..utils import trace
+
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    # a process id of their own, past every numeric one the file has
+    pid = 1 + max([e["pid"] for e in doc["traceEvents"]
+                   if isinstance(e.get("pid"), int)], default=0)
+    events = trace.chrome_events(int(doc.get("baseTimeNanoseconds", 0)),
+                                 pid=pid)
+    doc["traceEvents"] += events + [{"name": "process_name", "ph": "M",
+                                     "pid": pid,
+                                     "args": {"name": "program spans"}}]
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    print(f"profile: {path} ({len(events)} program spans)")
+
+
 def main(argv=None):
     opts = parse_args(argv)
     cfgs = load_dataset_config(opts)
@@ -290,26 +337,30 @@ def main(argv=None):
     folder = os.path.join(
         opts.output_dir, f"{opts.tracker}_{time.strftime('%Y%m%d_%H%M%S')}")
     seq_fps = []
-    for seq in seqs:
-        t0 = time.time()
-        if opts.detections:
-            from ..data.detections import load_mot_detections
+    prof = profiled(device) if opts.profile else contextlib.nullcontext()
+    with prof:
+        for seq in seqs:
+            t0 = time.time()
+            if opts.detections:
+                from ..data.detections import load_mot_detections
 
-            det_path = os.path.join(opts.detections, f"{seq.name}.txt")
-            if not os.path.isfile(det_path):
-                print(f"{seq.name}: no detections at {det_path}, skipping")
-                continue
-            results = pipe.run_sequence_detections(
-                load_mot_detections(det_path), len(seq))
-        else:
-            results = pipe.run_sequence(seqmod.iter_frames(seq))
-        fps = len(seq) / max(time.time() - t0, 1e-9)
-        seq_fps.append(fps)
-        print(f"{seq.name}: {len(seq)} frames, {fps:.1f} fps "
-              f"on {pipe.device}")
-        if linker is not None or opts.gsi:
-            results = post_process(results, linker, opts.gsi)
-        writer.save_results(folder, seq.name, results)
+                det_path = os.path.join(opts.detections, f"{seq.name}.txt")
+                if not os.path.isfile(det_path):
+                    print(f"{seq.name}: no detections at {det_path}, skipping")
+                    continue
+                results = pipe.run_sequence_detections(
+                    load_mot_detections(det_path), len(seq))
+            else:
+                results = pipe.run_sequence(seqmod.iter_frames(seq))
+            fps = len(seq) / max(time.time() - t0, 1e-9)
+            seq_fps.append(fps)
+            print(f"{seq.name}: {len(seq)} frames, {fps:.1f} fps "
+                  f"on {pipe.device}")
+            if linker is not None or opts.gsi:
+                results = post_process(results, linker, opts.gsi)
+            writer.save_results(folder, seq.name, results)
+    if opts.profile:
+        write_profile(prof, opts.profile)
     if seq_fps:
         print(f"mean fps: {np.mean(seq_fps):.2f}")
     if opts.track_eval and cfgs.get("TRACK_EVAL"):

@@ -19,6 +19,8 @@ kernels on a CUDA tensor, their plain version on a CPU tensor). It is the
 solver the JAX package runs wherever it is not on a TPU, and the exact
 one; the streaming entry points of pipeline.py use it for stage 1.
 ``linear_assignment_host`` is the scipy ground truth for tests.
+Each call of the three solvers is a span ``tracker.solve`` (utils/
+trace.py): the preparation and the launch.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import auction
 from .auction import masked_assignment_twin
 from .auction_square import masked_assignment_square
@@ -36,6 +39,7 @@ DEFAULT_PHASES = 5
 STEEP_FACTOR = 4.0 ** (DEFAULT_PHASES / 2.0)
 
 
+@trace.traced("tracker.solve", trace.first_tensor)
 def solve_assignment(cost, row_mask, col_mask, thresh,
                      n_phases: int = DEFAULT_PHASES):
     """Masked assignment with cost-limit gating on the cost's device.
@@ -107,6 +111,7 @@ def masked_assignment_twin_cascade_torch(
     return r2c, c2r
 
 
+@trace.traced("tracker.solve", trace.first_tensor)
 def solve_cascade(cost, row_mask, col_mask, time_since_update, thresh,
                   depth: int):
     """The matching cascade with :func:`solve_assignment` at every level,
@@ -124,6 +129,7 @@ def solve_cascade(cost, row_mask, col_mask, time_since_update, thresh,
         *args, n_phases=2, phase_factor=STEEP_FACTOR)
 
 
+@trace.traced("tracker.solve", trace.first_tensor)
 def masked_assignment(cost, row_mask, col_mask, thresh,
                       n_phases: int = DEFAULT_PHASES):
     """Exact masked assignment with cost-limit gating on the cost's

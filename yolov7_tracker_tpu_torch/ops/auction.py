@@ -47,18 +47,13 @@ import functools
 
 import torch
 
+from ..utils import trace
 from .cuda_build import build_library
 
 NEG_F = -1e9
 MAX_ITERS = 4096
 TWIN_MAX_ITERS = 512    # masked_assignment_v2's max_iters (bid rounds a phase)
 _MAX_PHASES = 8     # csrc/auction.cu MAX_PHASES
-
-# K2, K4 and K4's cascade launches since the last reset; chip_smoke.py
-# reads them to show which kernel the paths went through.
-LAUNCHES = 0
-LAUNCHES_K4 = 0
-LAUNCHES_CASCADE = 0
 
 _LIBS = {}          # bound libraries: False the timed build, True profiling
 BUILD_SECONDS = None
@@ -480,7 +475,6 @@ def _prepare(profile, cost, row_mask, col_mask, thresh, max_iters, n_phases,
     keep = (cost, rm, cm, th, tsu, r2c, c2r, sweeps, profile)
 
     def fire():
-        global LAUNCHES, LAUNCHES_K4, LAUNCHES_CASCADE
         stream = torch.cuda.current_stream(keep[0].device).cuda_stream
         err = launch(*args, stream)
         if err != 0:
@@ -488,12 +482,11 @@ def _prepare(profile, cost, row_mask, col_mask, thresh, max_iters, n_phases,
                 f"auction kernel launch failed: CUDA error {err}")
         if profile is not None:
             return
-        if cascade is not None:
-            LAUNCHES_CASCADE += 1
-        elif twin:
-            LAUNCHES_K4 += 1
-        else:
-            LAUNCHES += 1
+        # the launches of each kernel, counted while utils/trace.py
+        # records: the tests and chip_smoke.py read which kernel a path
+        # went through
+        trace.count("launches.k4_cascade" if cascade is not None else
+                    "launches.k4" if twin else "launches.k2")
 
     return fire, batched, r2c, c2r
 

@@ -42,15 +42,11 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from .auction import MAX_ITERS, NEG_F, _batched_args, _powers, eps_schedule
 from .cuda_build import build_library
 
 _MAX_PHASES = 8     # csrc/auction_square.cu MAX_PHASES
-
-# kernel launches since the last reset, by entry point; chip_smoke.py reads
-# them to show that step_frame went through K1 and serving through K3.
-LAUNCHES_K1 = 0
-LAUNCHES_K3 = 0
 
 _LIBS = {}          # bound libraries: False the timed build, True profiling
 BUILD_SECONDS = None
@@ -326,14 +322,12 @@ def masked_assignment_square_cuda(cost, row_mask, col_mask, thresh,
     sweeps per phase; ``cells``: optional (B,) int64 CUDA tensor that
     receives the finite entries of the extended matrix each solve read.
     """
-    global LAUNCHES_K1, LAUNCHES_K3
     batched, r2c, c2r = _launch(None, cost, row_mask, col_mask, thresh,
                                 max_iters, n_phases, phase_factor, sweeps,
                                 cells)
-    if batched:
-        LAUNCHES_K3 += 1
-    else:
-        LAUNCHES_K1 += 1
+    # counted while utils/trace.py records: chip_smoke.py reads them to
+    # show that step_frame went through K1 and serving through K3
+    trace.count("launches.k3" if batched else "launches.k1")
     return (r2c, c2r) if batched else (r2c[0], c2r[0])
 
 

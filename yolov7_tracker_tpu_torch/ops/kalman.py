@@ -15,7 +15,11 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import trace
 from . import boxes
+
+# the filter's steps the trackers call, each a span "tracker.kalman"
+_kalman_span = trace.traced("tracker.kalman", trace.first_tensor)
 
 CHI2INV95 = (3.8415, 5.9915, 7.8147, 9.4877, 11.070, 12.592, 14.067, 15.507,
              16.919)
@@ -94,6 +98,7 @@ def _meas_std(fmt: str, mean, confidence=None):
     return std
 
 
+@_kalman_span
 def initiate(fmt: str, measurement):
     """New-track (mean (...,8), cov (...,8,8)); velocities start at 0."""
     pad = torch.zeros(measurement.shape[:-1] + (4,), dtype=measurement.dtype,
@@ -106,6 +111,7 @@ def initiate(fmt: str, measurement):
     return mean, torch.diag_embed(torch.square(std))
 
 
+@_kalman_span
 def predict(fmt: str, mean, cov):
     f = motion_matrix(fmt, mean.device)
     q_std = _std_profile(fmt, mean, initiate=False)
@@ -115,6 +121,7 @@ def predict(fmt: str, mean, cov):
     return new_mean, new_cov
 
 
+@_kalman_span
 def project(fmt: str, mean, cov, confidence=None):
     h = update_matrix(mean.device)
     r = torch.diag_embed(torch.square(_meas_std(fmt, mean, confidence)))
@@ -149,6 +156,7 @@ def _inv_sym4(m):
         -2)
 
 
+@_kalman_span
 def update(fmt: str, mean, cov, measurement, confidence=None):
     """Batched correction step; `confidence` feeds the NSA variant only."""
     conf = confidence if SPECS[fmt].nsa else None
@@ -161,6 +169,7 @@ def update(fmt: str, mean, cov, measurement, confidence=None):
     return new_mean, new_cov
 
 
+@_kalman_span
 def gating_distance(fmt: str, mean, cov, measurements,
                     only_position: bool = False):
     """Squared Mahalanobis distance, mean (..., T, 8) x measurements

@@ -5,7 +5,8 @@ Same semantics as the JAX module: candidates are the top-K by score
 class-aware suppression through the ``MAX_WH`` box offset, and the
 chunked greedy suppression that yields exactly torchvision's pick set,
 truncated at ``max_det``. The JAX ``while_loop``s become Python loops
-that read their condition from the device (one sync per iteration).
+that read their condition from the device (one sync per iteration,
+each counted as ``host_syncs.nms`` by utils/trace.py).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Sequence
 
 import torch
 
+from ..utils import trace
 from . import boxes as boxops
 
 MAX_WH = 4096.0  # class-offset stride, reference general.py:617
@@ -45,6 +47,7 @@ def greedy_suppress(sel_box, off_box, scores, cls_id, *, max_det: int,
     it = 0
     while it < max_det:
         go = (count < max_det) & (s.max() > 0.0)
+        trace.count("host_syncs.nms")
         if not bool(go):
             break
         top_s, idx = sorted_top_k(s, chunk)
@@ -56,6 +59,7 @@ def greedy_suppress(sel_box, off_box, scores, cls_id, *, max_det: int,
         kept = active
         for _ in range(chunk):
             new = active & ~(kept[:, None] & sup).any(dim=0)
+            trace.count("host_syncs.nms")
             changed = bool((new != kept).any())
             kept = new
             if not changed:

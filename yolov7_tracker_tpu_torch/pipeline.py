@@ -40,6 +40,14 @@ stay float32 whatever ``dtype`` says, as in the JAX pipeline. Not in the
 port: the width-packed front (a TPU layout). ``detect_batch_spatial``
 height-shards the detector over the ranks of a mesh
 (parallel/spatial.py).
+
+Every public entry is a span ``pipeline`` of utils/trace.py, and the
+layers under it open theirs (``pipeline.frames_in``, ``detector``,
+``detector.letterbox``, ``nms``, ``reid``, ``reid.cnn``, ``tracker``,
+``tracker.kalman``, ``tracker.solve``, ``pipeline.rows_out``); each read
+from the device on this path counts as ``host_syncs.<site>``. They
+record only while the tracer does (a ``recording()`` block, or a
+profiler collecting).
 """
 
 from __future__ import annotations
@@ -64,6 +72,12 @@ from .reid import extractor
 from .trackers import slab as S
 from .trackers.gmc import GMC
 from .trackers.registry import build_predict_only, build_tracker
+from .utils import trace
+
+
+def _on_device(self, *args, **kwargs):
+    """Where a method's span times its work: the pipeline's device."""
+    return self.device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,25 +212,29 @@ class TrackingPipeline:
                 (uh + top + bottom, uw + left + right), (uh, uw))
         return self._geometry_cache[src_hw]
 
+    @trace.traced("pipeline.frames_in", _on_device)
     def _frames(self, frames_u8) -> torch.Tensor:
         if not isinstance(frames_u8, torch.Tensor):
             frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
         return frames_u8.to(self.device, non_blocking=True)
 
     @torch.no_grad()
+    @trace.traced("detector", _on_device)
     def detect_batch(self, frames_u8):
         """(B, H, W, 3) uint8 -> (boxes (B, max_det, 4) tlbr in frame
         pixels, score (B, max_det), cls (B, max_det), counts (B,))."""
         frames = self._frames(frames_u8)
         src_hw = tuple(frames.shape[1:3])
         out_hw, unpad_hw = self._geometry(src_hw)
-        imgs, _ = letterbox.device_preprocess(
-            frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=self.dtype)
+        with trace.span("detector.letterbox", frames):
+            imgs, _ = letterbox.device_preprocess(
+                frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=self.dtype)
         dets, counts = self.nms(self.model(imgs))
         boxes = letterbox.scale_coords_device(dets[..., :4], out_hw, src_hw)
         return boxes, dets[..., 4], dets[..., 5], counts
 
     @torch.no_grad()
+    @trace.traced("detector", _on_device)
     def detect_batch_spatial(self, frames_u8, mesh):
         """``detect_batch`` with the detector's forward height-sharded over
         the ranks of ``mesh`` (parallel/spatial.py): the low-latency mode
@@ -235,12 +253,14 @@ class TrackingPipeline:
         frames = self._frames(frames_u8)
         src_hw = tuple(frames.shape[1:3])
         out_hw, unpad_hw = self._geometry(src_hw)
-        imgs, _ = letterbox.device_preprocess(
-            frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=self.dtype)
+        with trace.span("detector.letterbox", frames):
+            imgs, _ = letterbox.device_preprocess(
+                frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=self.dtype)
         dets, counts = self.nms(self._spatial[key](imgs))
         boxes = letterbox.scale_coords_device(dets[..., :4], out_hw, src_hw)
         return boxes, dets[..., 4], dets[..., 5], counts
 
+    @trace.traced("nms", _on_device)
     def nms(self, out):
         """The detector's output -> (dets (B, max_det, 6), counts (B,)),
         by head kind as in the JAX pipeline: the raw levels of Detect,
@@ -290,6 +310,7 @@ class TrackingPipeline:
         return slab
 
     @torch.no_grad()
+    @trace.traced("reid", _on_device)
     def embed_dets(self, frame_u8, tlbr):
         """(H, W, 3) uint8 frame + (D, 4) det boxes, both on the device ->
         (D, F) float32 ReID features: the top reid_capacity boxes (NMS
@@ -310,6 +331,7 @@ class TrackingPipeline:
         return feats
 
     @torch.no_grad()
+    @trace.traced("reid.cnn", _on_device)
     def reid_forward(self, crops):
         """(N, h, w, 3) normalised crops -> (N, F) ReID features, in
         float32 (TF32 off: reid.float32_exact)."""
@@ -330,6 +352,7 @@ class TrackingPipeline:
                                 device=boxes.device),
             warp=S.identity_warp(boxes.device))
 
+    @trace.traced("pipeline", _on_device)
     def track_frames(self, slab: S.TrackSlab, det_slabs):
         """Step the tracker through a list of DetSlabs; returns (slab,
         FrameOutput stacked over the frames)."""
@@ -339,6 +362,7 @@ class TrackingPipeline:
             outs.append(out)
         return slab, S.FrameOutput(*(torch.stack(f) for f in zip(*outs)))
 
+    @trace.traced("pipeline", _on_device)
     def process_batch(self, slab: S.TrackSlab, frames_u8):
         """Detect + track a batch of frames; returns (slab, FrameOutput
         with a leading frame axis). The frames' camera warps come from the
@@ -387,6 +411,7 @@ class TrackingPipeline:
         return dets._replace(warp=torch.as_tensor(
             warps, dtype=torch.float32).to(self.device, non_blocking=True))
 
+    @trace.traced("pipeline", _on_device)
     def track_scan_multi(self, slabs: S.TrackSlab, det_streams: S.DetSlab):
         """slabs: stacked over S streams; det_streams: every field
         (T, S, D, ...), the warp (T, S, 2, 3) or one (2, 3) for all. Steps
@@ -402,6 +427,7 @@ class TrackingPipeline:
             outs.append(out)
         return slabs, S.FrameOutput(*(torch.stack(f) for f in zip(*outs)))
 
+    @trace.traced("pipeline", _on_device)
     def process_multistream(self, slabs: S.TrackSlab, frames_u8,
                             warps=None):
         """One frame for each of S independent streams: ONE detector batch
@@ -423,6 +449,7 @@ class TrackingPipeline:
                 frames, boxes[:, :d]))
         return self.step(slabs, dets, solve_stage1=masked_assignment)
 
+    @trace.traced("pipeline", _on_device)
     def step_frame(self, slab: S.TrackSlab, frame, warp=None):
         """Detect + associate one (H, W, 3) frame of one stream: the
         latency-oriented streaming mode. ``warp``: the frame's (2, 3)
@@ -444,13 +471,18 @@ class TrackingPipeline:
     # ------------------------------------------------------------------
 
     @staticmethod
+    @trace.traced("pipeline.rows_out", lambda outs: outs.valid)
     def pack_output(outs: S.FrameOutput) -> torch.Tensor:
         return pack_frame_output(outs)
 
     @staticmethod
+    @trace.traced("pipeline.rows_out", trace.first_tensor)
     def unpack_output(arr) -> S.FrameOutput:
         """Host-side inverse of pack_output (numpy leaves)."""
-        arr = np.asarray(arr.cpu() if isinstance(arr, torch.Tensor) else arr)
+        if isinstance(arr, torch.Tensor):
+            trace.count("host_syncs.rows_out")
+            arr = arr.cpu()
+        arr = np.asarray(arr)
         return S.FrameOutput(
             track_id=np.ascontiguousarray(arr[..., 0],
                                           dtype=np.float32).view(np.int32),
@@ -458,6 +490,7 @@ class TrackingPipeline:
             valid=arr[..., 7] > 0.5)
 
     @staticmethod
+    @trace.traced("pipeline.rows_out")
     def _emit(results, outs: S.FrameOutput, first_frame: int) -> None:
         for b in range(outs.valid.shape[0]):
             v = outs.valid[b]
@@ -469,6 +502,7 @@ class TrackingPipeline:
     # sequences
     # ------------------------------------------------------------------
 
+    @trace.traced("pipeline", _on_device)
     def run_sequence_detections(self, dets_by_frame, n_frames: int):
         """Track from external detections {frame (1-based): (N, 6)
         [x1, y1, x2, y2, score, cls]}; returns [(frame_id, ids, tlwhs,
@@ -492,12 +526,14 @@ class TrackingPipeline:
             self._emit(results, self.unpack_output(packed), f)
         return results
 
+    @trace.traced("pipeline", _on_device)
     def run_sequence(self, frames: Iterable[np.ndarray]):
         """Track a sequence of uint8 HWC frames; returns per-frame
         [(frame_id, ids, tlwhs, clses)]."""
         results, _ = self.run_sequence_stateful(frames)
         return results
 
+    @trace.traced("pipeline", _on_device)
     def run_sequence_stateful(self, frames: Iterable[np.ndarray],
                               initial_slab: Optional[S.TrackSlab] = None):
         """:meth:`run_sequence` from ``initial_slab`` (frame numbering
@@ -511,6 +547,7 @@ class TrackingPipeline:
         on detected frames only."""
         slab = initial_slab if initial_slab is not None \
             else self.init_tracker()
+        trace.count("host_syncs.frame_counter")
         frame_id = int(slab.frame)
         k_det = max(1, self.pcfg.detect_per_frame)
         results = []
@@ -518,7 +555,9 @@ class TrackingPipeline:
 
         def flush(slab):
             nonlocal frame_id
-            slab, outs = self.process_batch(slab, np.stack(batch))
+            with trace.span("pipeline.frames_in"):
+                frames_u8 = np.stack(batch)
+            slab, outs = self.process_batch(slab, frames_u8)
             self._emit(results, self.unpack_output(self.pack_output(outs)),
                        frame_id + 1)
             frame_id += len(batch)

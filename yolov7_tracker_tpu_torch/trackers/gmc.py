@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from .slab import IDENTITY_WARP, identity_warp
 
 IDENTITY = IDENTITY_WARP.numpy()
@@ -179,8 +180,10 @@ class GMC:
         st = {}
         if self.prev_gray is not None:
             gray = self.prev_gray
-            st["gray"] = (gray.cpu().numpy() if isinstance(gray, torch.Tensor)
-                          else np.asarray(gray))
+            if isinstance(gray, torch.Tensor):
+                trace.count("host_syncs.state_save")
+                gray = gray.cpu()
+            st["gray"] = np.asarray(gray)
         if self.prev_kp is not None and len(self.prev_kp):
             st["kp"] = np.asarray(self.prev_kp, np.float32)
         if self.prev_desc is not None:
@@ -198,8 +201,10 @@ class GMC:
             return identity_warp(getattr(frame, "device", None))
         if self.method == "ecc":
             return self._ecc(torch.as_tensor(frame))
-        return self._orb(frame.cpu().numpy() if isinstance(frame, torch.Tensor)
-                         else np.asarray(frame))
+        if isinstance(frame, torch.Tensor):
+            trace.count("host_syncs.gmc")
+            return self._orb(frame.cpu().numpy())
+        return self._orb(np.asarray(frame))
 
     def _ecc(self, frame: torch.Tensor) -> torch.Tensor:
         gray = downscale2(to_gray(frame))

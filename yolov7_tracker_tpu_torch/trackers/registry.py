@@ -5,7 +5,8 @@ botsort and strongsort force their own Kalman format (the reference's
 track.py:67-71), and a tracker's overrides (deepsort's feature ring
 buffer, C-BIoU's Kalman-free state, ...) apply only where the caller left
 the field at its default. deepmot's DHN weights are loaded when the step
-is built.
+is built. Every step built here, a tracker's or the predict-only one,
+is a span ``tracker`` (utils/trace.py), timed on the slab's device.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import functools
 import importlib
 from typing import Callable, Dict, Tuple
 
+from ..utils import trace
 from . import slab as S
 
 _STEPS: Dict[str, Tuple[Callable, dict]] = {}
@@ -23,9 +25,17 @@ _MODULES = ("sort", "bytetrack", "c_biou", "deepsort", "botsort", "uavmot",
 _FORCED_KALMAN = {"botsort": "botsort", "strongsort": "strongsort"}
 
 
+def _slab_frame(*args, **kwargs):
+    return (args[0] if args else kwargs["slab"]).frame
+
+
+def _spanned(step: Callable) -> Callable:
+    return trace.traced("tracker", _slab_frame)(step)
+
+
 def register(name: str, **cfg_overrides):
     def deco(fn):
-        _STEPS[name] = (fn, cfg_overrides)
+        _STEPS[name] = (_spanned(fn), cfg_overrides)
         return fn
 
     return deco
@@ -79,6 +89,7 @@ def build_predict_only(cfg: S.TrackerConfig) -> Callable:
     ``slab -> (slab, FrameOutput)`` and makes no host sync."""
     fmt = cfg.kalman_format
 
+    @_spanned
     def step(slab: S.TrackSlab):
         slab = slab._replace(frame=slab.frame + 1)
         if fmt != "none":

@@ -24,6 +24,7 @@ import torch
 
 from ..ops import boxes as boxops
 from ..ops import kalman
+from ..utils import trace
 
 # TrackState (basetrack.py:14-18)
 NEW, TRACKED, LOST, REMOVED = 0, 1, 2, 3
@@ -532,6 +533,7 @@ def save_slab(path: str, slab: TrackSlab, cfg: TrackerConfig,
     """Write tracker state to ``path`` atomically (npz, same layout as the
     JAX package's save_slab). ``aux``: extra numpy arrays stored beside
     the slab (the GMC's previous-frame state)."""
+    trace.count("host_syncs.state_save", len(slab))
     arrays = {f: v.detach().cpu().numpy() for f, v in zip(slab._fields, slab)}
     arrays["_fingerprint"] = np.asarray(_state_fingerprint(cfg))
     if tag:
