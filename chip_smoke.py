@@ -13,8 +13,9 @@ Phases, each of which must pass:
                 Pallas kernel's form, which no path runs),
                 csrc/auction_square.cu (K1 and K3, the square
                 lapjv-extended auction) and the profiling build of each
-                (-DAUCTION_PROFILE; K4's and K2's, K1/K3's) for sm_90a
-                from the checkout, side by side.
+                (-DAUCTION_PROFILE; K4's and K2's, K1/K3's) and
+                csrc/deepsort_cnn.cu (K5, the DeepSORT CNN with its BN
+                folded) for sm_90a from the checkout, side by side.
   2. kernels -- each kernel against its plain PyTorch version on the card
                 at the tracker's shape (128, 300), exact equality of
                 r2c/c2r and of every problem's sweep count. K4 and K2,
@@ -87,7 +88,12 @@ Phases, each of which must pass:
                 equal to its solves a frame x 16 (deepsort: 2 K4 and one
                 launch of K4's cascade entry a frame), no K2 launch
                 (strongsort also timed with K2, before K4, and K4 as the
-                solver in turns); every tracker step under
+                solver in turns); deepsort's CNN as K5, 18 launches a
+                frame (none for the others), and K5 alone (k5_phase): at
+                N = 1, 7, 300, 613 and 2400 against its plain version
+                and the module within K5_REL_TOL, timed at 300 beside
+                its bound, the plain version and cuDNN (library_ms,
+                which the port never calls); every tracker step under
                 torch.cuda.set_sync_debug_mode("error") (a host sync inside
                 a step fails the phase), for botsort and strongsort also
                 without the GMC's warp; a CPU replay of the tracker step on
@@ -322,6 +328,11 @@ is its twin for work on the private-dummy kernels: it builds, checks,
 times and profiles K4 and K2, and checks K4's cascade entry (and times it
 on deepsort's cascade, given the file).
 
+    python3 chip_smoke.py --k5-only
+
+builds csrc/deepsort_cnn.cu and runs k5_phase alone (K5's record on one
+JSON line, no result line).
+
     python3 chip_smoke.py --train-only
 
 runs phase 10 alone and prints its JSON line, no result line.
@@ -370,6 +381,15 @@ REPLACES_CASCADE = "yolov7_tracker_tpu/trackers/appearance.py:66"
 REPLACES_K1 = "yolov7_tracker_tpu/ops/pallas_auction.py:196"
 REPLACES_K3 = "yolov7_tracker_tpu/ops/pallas_auction.py:631"
 SOURCE_SQUARE = "yolov7_tracker_tpu_torch/csrc/auction_square.cu"
+# K5, the DeepSORT CNN folded (ops/deepsort_cnn.py), replaces no TPU kernel:
+# the JAX package runs the network as plain XLA
+SOURCE_K5 = "yolov7_tracker_tpu_torch/csrc/deepsort_cnn.cu"
+REPLACES_K5 = "none: yolov7_tracker_tpu/reid/deepsort_cnn.py is plain XLA"
+K5_NS = (1, 7, 300, 613, 2400)   # crops: one, a few, a frame's 300 slots, a
+#                                  ragged edge, a tick of 8 streams
+K5_TIMED_N = 300
+K5_REL_TOL = 1e-5             # K5 against the plain version and the module
+K5_LAUNCHES = 18              # the stem, 16 convolutions, the head
 # std gain of the random conv kernels below the heads. At 1.0 (and still at
 # 1.4) w6's signal dies out on its way through ~100 SiLU layers and every
 # frame gets the same boxes, so every camera would hand the tracker one and
@@ -1686,6 +1706,7 @@ def calibrate_reid(pipe, frame):
     boxes = pipe.detect_batch(frame[None])[0][0, :pipe.tcfg.det_capacity]
     calibrate_bn(pipe.reid_model, extractor.extract_crops(
         pipe._frames(frame), boxes, pipe.reid_hw).permute(0, 3, 1, 2))
+    pipe.fold_reid()                 # K5 reads the folded statistics
 
 
 def calibrate_bn(model, crops):
@@ -1871,12 +1892,17 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     pipe.step = plain_step
     n = len(frames)
     per_cascade = CASCADES_PER_FRAME.get(name, 0)
+    # the DeepSORT CNN is K5, one forward a frame; OSNet is no kernel
+    per_k5 = K5_LAUNCHES if pipe.pcfg.reid == "deepsort_cnn" else 0
     if (launches != per_frame * n or got["launches.k2"] != 0
-            or cascades != per_cascade * n):
-        raise AssertionError(f"{name}: {launches} K4, {cascades} cascade "
-                             f"and {got['launches.k2']} K2 launches in {n} "
-                             f"frames, expected {per_frame} K4 and "
-                             f"{per_cascade} cascade a frame")
+            or cascades != per_cascade * n
+            or got["launches.k5"] != per_k5 * n):
+        raise AssertionError(f"{name}: {launches} K4, {cascades} cascade, "
+                             f"{got['launches.k5']} K5 and "
+                             f"{got['launches.k2']} K2 launches in {n} "
+                             f"frames, expected {per_frame} K4, "
+                             f"{per_cascade} cascade and {per_k5} K5 a "
+                             "frame")
     tracks = [len(ids) for _, ids, _, _ in results]
     if len(results) != n or max(tracks) < 1 or int(slab.frame) != n:
         raise AssertionError(f"{name}: tracks per frame {tracks}")
@@ -1901,6 +1927,7 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     warps = torch.stack([d.warp.to(dev) for d in dets])
     rec = {"ms_per_frame": wall / n * 1e3, "solver_turns": turns,
            "k4_launches": launches, "cascade_launches": cascades,
+           "k5_launches": got["launches.k5"],
            "k4_per_frame": per_frame, "tracks_per_frame_mean":
            float(np.mean(tracks)), "tracks_per_frame_max": max(tracks),
            "ids": int(slab.next_id), "cpu_replay": "same ids, boxes 1e-2",
@@ -2429,6 +2456,7 @@ def run_trackers(sd, dev):
                                                     dev)
             strongsort_rows = results
         if name == "deepsort":
+            rec["k5"] = k5_phase(dev)
             rec["cascade"] = cascade_timing(pipe, dets, dev)
             rec["cascade_forms"] = cascade_forms(pipe, dets, results, dev)
         out[name] = rec
@@ -6277,6 +6305,150 @@ def k2_only(dev, problems_file, cascade_file):
     return 0
 
 
+def k5_layers():
+    """The names of K5's launches, in order."""
+    return (["stem"] + [f"layer{i}.{b}.conv{c}" for i in range(1, 5)
+                        for b in range(2) for c in (1, 2)] + ["head"])
+
+
+def k5_flops(folded, n):
+    """Multiply-adds x 2 of each of K5's launches on n 128 x 64 crops (the
+    head's few operations as 0), from the folded weights' shapes."""
+    h, w = 64, 32
+    out = [2 * n * 128 * 64 * folded.stem_weight.numel()]
+    for conv in folded.convs:
+        h, w = (h - 1) // conv.stride + 1, (w - 1) // conv.stride + 1
+        out.append(2 * n * h * w * conv.weight.numel())
+    return out + [0]
+
+
+def k5_launch_ms(k5, folded, crops, reps=5):
+    """ms of each of K5's launches on ``crops``: a CUDA event recorded as
+    each launch is checked (ops/deepsort_cnn._check), the mean of reps
+    forwards after a warm-up."""
+    import torch
+
+    plain_check = k5._check
+    events = []
+
+    def timed_check(err, what):
+        plain_check(err, what)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[-1].append(ev)
+
+    k5.forward_cuda(folded, crops)
+    torch.cuda.synchronize()
+    k5._check = timed_check
+    try:
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            events.append([start])
+            k5.forward_cuda(folded, crops)
+    finally:
+        k5._check = plain_check
+    torch.cuda.synchronize()
+    per = np.array([[a.elapsed_time(b) for a, b in zip(evs, evs[1:])]
+                    for evs in events])
+    return per.mean(axis=0).tolist()
+
+
+def k5_phase(dev):
+    """K5 (csrc/deepsort_cnn.cu) on the DeepSORT CNN with seeded weights and
+    BN statistics far from identity: 18 launches a forward, each N of K5_NS
+    against the plain version (ops/deepsort_cnn.forward_plain, cuDNN in
+    float32) and the module's eager forward (float32_exact) within
+    K5_REL_TOL of the largest |value|; then, at K5_TIMED_N crops, its time
+    beside its bound (the convolutions' operations over 67 TFLOP/s), the
+    plain version's and cuDNN's float32 forward of the module (library_ms,
+    the yardstick only: the port never calls it), and each launch's time.
+    Returns the kernel record."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import deepsort_cnn as k5
+    from yolov7_tracker_tpu_torch.reid import (build_reid, float32_exact,
+                                               random_reid_state_dict)
+
+    model = build_reid("deepsort_cnn")[0]
+    sd = random_reid_state_dict(model, seed=11)
+    rng = np.random.default_rng(11)
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            sd[k] = torch.from_numpy(rng.normal(0.0, 1.0, v.shape)
+                                     .astype(np.float32))
+        elif k.endswith("running_var"):
+            sd[k] = torch.from_numpy(rng.uniform(0.05, 4.0, v.shape)
+                                     .astype(np.float32))
+    model.load_state_dict(sd)
+    model = model.to(dev).eval()
+    folded = k5.fold(model)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    worst, launches, crops = 0.0, {}, None
+    for n in K5_NS:
+        crops = torch.randn((n, 128, 64, 3), generator=gen, device=dev)
+        with counting() as got:
+            kern = k5.forward_cuda(folded, crops)
+            torch.cuda.synchronize()
+        launches[n] = got["launches.k5"]
+        with torch.no_grad(), float32_exact():
+            plain = k5.forward_plain(folded, crops)
+            eager = model(crops.permute(0, 3, 1, 2))
+        scale = float(eager.abs().max())
+        rel_plain = float((kern - plain).abs().max()) / scale
+        rel_eager = float((kern - eager).abs().max()) / scale
+        worst = max(worst, rel_plain, rel_eager)
+        if (launches[n] != K5_LAUNCHES or not rel_plain <= K5_REL_TOL
+                or not rel_eager <= K5_REL_TOL
+                or not bool(torch.isfinite(kern).all())):
+            raise AssertionError(
+                f"K5 at N = {n}: {launches[n]} launches (expected "
+                f"{K5_LAUNCHES}), relative to the plain version "
+                f"{rel_plain:.2e}, to the module {rel_eager:.2e} (tolerance "
+                f"{K5_REL_TOL})")
+        log(f"K5 at N = {n}: {launches[n]} launches; max |diff| / max "
+            f"|value| {rel_plain:.2e} against the plain version, "
+            f"{rel_eager:.2e} against the module (tolerance {K5_REL_TOL})")
+    crops = torch.randn((K5_TIMED_N, 128, 64, 3), generator=gen, device=dev)
+    x = crops.permute(0, 3, 1, 2)
+    t_k5 = cuda_ms(lambda: k5.forward_cuda(folded, crops), 20)
+    with torch.no_grad(), float32_exact():
+        t_plain = cuda_ms(lambda: k5.forward_plain(folded, crops), 5)
+        t_lib = cuda_ms(lambda: model(x), 5)
+    flops = k5_flops(folded, K5_TIMED_N)
+    bound = sum(flops) / FP32_OPS_PER_S * 1e3
+    per = k5_launch_ms(k5, folded, crops)
+    layers = {name: {"ms": ms, "bound_ms": f / FP32_OPS_PER_S * 1e3,
+                     "tflop_per_s": f / ms / 1e9 if ms > 0 else None}
+              for name, ms, f in zip(k5_layers(), per, flops)}
+    rec = {"name": "deepsort_cnn_k5", "route": "cuda", "source": SOURCE_K5,
+           "replaces": REPLACES_K5, "launches_by_n": launches,
+           "max_rel_err": worst, "n": K5_TIMED_N, "ms": t_k5,
+           "bound_ms": bound, "bound_by": "operations",
+           "share_of_bound": bound / t_k5, "gflop": sum(flops) / 1e9,
+           "plain_ms": t_plain, "library_ms": t_lib, "layers": layers,
+           "card": card_line()}
+    log(f"K5 at N = {K5_TIMED_N} on {rec['card']}: {t_k5:.3f} ms, bound "
+        f"{bound:.3f} ms ({sum(flops) / 1e9:.1f} GFLOP over 67 TFLOP/s: "
+        f"{100 * bound / t_k5:.1f}%), plain {t_plain:.3f} ms, cuDNN float32 "
+        f"(library_ms) {t_lib:.3f} ms")
+    for name, v in layers.items():
+        log(f"K5 {name}: {v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ms")
+    return rec
+
+
+def k5_only(dev):
+    """The short run behind --k5-only: build csrc/deepsort_cnn.cu and run
+    k5_phase."""
+    from yolov7_tracker_tpu_torch.ops import deepsort_cnn as k5
+
+    build_kernels([(k5, SOURCE_K5, ())])
+    print(json.dumps({"kernels": [k5_phase(dev)]}))
+    log("k5-only run done (not the smoke run: no result line)")
+    return 0
+
+
 def main(argv=None):
     import argparse
 
@@ -6288,6 +6460,8 @@ def main(argv=None):
     ap.add_argument("--k2-only", action="store_true",
                     help="only build, check, time and profile K4 and K2, "
                          "and check K4's cascade entry")
+    ap.add_argument("--k5-only", action="store_true",
+                    help="only build, check and time K5, the DeepSORT CNN")
     ap.add_argument("--train-only", action="store_true",
                     help="only phase 10 (training and the detector test)")
     ap.add_argument("--train2-only", action="store_true",
@@ -6322,6 +6496,8 @@ def main(argv=None):
         return square_only(dev, args.problems)
     if args.k2_only:
         return k2_only(dev, args.problems, args.cascade_problems)
+    if args.k5_only:
+        return k5_only(dev)
     if args.train_only:
         print(json.dumps({"train": train_phase(dev)}))
         log("train-only run done (not the smoke run: no result line)")
@@ -6349,9 +6525,11 @@ def main(argv=None):
     t0 = time.time()
     if os.path.isfile(os.path.join(OUT_DIR, "chip_smoke.log")):
         os.remove(os.path.join(OUT_DIR, "chip_smoke.log"))
+    from yolov7_tracker_tpu_torch.ops import deepsort_cnn as k5
+
     build_kernels([(auction, SOURCE, ()), (square, SOURCE_SQUARE, ()),
                    (auction, SOURCE, (True,)),
-                   (square, SOURCE_SQUARE, (True,))])
+                   (square, SOURCE_SQUARE, (True,)), (k5, SOURCE_K5, ())])
 
     worst = kernel_phase(dev)
     k4_seeded = k4_batch_timings(dev)
@@ -6471,11 +6649,15 @@ def main(argv=None):
               "max_abs_err": float(worst_sq),
               "library_ms": None, **on_tick,
               "seeded_batches": {str(b): t for b, t in t_k3.items()}}
+    # K5: the DeepSORT CNN of phase 6 (timed and checked there, k5_phase)
+    rec_k5 = {**trackers["deepsort"].pop("k5"), "launches_trackers": {
+        k: v["k5_launches"] for k, v in trackers.items()
+        if isinstance(v, dict) and "k5_launches" in v}}
     log(f"total {time.time() - t0:.1f} s")
     for line in ({"trackers": trackers}, {"train": train}, {"train2": train2},
                  {"models": models}, {"parallel": parallel},
                  {"kernels": [rec_k1, record, rec_k3, rec_k4,
-                              rec_cascade]}):
+                              rec_cascade, rec_k5]}):
         keep(json.dumps(line))
     keep(card_line())
     print(json.dumps({"ok": True, "device": {

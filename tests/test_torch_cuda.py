@@ -26,8 +26,8 @@ def card():
 
 
 def launches(kernel: str) -> int:
-    """The launches of ``kernel`` (k1, k2, k3, k4, k4_cascade) the tracer
-    has counted."""
+    """The launches of ``kernel`` (k1, k2, k3, k4, k4_cascade, k5) the
+    tracer has counted."""
     return trace.counters().get("launches." + kernel, 0)
 
 
@@ -562,6 +562,108 @@ def test_reid_crops_and_model_on_the_card(card, tf32_allowed, name):
     assert bool(torch.isfinite(f_card).all())
     rel = float((f_cpu - f_card).abs().max() / f_cpu.abs().max())
     assert rel <= 1e-3, rel
+
+
+def _k5_case(n, dev, seed):
+    """The DeepSORT CNN with seeded weights on ``dev``, its folded weights
+    and n seeded 128 x 64 crops there."""
+    from yolov7_tracker_tpu_torch.ops import deepsort_cnn as k5
+    from yolov7_tracker_tpu_torch.reid import (build_reid,
+                                               random_reid_state_dict)
+
+    model = build_reid("deepsort_cnn")[0]
+    model.load_state_dict(random_reid_state_dict(model, seed=seed))
+    model = model.to(dev).eval()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    crops = torch.randn((n, 128, 64, 3), generator=gen, device=dev)
+    return model, k5.fold(model), crops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 300, 613, 8 * 300])
+def test_k5_equals_the_module_and_its_plain_version(card, tf32_allowed, n):
+    """K5 against the DeepSORT CNN's eager forward under float32_exact and
+    the folded plain version, within 1e-5 of the largest |value|: one crop,
+    a frame's 300 slots, a ragged edge, a tick of 8 streams. Each forward
+    is 18 launches, each counted once."""
+    from yolov7_tracker_tpu_torch.ops import deepsort_cnn as k5
+    from yolov7_tracker_tpu_torch.reid import float32_exact
+
+    model, folded, crops = _k5_case(n, card, n)
+    before = launches("k5")
+    got = k5.forward_cuda(folded, crops)
+    torch.cuda.synchronize()
+    assert launches("k5") == before + 18
+    with torch.no_grad(), float32_exact():
+        want = model(crops.permute(0, 3, 1, 2))
+        plain = k5.forward_plain(folded, crops)
+    scale = float(want.abs().max())
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) / scale <= 1e-5
+    assert float((got - plain).abs().max()) / scale <= 1e-5
+
+
+@pytest.mark.cuda
+def test_k5_builds_launches_and_checks_its_inputs(card):
+    """The build and every launch raise nothing (each launch returns
+    cudaGetLastError, which the wrapper raises on; the synchronize
+    surfaces a fault during the run), and the wrapper refuses what the
+    kernels do not take."""
+    from yolov7_tracker_tpu_torch.ops import deepsort_cnn as k5
+
+    lib = k5.load_library()
+    assert k5.load_library() is lib
+    _, folded, crops = _k5_case(3, card, 3)
+    out = k5.forward(folded, crops)
+    torch.cuda.synchronize()
+    assert out.shape == (3, 512)
+    assert torch.allclose(out.norm(dim=1), torch.ones(3, device=card))
+    for bad in (crops[:, ::2, ::2].contiguous(), crops.double(),
+                crops.cpu()):
+        with pytest.raises(ValueError):
+            k5.forward_cuda(folded, bad)
+    _, cpu_folded, _ = _k5_case(1, "cpu", 3)
+    with pytest.raises(ValueError, match="device"):
+        k5.forward_cuda(cpu_folded, crops)
+
+
+@pytest.mark.cuda
+def test_pipeline_runs_the_deepsort_cnn_as_k5(card):
+    """The pipeline's ReID on the card: the DeepSORT CNN through K5 (18
+    launches an embed_dets, features within 1e-5 of the module's), OSNet
+    through its module (no K5 launch)."""
+    from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                   TrackingPipeline)
+    from yolov7_tracker_tpu_torch.reid import float32_exact
+    from yolov7_tracker_tpu_torch.trackers.slab import TrackerConfig
+
+    rng = np.random.default_rng(8)
+    frame = torch.from_numpy(
+        rng.integers(0, 255, (1080, 1920, 3), np.uint8)).to(card)
+    xy = rng.uniform(0, 1700, (300, 2))
+    tlbr = torch.from_numpy(np.c_[xy, xy + rng.uniform(20, 200, (300, 2))]
+                            .astype(np.float32)).to(card)
+    for reid, tracker, k5_launches in (("deepsort_cnn", "deepsort", 18),
+                                       ("osnet_x0_25", "strongsort", 0)):
+        pipe = TrackingPipeline(
+            PipelineConfig(model="yolov7-tiny", nc=8, img_size=64,
+                           detector_batch=1, dtype="float32", max_det=300,
+                           reid=reid),
+            TrackerConfig(tracker=tracker, capacity=16, det_capacity=300),
+            device=card)
+        before = launches("k5")
+        feats = pipe.embed_dets(frame, tlbr)
+        torch.cuda.synchronize()
+        assert launches("k5") == before + k5_launches, reid
+        if reid != "deepsort_cnn":
+            continue
+        from yolov7_tracker_tpu_torch.reid import extractor
+
+        crops = extractor.extract_crops(frame, tlbr, pipe.reid_hw)
+        with torch.no_grad(), float32_exact():
+            want = pipe.reid_model(crops.permute(0, 3, 1, 2))
+        assert float((feats - want).abs().max() / want.abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -202,3 +202,162 @@ def test_seeded_reid_needs_measured_bn_statistics():
         norm = float(model(crops).norm(dim=1).mean())
     assert before > 0.99 and after < 0.6, (before, after)
     assert abs(norm - 1.0) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# K5: the DeepSORT CNN folded (ops/deepsort_cnn.py), its plain version here
+# ---------------------------------------------------------------------------
+
+def _far_bn_state_dict(model, seed):
+    """Seeded weights whose BN statistics and affine terms are far from
+    identity (means N(0, 2), variances U(0.01, 10), scales U(-2, 2)), so
+    that a wrong fold shows."""
+    sd = random_reid_state_dict(model, seed=seed)
+    rng = np.random.default_rng(seed)
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            x = rng.normal(0.0, 2.0, v.shape)
+        elif k.endswith("running_var"):
+            x = rng.uniform(0.01, 10.0, v.shape)
+        elif k.endswith(".weight") and v.dim() == 1:
+            x = rng.uniform(-2.0, 2.0, v.shape)
+        else:
+            continue
+        sd[k] = torch.from_numpy(x.astype(np.float32))
+    return sd
+
+
+def _k5_rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("n,hw,far", [
+    (1, (128, 64), False), (7, (128, 64), False), (7, (128, 64), True),
+    # the CPU's float32 convs take 16 s for 300 crops of 128 x 64 on one
+    # thread: the two large N run at a quarter of the pixels
+    (300, (64, 32), False), (613, (64, 32), True)])
+def test_deepsort_folded_plain_equals_eager(n, hw, far):
+    """The folded network's plain version (what the CPU runs, K5's
+    arithmetic) against the module's eager forward, relative 1e-5."""
+    from yolov7_tracker_tpu_torch.ops import deepsort_cnn as k5
+
+    model = build_reid("deepsort_cnn")[0]
+    model.load_state_dict(_far_bn_state_dict(model, n) if far
+                          else random_reid_state_dict(model, seed=n))
+    crops = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (n,) + hw + (3,)).astype(np.float32))
+    folded = k5.fold(model.eval())
+    with torch.no_grad():
+        want = model(crops.permute(0, 3, 1, 2))
+        got = k5.forward(folded, crops)
+    assert got.shape == want.shape == (n, 512)
+    assert _k5_rel(got, want) <= 1e-5
+
+
+def test_deepsort_fold_lays_out_the_kernels_weights():
+    """fold: BN in float64 into each conv; the 3x3 rows in K5's K step
+    order, the projection's rows and bias added to the second conv of each
+    downsampling block."""
+    from yolov7_tracker_tpu_torch.ops import deepsort_cnn as k5
+
+    model = build_reid("deepsort_cnn")[0]
+    model.load_state_dict(_far_bn_state_dict(model, 4))
+    folded = k5.fold(model.eval())
+    model.requires_grad_(False)
+    assert folded.stem_weight.shape == (27, 64)
+    assert [(c.weight.shape[0], c.c_in, c.stride, c.project)
+            for c in folded.convs[4:6]] == [(576, 64, 2, False),
+                                            (1152 + 64, 128, 1, True)]
+    blk = model.layer2[0]
+    s = (blk.bn2.weight.double()
+         / torch.sqrt(blk.bn2.running_var.double() + blk.bn2.eps))
+    sd = (blk.downsample[1].weight.double()
+          / torch.sqrt(blk.downsample[1].running_var.double() + 1e-5))
+    w = folded.convs[5].weight
+    # row (chunk 2, tap (1, 2), channel 3) of the 3x3 part
+    want = blk.conv2.weight.double()[:, 2 * 16 + 3, 1, 2] * s
+    np.testing.assert_allclose(w[(2 * 9 + 5) * 16 + 3].numpy(),
+                               want.float().numpy(), rtol=1e-6)
+    np.testing.assert_allclose(
+        w[1152 + 10].numpy(),
+        (blk.downsample[0].weight.double()[:, 10, 0, 0] * sd).float().numpy(),
+        rtol=1e-6)
+    bias = ((-blk.bn2.running_mean.double()) * s + blk.bn2.bias.double()
+            + (-blk.downsample[1].running_mean.double()) * sd
+            + blk.downsample[1].bias.double())
+    np.testing.assert_allclose(folded.convs[5].bias.numpy(),
+                               bias.float().numpy(), rtol=1e-6, atol=1e-6)
+
+
+def _reid_pipe(reid, tracker):
+    from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                   TrackingPipeline)
+    from yolov7_tracker_tpu_torch.trackers.slab import TrackerConfig
+
+    return TrackingPipeline(
+        PipelineConfig(model="yolov7-tiny", nc=8, img_size=64,
+                       detector_batch=1, dtype="float32", max_det=8,
+                       reid=reid),
+        TrackerConfig(tracker=tracker, capacity=8, det_capacity=8),
+        device="cpu")
+
+
+def test_reid_forward_routes_by_model_type(monkeypatch):
+    """reid_forward: the DeepSORT CNN through ops/deepsort_cnn.forward on
+    the weights folded when the pipeline was built (and again by
+    fold_reid after the module's weights change); OSNet through its
+    module, never the folded path."""
+    from yolov7_tracker_tpu_torch import pipeline
+    from yolov7_tracker_tpu_torch.ops import deepsort_cnn as k5
+
+    calls = []
+    forward = k5.forward
+    monkeypatch.setattr(pipeline.k5, "forward", lambda folded, crops: (
+        calls.append(crops.shape[0]), forward(folded, crops))[1])
+    rng = np.random.default_rng(2)
+    crops = torch.from_numpy(
+        rng.standard_normal((3, 128, 64, 3)).astype(np.float32))
+
+    pipe = _reid_pipe("deepsort_cnn", "deepsort")
+    assert pipe.reid_folded is not None
+    with torch.no_grad():
+        got = pipe.reid_forward(crops)
+        want = pipe.reid_model(crops.permute(0, 3, 1, 2))
+    assert calls == [3] and _k5_rel(got, want) <= 1e-5
+    pipe.reid_model.load_state_dict(_far_bn_state_dict(pipe.reid_model, 5))
+    pipe.fold_reid()
+    with torch.no_grad():
+        got = pipe.reid_forward(crops)
+        want = pipe.reid_model(crops.permute(0, 3, 1, 2))
+    assert calls == [3, 3] and _k5_rel(got, want) <= 1e-5
+
+    osnet = _reid_pipe("osnet_x0_25", "strongsort")
+    assert osnet.reid_folded is None
+    wide = torch.from_numpy(
+        rng.standard_normal((2, 128, 256, 3)).astype(np.float32))
+    with torch.no_grad():
+        got = osnet.reid_forward(wide)
+        want = osnet.reid_model(wide.permute(0, 3, 1, 2))
+    assert calls == [3, 3] and torch.equal(got, want)
+
+
+def test_cpu_tensor_never_reaches_the_kernel(monkeypatch):
+    """On the CPU neither the build nor a launch is reached: K5's library
+    and its launcher raise if called."""
+    from yolov7_tracker_tpu_torch.ops import deepsort_cnn as k5
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("K5 reached on a CPU tensor")
+
+    launcher = k5.forward_cuda
+    monkeypatch.setattr(k5, "load_library", refuse)
+    monkeypatch.setattr(k5, "forward_cuda", refuse)
+    pipe = _reid_pipe("deepsort_cnn", "deepsort")
+    frame = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 255, (90, 160, 3), np.uint8))
+    tlbr = torch.tensor([[10.0, 5.0, 40.0, 70.0], [60.0, 20.0, 90.0, 85.0]])
+    feats = pipe.embed_dets(frame, tlbr)
+    assert feats.shape == (2, 512) and bool(torch.isfinite(feats).all())
+    # the launcher itself refuses a CPU tensor before it builds anything
+    with pytest.raises(ValueError, match="CUDA"):
+        launcher(pipe.reid_folded, torch.zeros(1, 128, 64, 3))

@@ -3,8 +3,9 @@ yolov7_tracker_tpu/pipeline.py).
 
   uint8 frames --> device_preprocess --> YoloV7 --> nms_from_raw (the
       anchor heads) or nms (IBin's and DetectV8's decoded boxes)
-      --> scale_coords --> DetSlab (+ ReID features: device crops and the DeepSORT CNN or
-      OSNet; + the GMC warp: ECC on the device or ORB on the host)
+      --> scale_coords --> DetSlab (+ ReID features: device crops and the DeepSORT CNN,
+      BN folded, as kernel K5, or OSNet; + the GMC warp: ECC on the device or ORB on
+      the host)
       --> tracker slab step --> FrameOutput
 
 The detector runs on batches of ``detector_batch`` frames; the tracker
@@ -64,11 +65,13 @@ from .data import letterbox
 from .models import zoo
 from .models.fuse import fuse_state_dict
 from .models.yolo import YoloV7, decode_levels, random_state_dict
+from .ops import deepsort_cnn as k5
 from .ops import nms as nms_mod
 from .ops.assignment import masked_assignment
 from .reid import (build_reid, float32_exact, load_reid_state_dict,
                    random_reid_state_dict)
 from .reid import extractor
+from .reid.deepsort_cnn import DeepSortCNN
 from .trackers import slab as S
 from .trackers.gmc import GMC
 from .trackers.registry import build_predict_only, build_tracker
@@ -193,6 +196,8 @@ class TrackingPipeline:
             if self.device.type == "cuda":
                 reid_model = reid_model.to(memory_format=torch.channels_last)
             self.reid_model = reid_model
+        self.reid_folded = None
+        self.fold_reid()
         self.gmc = (GMC(pcfg.gmc_method) if pcfg.gmc_method != "none"
                     else None)
 
@@ -331,10 +336,22 @@ class TrackingPipeline:
         return feats
 
     @torch.no_grad()
+    def fold_reid(self):
+        """Fold the DeepSORT CNN's BatchNorms into the weights K5 reads
+        (ops/deepsort_cnn.fold); done when the pipeline is built, and to be
+        done again after changing ``reid_model``'s weights in place."""
+        if isinstance(self.reid_model, DeepSortCNN):
+            self.reid_folded = k5.fold(self.reid_model)
+
+    @torch.no_grad()
     @trace.traced("reid.cnn", _on_device)
     def reid_forward(self, crops):
         """(N, h, w, 3) normalised crops -> (N, F) ReID features, in
-        float32 (TF32 off: reid.float32_exact)."""
+        float32. The DeepSORT CNN runs folded, as K5 on the card (its
+        plain version on the CPU); OSNet runs as the module, TF32 off
+        (reid.float32_exact)."""
+        if isinstance(self.reid_model, DeepSortCNN):
+            return k5.forward(self.reid_folded, crops)
         with float32_exact():
             return self.reid_model(crops.permute(0, 3, 1, 2)).float()
 
