@@ -84,9 +84,10 @@ def parse_args(argv=None):
     p.add_argument("--kalman_format", type=str, default="default")
     p.add_argument("--reid_model_path", type=str, default="",
                    help="torch ReID checkpoint for the feature trackers: "
-                        "the DeepSORT CNN's ckpt.t7 for deepsort, else a "
-                        "torchreid OSNet (width from the file name, default "
-                        "osnet_x0_25)")
+                        "a torchreid OSNet when the file name gives its "
+                        "width (osnet_x1_0_*.pth), else the DeepSORT CNN's "
+                        "ckpt.t7 for deepsort and osnet_x0_25 for the "
+                        "other trackers")
     p.add_argument("--reid_capacity", type=int, default=128,
                    help="embed only the top-K score-ordered dets per frame "
                         "(0 = all det_capacity; the serving default 128 "

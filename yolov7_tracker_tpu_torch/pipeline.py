@@ -44,9 +44,11 @@ height-shards the detector over the ranks of a mesh
 
 Every public entry is a span ``pipeline`` of utils/trace.py, and the
 layers under it open theirs (``pipeline.frames_in``, ``detector``,
-``detector.letterbox``, ``nms``, ``reid``, ``reid.cnn``, ``tracker``,
-``tracker.kalman``, ``tracker.solve``, ``pipeline.rows_out``); each read
-from the device on this path counts as ``host_syncs.<site>``. They
+``detector.letterbox``, ``nms``, ``reid``, ``reid.crops``, ``reid.cnn``
+and OSNet's ``reid.osnet.*`` inside it, ``tracker``, ``tracker.kalman``,
+``tracker.solve``, ``pipeline.rows_out``); each read from the device on
+this path counts as ``host_syncs.<site>``, each crop a ReID forward
+embeds as ``reid.crops``. They
 record only while the tracer does (a ``recording()`` block, or a
 profiler collecting).
 """
@@ -326,7 +328,8 @@ class TrackingPipeline:
         d = tlbr.shape[-2]
         k = self.pcfg.reid_capacity
         sub = tlbr[..., :k, :] if 0 < k < d else tlbr
-        crops = extractor.extract_crops(frame_u8, sub, self.reid_hw)
+        with trace.span("reid.crops", frame_u8):
+            crops = extractor.extract_crops(frame_u8, sub, self.reid_hw)
         feats = self.reid_forward(crops.reshape((-1,) + crops.shape[-3:]))
         feats = feats.reshape(sub.shape[:-1] + feats.shape[-1:])
         if feats.shape[-2] < d:
@@ -349,7 +352,8 @@ class TrackingPipeline:
         """(N, h, w, 3) normalised crops -> (N, F) ReID features, in
         float32. The DeepSORT CNN runs folded, as K5 on the card (its
         plain version on the CPU); OSNet runs as the module, TF32 off
-        (reid.float32_exact)."""
+        (reid.float32_exact). Counts the crops as ``reid.crops``."""
+        trace.count("reid.crops", crops.shape[0])
         if isinstance(self.reid_model, DeepSortCNN):
             return k5.forward(self.reid_folded, crops)
         with float32_exact():

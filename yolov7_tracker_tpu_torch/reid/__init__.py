@@ -97,17 +97,17 @@ def load_reid_state_dict(model: nn.Module, sd) -> nn.Module:
 def resolve_reid(tracker: str, path: str
                  ) -> Tuple[str, Optional[Dict[str, torch.Tensor]]]:
     """(tracker name, --reid_model_path) -> (ReID model name, state_dict):
-    deepsort takes its CNN (the reference's ckpt.t7 ``net_dict``), every
-    other tracker OSNet, the width read from the file name (default
-    osnet_x0_25, the checkpoint the reference ships). Takes torch
+    OSNet of the width the file name gives (``osnet_x1_0_msmt17.pth``);
+    a file name that gives none means deepsort's CNN (the reference's
+    ckpt.t7 ``net_dict``) for deepsort and osnet_x0_25 (the checkpoint
+    the reference ships) for every other tracker. DeepSORT with a
+    torchreid OSNet is the Yolov5_DeepSort_OSNet deployment. Takes torch
     checkpoints (.pth, .pt, .t7)."""
     if not path:
         return "none", None
-    if tracker == "deepsort":
-        name = "deepsort_cnn"
-    else:
-        base = os.path.basename(path)
-        name = next((n for n in OSNET_CONFIGS if n in base), "osnet_x0_25")
+    base = os.path.basename(path)
+    name = next((n for n in OSNET_CONFIGS if n in base),
+                "deepsort_cnn" if tracker == "deepsort" else "osnet_x0_25")
     if not path.endswith((".pth", ".pt", ".t7")):
         raise ValueError(f"{path}: the port reads torch ReID checkpoints "
                          "(.pth, .pt, .t7)")

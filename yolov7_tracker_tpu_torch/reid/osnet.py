@@ -8,6 +8,12 @@ pool transitions -> Conv1x1 -> global average pool -> fc (Linear, BN,
 ReLU) to a 512-d embedding (the torchreid module's output when not
 training). Module and parameter names are torchreid's, so a torchreid
 checkpoint loads with ``load_reid_state_dict``. NCHW, float32.
+
+A forward opens the tracer's spans (utils/trace.py) ``reid.osnet.stem``
+(conv1 and the max pool), ``reid.osnet.conv2``, ``reid.osnet.conv3``,
+``reid.osnet.conv4`` (the OSBlock stages with their transitions) and
+``reid.osnet.head`` (conv5, the global pool and fc), timed on the
+input's device.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from ..utils import trace
 
 OSNET_CONFIGS = {
     "osnet_x1_0": (64, 256, 384, 512),
@@ -123,9 +131,13 @@ class OSNet(nn.Module):
                                 nn.ReLU())
 
     def forward(self, x):
-        x = self.maxpool(self.conv1(x))
-        x = self.conv5(self.conv4(self.conv3(self.conv2(x))))
-        return self.fc(x.mean(dim=(2, 3)))
+        with trace.span("reid.osnet.stem", x):
+            x = self.maxpool(self.conv1(x))
+        for stage in ("conv2", "conv3", "conv4"):
+            with trace.span("reid.osnet." + stage, x):
+                x = getattr(self, stage)(x)
+        with trace.span("reid.osnet.head", x):
+            return self.fc(self.conv5(x).mean(dim=(2, 3)))
 
 
 def build_osnet(name: str = "osnet_x0_25") -> OSNet:
