@@ -1271,21 +1271,30 @@ def main_phase(pipe, dev):
         return solve(cost, rm, cm, th)
 
     pipe.detect_batch = recording_detect
-    bytetrack.solve_assignment = recording_solve
     torch.cuda.synchronize()
-    with counting() as counts:
+    with graph_calls() as steps, counting() as counts:
         t0 = time.time()
         results, slab = pipe.run_sequence_stateful(iter(frames))
         torch.cuda.synchronize()
         wall = time.time() - t0
     launches, k2_launches = counts["launches.k4"], counts["launches.k2"]
-    bytetrack.solve_assignment = solve
     del pipe.detect_batch
+    # the auction problems: each frame's step run again eagerly on the
+    # inputs its graph had (the step's values are the graph's, bit for
+    # bit), its solver recorded
+    bytetrack.solve_assignment = recording_solve
+    try:
+        rerun_eagerly(steps)
+    finally:
+        bytetrack.solve_assignment = solve
 
     n = len(frames)
-    if launches != 2 * n or k2_launches != 0:
+    if launches != 2 * n or k2_launches != 0 or len(steps) != n:
         raise AssertionError(f"{launches} K4 and {k2_launches} K2 launches "
-                             f"for {n} frames")
+                             f"and {len(steps)} graphed steps for {n} "
+                             "frames")
+    launch_witness("main path", lambda: pipe.run_sequence_stateful(
+        iter(frames[:TURN_FRAMES])))
     tracks = [len(ids) for _, ids, _, _ in results]
     if len(results) != n or max(tracks) < 1:
         raise AssertionError(f"tracks per frame {tracks}")
@@ -1307,7 +1316,7 @@ def main_phase(pipe, dev):
 
     breakdown(pipe, f1, dets[-1], dev)
     turns = solver_turns(lambda: pipe.run_sequence_stateful(
-        iter(frames[:TURN_FRAMES])), TURN_FRAMES)
+        iter(frames[:TURN_FRAMES])), TURN_FRAMES, pipe.step)
     log(f"the same run in turns K2 (before K4), K4, K4, K2: ms/frame K2 "
         f"{turns['k2']}, K4 {turns['k4']}")
 
@@ -1358,21 +1367,28 @@ def k2_as_solver():
         assignment.masked_assignment_twin = twin
 
 
-def solver_turns(run, n_frames):
+def solver_turns(run, n_frames, step):
     """ms a frame of ``run()`` (n_frames frames) with K2 and with K4 as the
     solver, in turns K2, K4, K4, K2 (both kernels launched before, in
-    phase 2); host wall time around each synchronized run. Returns
-    {"k2": [ms, ms], "k4": [ms, ms]}."""
+    phase 2); host wall time around each synchronized run. The tracker
+    step ``run`` calls (``step``) is captured anew in each turn, with
+    that turn's solver in its graphs, by an untimed ``run()`` first, and
+    its graphs are dropped after the last. Returns {"k2": [ms, ms], "k4":
+    [ms, ms]}."""
     import torch
 
     out = {"k2": [], "k4": []}
     for kernel in ("k2", "k4", "k4", "k2"):
-        with k2_as_solver() if kernel == "k2" else contextlib.nullcontext():
+        with (k2_as_solver() if kernel == "k2"
+              else contextlib.nullcontext()):
+            drop_graphs(step)
+            run()
             torch.cuda.synchronize()
             t0 = time.time()
             run()
             torch.cuda.synchronize()
         out[kernel].append((time.time() - t0) / n_frames * 1e3)
+    drop_graphs(step)
     return out
 
 
@@ -1734,22 +1750,23 @@ def calibrate_bn(model, crops):
             model.fc[1].bias.mul_(scale)
 
 
-def recording_dhn(pipe):
-    """Make deepmot's step keep each DHN input and output (the compacted
-    cost and its scores, clones on the card, no sync); returns the list
-    they go to (None for another tracker)."""
-    dhn = pipe.step.keywords.get("dhn")
-    if dhn is None:
-        return None
+def dhn_inputs(calls):
+    """deepmot's DHN input and output (the compacted cost and its scores,
+    clones on the card, no sync) in each kept graph call (graph_calls):
+    the call run again eagerly with a DHN that keeps them. Returns the
+    list, a pair a call (None where the steps have no DHN)."""
     kept = []
+    for g, args in calls:
+        dhn = g.kwargs.get("dhn")
+        if dhn is None:
+            return None
 
-    def record(comp):
-        out = dhn(comp)
-        kept.append((comp.clone(), out.clone()))
-        return out
+        def record(comp, dhn=dhn):
+            out = dhn(comp)
+            kept.append((comp.clone(), out.clone()))
+            return out
 
-    pipe.step = functools.partial(pipe.step.func, **{**pipe.step.keywords,
-                                                     "dhn": record})
+        rerun_eagerly([(g, args)], dhn=record)
     return kept
 
 
@@ -1777,7 +1794,7 @@ def dhn_replay(step, kept):
     frame in place of its own, so that the replay holds the rest of the
     step to the card's; the DHN itself is held on the card's own inputs:
     each frame, the CPU copy runs on the compacted cost the card's step
-    gave its DHN (``kept``, recording_dhn) through dhn_scores_check. 1 - DHN
+    gave its DHN (``kept``, dhn_inputs) through dhn_scores_check. 1 - DHN
     is a dense cost, on which a score difference of 1e-7 can move K4's
     matching: the frames where the compacted stage-1 problem pairs
     otherwise on the CPU's scores than on the card's (K4's plain version,
@@ -1872,8 +1889,6 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     if pipe.gmc is not None:
         pipe.gmc.set_state({})                 # start as a new sequence
     dets, slabs = [], []
-    plain_step = pipe.step
-    dhn_kept = recording_dhn(pipe)
     step = pipe.step
 
     def recording_step(slab, det, **kw):
@@ -1883,13 +1898,16 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
 
     pipe.step = recording_step
     torch.cuda.synchronize()
-    with counting() as got:
+    with graph_calls() as calls, counting() as got:
         t0 = time.time()
         results, slab = pipe.run_sequence_stateful(iter(frames))
         torch.cuda.synchronize()
         wall = time.time() - t0
     launches, cascades = got["launches.k4"], got["launches.k4_cascade"]
-    pipe.step = plain_step
+    pipe.step = step
+    # deepmot: each frame's DHN inputs and scores, its step run again
+    # eagerly on the inputs its graph had
+    dhn_kept = dhn_inputs(calls)
     n = len(frames)
     per_cascade = CASCADES_PER_FRAME.get(name, 0)
     # the DeepSORT CNN is K5, one forward a frame; OSNet is no kernel
@@ -1906,8 +1924,18 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
     tracks = [len(ids) for _, ids, _, _ in results]
     if len(results) != n or max(tracks) < 1 or int(slab.frame) != n:
         raise AssertionError(f"{name}: tracks per frame {tracks}")
+    if len(calls) != n:
+        raise AssertionError(f"{name}: {len(calls)} graphed steps in {n} "
+                             "frames")
     if not all(bool(torch.isfinite(d.feature).all()) for d in dets):
         raise AssertionError(f"{name}: non-finite ReID features")
+
+    def run():
+        if pipe.gmc is not None:
+            pipe.gmc.set_state({})
+        pipe.run_sequence_stateful(iter(frames[:TURN_FRAMES]))
+
+    launch_witness(name, run)
     t0 = time.time()
     dhn_report = replay_on_cpu(pipe, dets, slabs, results, name, dhn_kept)
     replay_s = time.time() - t0
@@ -1915,13 +1943,7 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
         without_gmc(pipe, dets)
     turns = None
     if name in K2_BEFORE:
-
-        def run():
-            if pipe.gmc is not None:
-                pipe.gmc.set_state({})
-            pipe.run_sequence_stateful(iter(frames[:TURN_FRAMES]))
-
-        turns = solver_turns(run, TURN_FRAMES)
+        turns = solver_turns(run, TURN_FRAMES, pipe.step)
         log(f"{name} in turns K2 (before K4), K4, K4, K2: ms/frame K2 "
             f"{turns['k2']}, K4 {turns['k4']}")
     warps = torch.stack([d.warp.to(dev) for d in dets])
@@ -2492,10 +2514,13 @@ def seeded_osnet(sd, dev):
 
 @contextlib.contextmanager
 def path_solves(k4_kept):
-    """Keep the newest problems the tracker steps hand K1/K3 (the last one)
-    and K4 (the last ``k4_kept``) while the block runs: clones on the card,
-    no host sync. Yields {"square": [...], "k4": [...]}, each entry
-    (cost, row_mask, col_mask, thresh, solver keywords)."""
+    """The problems the last tracker step of the block handed K1/K3 (the
+    last one) and K4 (the last ``k4_kept``): the block's steps replay their
+    graphs, and as the block closes the last one runs again eagerly on its
+    inputs (graph_calls, rerun_eagerly), its solves kept as clones on the
+    card. Yields {"square": [...], "k4": [...]}, filled as the block
+    closes, each entry (cost, row_mask, col_mask, thresh, solver
+    keywords)."""
     import torch
 
     from yolov7_tracker_tpu_torch.ops import assignment
@@ -2513,10 +2538,12 @@ def path_solves(k4_kept):
             return solvers[key](cost, rm, cm, th, **kw)
         return solve
 
+    with graph_calls(1) as calls:
+        yield kept
     for key, name in names.items():
         setattr(assignment, name, keeping(key))
     try:
-        yield kept
+        rerun_eagerly(calls)
     finally:
         for key, name in names.items():
             setattr(assignment, name, solvers[key])
@@ -2690,6 +2717,8 @@ def step_frame_reid_phase(sd, dev, reid_path):
     if not int(out.valid.sum()) or not bool(slab.feature.abs().max() > 0):
         raise AssertionError("step_frame with ReID: no tracks or features")
     worst = path_solves_check(kept, "step_frame with ReID", dev)
+    launch_witness("step_frame with ReID",
+                   lambda: pipe.step_frame(slab, frames[0]))
     rec = {"ms_per_frame_median": float(np.median(per_frame)),
            "ms_per_frame": per_frame, "k1_launches": k1, "k4_launches": k4,
            "tracks_last_frame": int(out.valid.sum()),
@@ -2723,10 +2752,10 @@ def deepmot_streams_phase(sd, dev):
     pipe.process_multistream(pipe.init_multistream(N_STREAMS), frames[0])
     torch.cuda.synchronize()
     cpu_dhn = copy.deepcopy(pipe.step.keywords["dhn"]).cpu()
-    dhn_kept = recording_dhn(pipe)
     slabs, per_tick, tracks = pipe.init_multistream(N_STREAMS), [], []
-    # kept: the last tick's K3 and K4
-    with path_solves(1) as kept, counting() as got:
+    # kept: the last tick's K3 and K4, and its step's inputs
+    with graph_calls(1) as calls, path_solves(1) as kept, \
+            counting() as got:
         for f in frames:
             torch.cuda.synchronize()
             t0 = time.time()
@@ -2743,7 +2772,11 @@ def deepmot_streams_phase(sd, dev):
     if min(map(sum, zip(*tracks))) < 1:        # every stream tracked
         raise AssertionError(f"deepmot at S = {N_STREAMS}: tracks {tracks}")
     worst = path_solves_check(kept, f"deepmot at S = {N_STREAMS}", dev)
-    # the batched DHN on the last tick's S compacted costs, card vs CPU
+    launch_witness(f"deepmot at S = {N_STREAMS}", lambda: [
+        pipe.process_multistream(slabs, f) for f in frames[:2]])
+    # the batched DHN on the last tick's S compacted costs, card vs CPU:
+    # the last tick's step run again eagerly with a DHN that keeps them
+    dhn_kept = dhn_inputs(calls)
     diff, _ = dhn_scores_check(cpu_dhn, *dhn_kept[-1])
     log(f"deepmot at S = {N_STREAMS}: the DHN on the last tick's "
         f"{tuple(dhn_kept[-1][0].shape)} compacted costs, card vs CPU: max "
@@ -3010,6 +3043,88 @@ def no_sync_after_first(step):
         return no_sync_step(step, *args, **kw)
 
     return checked
+
+
+@contextlib.contextmanager
+def graph_calls(n=None):
+    """Keep the last ``n`` (None: every) calls that the tracker steps'
+    CUDA graphs (trackers/graphed.py) replay while the block runs, each
+    the graph and the inputs it was handed (the caller's own tensors,
+    which no later replay overwrites). Yields the deque they go to. A
+    graph runs its step's Python only when it is captured: what the step
+    hands its solvers or its DHN in a kept call is seen by running the
+    call again eagerly (rerun_eagerly)."""
+    from yolov7_tracker_tpu_torch.trackers import graphed
+
+    call = graphed._Graph.__call__
+    calls = collections.deque(maxlen=n)
+
+    def keeping(g, args):
+        calls.append((g, args))
+        return call(g, args)
+
+    graphed._Graph.__call__ = keeping
+    try:
+        yield calls
+    finally:
+        graphed._Graph.__call__ = call
+
+
+def rerun_eagerly(calls, **options):
+    """Each kept call (graph_calls) run again by its graph's step, eagerly,
+    on the inputs it was handed, ``options`` over the graph's own: the
+    values are the replay's bit for bit, and the step's Python runs, so a
+    solver or a DHN swapped in sees the call."""
+    for g, args in calls:
+        g.step(*args, **{**g.kwargs, **options})
+
+
+def drop_graphs(step):
+    """Drop the CUDA graphs of ``step`` (built by build_tracker): the next
+    calls capture it anew, with the solvers then in place."""
+    step.func.__wrapped__.graphs.clear()
+
+
+# the solver kernels by name in the device trace, under their counters
+SOLVER_KERNELS = {"launches.k1": "auction_square_kernel",
+                  "launches.k3": "auction_square_batched_kernel",
+                  "launches.k2": "auction_kernel",
+                  "launches.k4": "twin_kernel",
+                  "launches.k4_cascade": "twin_cascade_kernel"}
+
+
+def launch_witness(name, block):
+    """``block()`` under torch.profiler, its tracker steps replayed from
+    graphs captured before it: the solver kernels the card ran, counted by
+    name in the device trace, against the launches the tracer counted (a
+    graph credits the counts of its capture on each replay). Raises unless
+    they are equal, some solver ran and no step ran but by a replay;
+    returns the counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with counting() as got, profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        block()
+        torch.cuda.synchronize()
+    ran = {k: 0 for k in SOLVER_KERNELS}
+    for e in prof.key_averages():
+        for k, kernel in SOLVER_KERNELS.items():
+            if kernel in e.key:
+                ran[k] += e.count
+    credited = {k: got[k] for k in SOLVER_KERNELS}
+    replays = got["tracker.graph_replays"]
+    if (ran != credited or not sum(ran.values()) or not replays
+            or got["tracker.graph_captures"] or got["tracker.graph_eager"]):
+        raise AssertionError(
+            f"{name}: solver kernels in the device trace {ran}, counted "
+            f"{credited}; {replays} replays, "
+            f"{got['tracker.graph_captures']} captures, "
+            f"{got['tracker.graph_eager']} eager steps")
+    log(f"{name}: {replays} graphed steps, solver kernels in the device "
+        f"trace {ran} == counted")
+    return ran
 
 
 @contextlib.contextmanager
@@ -5352,19 +5467,22 @@ def int8_serving(dev, sd, pipe):
         return solve(cost, rm, cm, th)
 
     qpipe.detect_batch, qpipe.step = recording_detect, recording_step
-    bytetrack.solve_assignment = recording_solve
     torch.cuda.synchronize()
     t0 = time.time()
-    try:
-        with counting() as got:
-            results, slab = qpipe.run_sequence_stateful(iter(frames))
-            torch.cuda.synchronize()
-    finally:
-        bytetrack.solve_assignment = solve
+    with graph_calls(1) as calls, counting() as got:
+        results, slab = qpipe.run_sequence_stateful(iter(frames))
+        torch.cuda.synchronize()
     wall = time.time() - t0
     launches = got["launches.k4"]
     del qpipe.detect_batch
     qpipe.step = step
+    # the last frame's problems: its step run again eagerly on the inputs
+    # its graph had, the solver recorded
+    bytetrack.solve_assignment = recording_solve
+    try:
+        rerun_eagerly(calls)
+    finally:
+        bytetrack.solve_assignment = solve
     n = len(frames)
     counts = torch.cat([b[3] for b in batches]).float().cpu()
     tracks = [len(r[1]) for r in results]

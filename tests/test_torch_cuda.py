@@ -5,6 +5,8 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1518,6 +1520,9 @@ def test_tracer_times_on_the_card_without_a_sync(card):
     x = torch.randn(2048, 2048, device=card)
     x @ x                               # cuBLAS set up before the spans
     trace.reset()
+    # the events earlier tests' spans left for reuse: the counts below are
+    # this test's own
+    trace.TRACER.free.pop(x.device, None)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1540,3 +1545,193 @@ def test_tracer_times_on_the_card_without_a_sync(card):
         pass
     assert len(free) == 10
     trace.reset()
+
+
+# ---------------------------------------------------------------------------
+# the tracker step as one CUDA graph (trackers/graphed.py)
+# ---------------------------------------------------------------------------
+
+_GRAPH_CASES = {
+    "sort": dict(tracker="sort"),
+    "bytetrack": dict(tracker="bytetrack"),
+    "c_bioutracker": dict(tracker="c_bioutracker"),
+    "deepsort": dict(tracker="deepsort"),
+    "botsort": dict(tracker="botsort"),
+    "uavmot": dict(tracker="uavmot"),
+    "strongsort": dict(tracker="strongsort"),
+    "deepmot": dict(tracker="deepmot"),
+    "deepmot_gru": _SYNC_CASES["deepmot_gru"],
+    "deepmot_sinkhorn": _SYNC_CASES["deepmot_sinkhorn"],
+}
+_KERNELS = ("k1", "k2", "k3", "k4", "k4_cascade")
+
+
+def _graph_step(card, name, det_capacity=32, **extra):
+    """(the built step, the registered step over the same options, the
+    resolved config) of ``name``, 64 tracks."""
+    from yolov7_tracker_tpu_torch.trackers import registry
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    step, cfg = registry.build_tracker(S.TrackerConfig(
+        capacity=64, det_capacity=det_capacity, **_GRAPH_CASES[name],
+        **extra), card)
+    eager = functools.partial(registry._STEPS[cfg.tracker][0],
+                              **step.keywords)
+    return step, eager, cfg
+
+
+def _stepped(steps, slab, dets, predict_every=0, **kw):
+    """Every (slab, output) of the frames; with ``predict_every`` each
+    such frame is a predict-only step (``steps`` = (tracker, predict)),
+    else ``steps`` is the tracker. The counts of the kernels' launches
+    over the frames ride along."""
+    before = {k: launches(k) for k in _KERNELS}
+    out = []
+    for i, det in enumerate(dets):
+        if predict_every and i % predict_every == 1:
+            slab, o = steps[1](slab)
+        else:
+            slab, o = (steps[0] if predict_every else steps)(slab, det, **kw)
+        out.append((slab, o))
+    return out, {k: launches(k) - before[k] for k in _KERNELS}
+
+
+def _assert_bitwise(got, want):
+    from tests.step_scenes import differing
+
+    assert len(got) == len(want)
+    for i, ((s, o), (ws, wo)) in enumerate(zip(got, want)):
+        assert not differing(s, ws), (i, differing(s, ws))
+        assert not differing(o, wo), (i, differing(o, wo))
+
+
+def _graph_counts():
+    c = trace.counters()
+    return {k: c.get("tracker.graph_" + k, 0)
+            for k in ("captures", "replays", "eager")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_GRAPH_CASES)
+                         + ["botsort_cpu_warp", "predict"])
+def test_graphed_step_equals_the_eager_step(card, name):
+    """Every registered tracker (deepmot with no DHN, a GRU DHN and a
+    Sinkhorn one), a warp handed over on the CPU, and the predict-only
+    step between ByteTrack's frames: the graphed step equals the eager
+    step bit for bit on every field of every slab and output over a
+    60-frame scene with births, losses, removals, a crossing and a frame
+    of more detections than det_capacity; one capture serves the 60
+    frames, and the kernels' launches a frame are the eager step's."""
+    from tests.step_scenes import det_slabs, scene
+    from yolov7_tracker_tpu_torch.trackers import registry
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    every = 0
+    base = {"botsort_cpu_warp": "botsort", "predict": "bytetrack"}
+    step, eager, cfg = _graph_step(card, base.get(name, name))
+    dets = det_slabs(cfg, scene(7, 60), card)
+    assert max(int(d.valid.sum()) for d in dets) == cfg.det_capacity
+    if name == "botsort_cpu_warp":
+        dets = [d._replace(warp=d.warp.cpu()) for d in dets]
+    if name == "predict":
+        predict = registry.build_predict_only(cfg)
+        step = (step, predict)
+        eager = (eager, predict.__wrapped__.__wrapped__)
+        every = 3
+    before = _graph_counts()
+    got, got_n = _stepped(step, S.init_slab(cfg, card), dets, every)
+    counts = _graph_counts()
+    want, want_n = _stepped(eager, S.init_slab(cfg, card), dets, every)
+    _assert_bitwise(got, want)
+    assert got_n == want_n and sum(want_n.values()) > 0, (got_n, want_n)
+    assert counts["captures"] - before["captures"] == 1 + (every > 0)
+    assert counts["replays"] - before["replays"] == 60
+    assert counts["eager"] == before["eager"]
+    assert int(got[-1][1].valid.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bytetrack", "deepsort", "strongsort",
+                                  "deepmot_gru"])
+def test_graphed_stacked_step_equals_the_eager_step(card, name):
+    """Four streams stacked, stage 1 by the square auction (K3), as
+    process_multistream steps them: the graphed step equals the eager
+    one bit for bit over 60 frames, with the same launches."""
+    from tests.step_scenes import det_slabs, scene, stacked
+    from yolov7_tracker_tpu_torch.ops.assignment import masked_assignment
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    step, eager, cfg = _graph_step(card, name)
+    lanes = [det_slabs(cfg, scene(seed, 60), card) for seed in range(4)]
+    dets = [stacked(list(frame)) for frame in zip(*lanes)]
+    slabs = stacked([S.init_slab(cfg, card)] * 4)
+    got, got_n = _stepped(step, slabs, dets,
+                          solve_stage1=masked_assignment)
+    want, want_n = _stepped(eager, slabs, dets,
+                            solve_stage1=masked_assignment)
+    _assert_bitwise(got, want)
+    # a K3 launch a frame; deepsort's cascade is solved level by level,
+    # a K3 launch for each of its 30 levels
+    k3 = 60 * (30 if name == "deepsort" else 1)
+    assert got_n == want_n and got_n["k3"] == k3, (got_n, want_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bytetrack", "deepsort"])
+def test_graphed_step_leaves_the_callers_tensors_alone(card, name):
+    """Every slab and output a caller keeps holds its values after the
+    later replays, whether the next call is handed the slab it returned
+    or another."""
+    from tests.step_scenes import det_slabs, differing, scene
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    step, _, cfg = _graph_step(card, name)
+    dets = det_slabs(cfg, scene(3, 60), card)
+    slab = S.init_slab(cfg, card)
+    kept = []
+    for i, det in enumerate(dets):
+        if i % 10 == 5:               # a slab the graph did not return
+            slab = S.TrackSlab(*(t.clone() for t in slab))
+        slab, out = step(slab, det)
+        kept.append((slab, out, S.TrackSlab(*(t.clone() for t in slab)),
+                     S.FrameOutput(*(t.clone() for t in out))))
+    for i, (slab, out, slab_then, out_then) in enumerate(kept):
+        assert not differing(slab, slab_then), (i, differing(slab, slab_then))
+        assert not differing(out, out_then), (i, differing(out, out_then))
+
+
+@pytest.mark.cuda
+def test_one_capture_a_signature(card):
+    """One capture for each det_capacity, the first kept when another
+    comes (no capture on coming back), and each graph the eager step's;
+    no step span inside a replay, and no host sync in one."""
+    from tests.step_scenes import det_slabs, scene
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    step, eager, cfg = _graph_step(card, "bytetrack")
+    wide, _, wide_cfg = _graph_step(card, "bytetrack", det_capacity=48)
+    frames = scene(5, 30)
+    narrow_dets = det_slabs(cfg, frames, card)
+    wide_dets = det_slabs(wide_cfg, frames, card)
+    dets = narrow_dets[:10] + wide_dets[10:20] + narrow_dets[20:]
+    trace.reset()
+    slab = S.init_slab(cfg, card)
+    got = []
+    for i, det in enumerate(dets):
+        if i not in (0, 10):            # a replay, not a capture
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            slab, out = step(slab, det)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got.append((slab, out))
+        if i in (9, 19):
+            assert _graph_counts()["captures"] == (1 if i == 9 else 2)
+    assert _graph_counts() == {"captures": 2, "replays": 30, "eager": 0}
+    totals = trace.totals()
+    assert totals["tracker"]["count"] == 30
+    assert "tracker.kalman" not in totals and "tracker.solve" not in totals
+    assert len(step.func.__wrapped__.graphs) == 2
+    want, _ = _stepped(eager, S.init_slab(cfg, card), dets)
+    _assert_bitwise(got, want)

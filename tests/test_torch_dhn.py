@@ -371,28 +371,34 @@ def test_track_cli_deepmot_matches_jax_pipeline(head, tmp_path, monkeypatch):
 
 def _recorded_deepmot_run(n_frames=8):
     """deepmot (GRU h32) stepped on the CPU as chip_smoke's tracker_run
-    steps it on the card, its DHN's inputs and outputs kept
-    (chip_smoke.recording_dhn). Returns (pipe stand-in, dets, slabs before
-    each step, results, kept)."""
+    steps it on the card: through its graph (the stand-in capture), each
+    call kept (chip_smoke.graph_calls), and its DHN's inputs and outputs
+    got by running the kept calls again eagerly (chip_smoke.dhn_inputs).
+    Returns (pipe stand-in, dets, slabs before each step, results,
+    kept)."""
     import types
 
     import chip_smoke
+    from tests.step_scenes import graphs_on_the_cpu
 
     kw = {**BASE, "tracker": "deepmot", "track_buffer": 6, **HEADS["gru_h32"]}
     step, cfg = t_build(TS.TrackerConfig(**kw), "cpu")
     pipe = types.SimpleNamespace(step=step, tcfg=TS.TrackerConfig(**kw))
-    kept = chip_smoke.recording_dhn(pipe)
     slab, dets, slabs, results = TS.init_slab(cfg, "cpu"), [], [], []
-    for k, (tlbr, score, valid, _, _) in enumerate(
-            feature_stream(3, n_frames=n_frames, n_obj=14)):
-        det = TS.make_det_slab(cfg, tlbr, score, np.zeros_like(score), valid,
-                               "cpu")
-        dets.append(det)
-        slabs.append(slab)
-        slab, out = pipe.step(slab, det)
-        v = out.valid.numpy()
-        results.append((k + 1, out.track_id.numpy()[v].tolist(),
-                        out.tlwh.numpy()[v].tolist(), None))
+    with pytest.MonkeyPatch.context() as m, chip_smoke.graph_calls() as calls:
+        graphs_on_the_cpu(m)
+        for k, (tlbr, score, valid, _, _) in enumerate(
+                feature_stream(3, n_frames=n_frames, n_obj=14)):
+            det = TS.make_det_slab(cfg, tlbr, score, np.zeros_like(score),
+                                   valid, "cpu")
+            dets.append(det)
+            slabs.append(slab)
+            slab, out = pipe.step(slab, det)
+            v = out.valid.numpy()
+            results.append((k + 1, out.track_id.numpy()[v].tolist(),
+                            out.tlwh.numpy()[v].tolist(), None))
+        assert len(calls) == n_frames
+        kept = chip_smoke.dhn_inputs(calls)
     return pipe, dets, slabs, results, kept
 
 
@@ -420,12 +426,17 @@ def test_chip_smoke_dhn_replay_holds_the_dhn_on_the_kept_costs():
                                     comp, moved)
 
 
-def test_chip_smoke_path_solves_keeps_the_newest_problems():
+def test_chip_smoke_path_solves_keeps_the_newest_problems(monkeypatch):
     """path_solves keeps the last stage-1 problem and the last k K4
-    problems that the steps hand the solvers, as clones, and puts the
-    solvers back."""
+    problems that the block's last step hands the solvers (the step
+    replayed from its graph, here the stand-in capture, and run again
+    eagerly as the block closes), as clones, and puts the solvers
+    back."""
     import chip_smoke
+    from tests.step_scenes import graphs_on_the_cpu
     from yolov7_tracker_tpu_torch.ops import assignment
+
+    graphs_on_the_cpu(monkeypatch)
 
     solvers = (assignment.masked_assignment_square,
                assignment.masked_assignment_twin)

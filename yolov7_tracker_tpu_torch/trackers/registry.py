@@ -6,7 +6,8 @@ track.py:67-71), and a tracker's overrides (deepsort's feature ring
 buffer, C-BIoU's Kalman-free state, ...) apply only where the caller left
 the field at its default. deepmot's DHN weights are loaded when the step
 is built. Every step built here, a tracker's or the predict-only one,
-is a span ``tracker`` (utils/trace.py), timed on the slab's device.
+is a span ``tracker`` (utils/trace.py), timed on the slab's device, and
+inside it replays as one CUDA graph on the card (trackers/graphed.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Callable, Dict, Tuple
 
 from ..utils import trace
 from . import slab as S
+from .graphed import graphed
 
 _STEPS: Dict[str, Tuple[Callable, dict]] = {}
 _MODULES = ("sort", "bytetrack", "c_biou", "deepsort", "botsort", "uavmot",
@@ -30,12 +32,14 @@ def _slab_frame(*args, **kwargs):
 
 
 def _spanned(step: Callable) -> Callable:
-    return trace.traced("tracker", _slab_frame)(step)
+    """The step as built: its graphs inside the span ``tracker``; one
+    wrapper, with its own graphs, each build."""
+    return trace.traced("tracker", _slab_frame)(graphed(step))
 
 
 def register(name: str, **cfg_overrides):
     def deco(fn):
-        _STEPS[name] = (_spanned(fn), cfg_overrides)
+        _STEPS[name] = (fn, cfg_overrides)
         return fn
 
     return deco
@@ -66,7 +70,8 @@ def build_tracker(cfg: S.TrackerConfig, device=None
     deepmot with ``cfg.dhn_weights`` loads its DHN here, once, onto
     ``device`` (the pipeline passes its own; None: the card, and without
     one this raises); without them it matches on the raw cost, as the JAX
-    package does."""
+    package does. The step is a ``functools.partial`` of the wrapped step
+    over ``cfg`` (and ``dhn``); on the card it replays as CUDA graphs."""
     from .. import resolve_device
 
     device = resolve_device(device)
@@ -77,7 +82,8 @@ def build_tracker(cfg: S.TrackerConfig, device=None
 
         kw["dhn"] = load_dhn(cfg.dhn_weights, cfg.dhn_arch, cfg.dhn_hidden,
                              device)
-    return functools.partial(_STEPS[cfg.tracker][0], cfg=cfg, **kw), cfg
+    return functools.partial(_spanned(_STEPS[cfg.tracker][0]), cfg=cfg,
+                             **kw), cfg
 
 
 def build_predict_only(cfg: S.TrackerConfig) -> Callable:
@@ -89,7 +95,6 @@ def build_predict_only(cfg: S.TrackerConfig) -> Callable:
     ``slab -> (slab, FrameOutput)`` and makes no host sync."""
     fmt = cfg.kalman_format
 
-    @_spanned
     def step(slab: S.TrackSlab):
         slab = slab._replace(frame=slab.frame + 1)
         if fmt != "none":
@@ -97,4 +102,4 @@ def build_predict_only(cfg: S.TrackerConfig) -> Callable:
         slab = S.remove_duplicates(slab, fmt)
         return slab, S.frame_output(slab, fmt, cfg)
 
-    return step
+    return _spanned(step)

@@ -28,6 +28,11 @@ with no synchronize (as a span closes, the events the device has passed
 are read back without waiting and reused). A span does not open inside
 an open span of the same name, so a recursive entry counts once.
 
+Inside ``aside()`` (a CUDA graph's warm-up and capture,
+trackers/graphed.py) no span opens and the counts go to the dict the
+block yields, recording or not: the graph credits them again on each
+replay.
+
 The tracer opens no range of the profiler's (no user annotation, no
 NVTX range): the profiler mirrors such ranges onto the device's
 timeline, where a reader that counts the device's events would take
@@ -99,6 +104,7 @@ class Tracer:
 
     def __init__(self):
         self.depth = 0          # open recording() blocks
+        self.kept: Optional[Dict[str, int]] = None  # counts of aside()
         # CUDA events read back, for reuse: creating a pair costs tens of
         # microseconds of host time, recording one a few
         self.free: Dict[torch.device, List[torch.cuda.Event]] = {}
@@ -127,11 +133,22 @@ class Tracer:
         finally:
             self.depth -= 1
 
+    @contextlib.contextmanager
+    def aside(self):
+        """A block that opens no span and keeps its counts apart, in the
+        dict it yields, whether the tracer records or not."""
+        outer, self.kept = self.kept, {}
+        try:
+            yield self.kept
+        finally:
+            self.kept = outer
+
     def span(self, name: str, on=None):
         """A context manager timing its block as the span ``name``;
         ``on`` a CUDA tensor or device: CUDA events on its current stream
         time it too."""
-        if not (self.depth or _profiling()) or name in self.names:
+        if (not (self.depth or _profiling()) or name in self.names
+                or self.kept is not None):
             return NO_SPAN
         dev = _cuda_device(on)
         events = stream = None
@@ -187,7 +204,9 @@ class Tracer:
             self.pending.popleft()
 
     def count(self, name: str, n: int = 1) -> None:
-        if self.depth or _profiling():
+        if self.kept is not None:
+            self.kept[name] = self.kept.get(name, 0) + n
+        elif self.depth or _profiling():
             self.counts[name] = self.counts.get(name, 0) + n
 
     def counters(self) -> Dict[str, int]:
@@ -242,6 +261,7 @@ TRACER = Tracer()
 span = TRACER.span
 count = TRACER.count
 recording = TRACER.recording
+aside = TRACER.aside
 totals = TRACER.totals
 counters = TRACER.counters
 reset = TRACER.reset
