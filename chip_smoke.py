@@ -1452,14 +1452,14 @@ def serving_phase(sd, pipe, dev):
     from yolov7_tracker_tpu_torch import pipeline as pipeline_mod
     from yolov7_tracker_tpu_torch.cli import serve
     from yolov7_tracker_tpu_torch.ops import auction_square as square
-    from yolov7_tracker_tpu_torch.trackers import bytetrack
+    from yolov7_tracker_tpu_torch.trackers import bytetrack, registry
 
     total = sum(SERVE_TICKS)
     streams = [f"synth://{total}x1080x1920?seed={k + 1}&shift=8"
                for k in range(N_STREAMS)]
     last = {}                   # the newest problem handed to each solver
     stamps = []                 # (start, end) of every tick, synchronized
-    solve1, solve23 = pipeline_mod.masked_assignment, \
+    solve1, solve23 = registry.masked_assignment, \
         bytetrack.solve_assignment
     tick_fn = pipeline_mod.TrackingPipeline.process_multistream
 
@@ -1478,7 +1478,7 @@ def serving_phase(sd, pipe, dev):
         return out
 
     counts = []
-    pipeline_mod.masked_assignment = recording("stage1", solve1)
+    registry.masked_assignment = recording("stage1", solve1)
     bytetrack.solve_assignment = recording("stage23", solve23)
     pipeline_mod.TrackingPipeline.process_multistream = timed_tick
     try:
@@ -1508,7 +1508,7 @@ def serving_phase(sd, pipe, dev):
                                              expect_tag=streams[i])
                      for i, f in enumerate(states)]
     finally:
-        pipeline_mod.masked_assignment = solve1
+        registry.masked_assignment = solve1
         bytetrack.solve_assignment = solve23
         pipeline_mod.TrackingPipeline.process_multistream = tick_fn
 
@@ -1631,19 +1631,19 @@ def step_frame_phase(pipe, dev):
     Returns (K1 launches, the last stage-1 problem)."""
     import torch
 
-    from yolov7_tracker_tpu_torch import pipeline as pipeline_mod
     from yolov7_tracker_tpu_torch.data.sequence import SynthFrames
     from yolov7_tracker_tpu_torch.ops import auction_square as square
+    from yolov7_tracker_tpu_torch.trackers import registry
 
     frames = list(SynthFrames("synth://8x1080x1920?seed=11&shift=8"))
     last = {}
-    solve1 = pipeline_mod.masked_assignment
+    solve1 = registry.masked_assignment
 
     def recording(cost, rm, cm, th, *args, **kw):
         last["stage1"] = (cost.float().clone(), rm.clone(), cm.clone(), th)
         return solve1(cost, rm, cm, th, *args, **kw)
 
-    pipeline_mod.masked_assignment = recording
+    registry.masked_assignment = recording
     try:
         slab = pipe.init_tracker()
         per_frame = []
@@ -1656,7 +1656,7 @@ def step_frame_phase(pipe, dev):
                 per_frame.append((time.time() - t0) * 1e3)
         k1, k3 = got["launches.k1"], got["launches.k3"]
     finally:
-        pipeline_mod.masked_assignment = solve1
+        registry.masked_assignment = solve1
     if (k1, k3) != (len(frames), 0):
         raise AssertionError(f"step_frame: {k1} K1 and {k3} K3 launches for "
                              f"{len(frames)} frames")

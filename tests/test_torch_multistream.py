@@ -6,6 +6,8 @@ at 160 px, float32, capacity 16, det_capacity 16, every head level
 sharpened, so the scenes hold ties between identical boxes: both packages
 solve stage 1 with the square auction and break them alike)."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,7 @@ from yolov7_tracker_tpu_torch.models.from_jax import (
 from yolov7_tracker_tpu_torch.ops.assignment import masked_assignment
 from yolov7_tracker_tpu_torch.pipeline import PipelineConfig, TrackingPipeline
 from yolov7_tracker_tpu_torch.trackers import slab as TS
+from yolov7_tracker_tpu_torch.trackers import registry
 from yolov7_tracker_tpu_torch.trackers.registry import build_tracker
 
 N_STREAMS = 3
@@ -332,3 +335,77 @@ def test_process_multistream_with_a_v8_detector_matches_jax():
         _assert_outputs_match(t_out, j_out, f"tick {t}")
         _assert_slab_matches(t_slabs, j_slabs, f"tick {t}")
     assert int(t_slabs.next_id.min()) >= 2       # every stream tracked
+
+
+# ---------------------------------------------------------------------------
+# one frame path: every entry hands the step the same DetSlab
+# ---------------------------------------------------------------------------
+
+def _assert_same_det(got, want, where):
+    for name, a, b in zip(TS.DetSlab._fields, got, want):
+        assert (a.shape, a.dtype, a.device) == (b.shape, b.dtype,
+                                                b.device), (where, name)
+        assert torch.equal(a, b), (where, name)
+
+
+@pytest.mark.parametrize("reid", ["none", "deepsort_cnn"])
+def test_entries_hand_the_step_the_same_det_slab(weights, reid):
+    """process_batch on a batch of one, step_frame, and process_multistream
+    at S = 1 (its stream axis dropped; its warp serves every stream) give
+    the step equal DetSlabs, field by field, with and without ReID; the
+    streaming entries solve stage 1 by registry.stream_step's solver."""
+    spec = tzoo.get_spec("yolov7-tiny", nc=4)
+    track = dict(TRACK, det_capacity=24)
+    if reid != "none":
+        track.update(tracker="deepsort")
+    pipe = TrackingPipeline(
+        PipelineConfig(**dict(PIPE, reid=reid)), TS.TrackerConfig(**track),
+        state_dict=jax_variables_to_torch(weights, spec), spec=spec,
+        device="cpu")
+    seen, step = [], pipe.step
+
+    def recording(slab, det, **kw):
+        seen.append((det, kw))
+        return step(slab, det, **kw)
+
+    pipe.step = recording
+    frame = _frames()[0, 0]
+    pipe.process_batch(pipe.init_tracker(), frame[None])
+    pipe.step_frame(pipe.init_tracker(), frame)
+    pipe.process_multistream(pipe.init_multistream(1), frame[None])
+    (batch, kw_b), (single, kw_s), (multi, kw_m) = seen
+    assert kw_b == {}
+    assert kw_s == kw_m == {"solve_stage1": registry.masked_assignment}
+    assert bool(batch.valid.any())
+    assert batch.feature.shape[-1] == pipe.tcfg.feature_dim
+    if reid != "none":
+        assert bool(batch.feature.any())
+    _assert_same_det(single, batch, "step_frame")
+    _assert_same_det(TS.DetSlab(*(x[0] for x in multi[:-1]), multi.warp),
+                     batch, "process_multistream")
+
+
+@pytest.mark.parametrize("n, max_det", [(0, 32), (9, 32), (16, 32),
+                                        (23, 32), (5, 8)])
+def test_det_slab_from_host_rows_equals_detector_outputs(n, max_det):
+    """make_det_slab on n host rows == dets_to_slab on NMS's layout of the
+    same rows (max_det rows, zeros past the count) for det_capacity 16:
+    no detection, fewer, exactly 16, more, and outputs narrower than the
+    capacity; values, shapes, dtypes and devices."""
+    cfg = TS.TrackerConfig(det_capacity=16, feature_dim=5)
+    rng = np.random.default_rng(n)
+    xy = rng.uniform(0, 500, (n, 2))
+    rows = np.c_[xy, xy + rng.uniform(10, 90, (n, 2)),
+                 np.sort(rng.uniform(0.1, 1.0, n))[::-1],
+                 rng.integers(0, 4, n)].astype(np.float32)
+    out = np.zeros((max_det, 6), np.float32)
+    out[:n] = rows
+    out = torch.from_numpy(out)
+    pipe = types.SimpleNamespace(tcfg=cfg)
+    got = TrackingPipeline.dets_to_slab(pipe, out[:, :4], out[:, 4],
+                                        out[:, 5], torch.tensor(n))
+    want = TS.make_det_slab(cfg, rows[:, :4], rows[:, 4], rows[:, 5],
+                            np.ones(n, bool), "cpu")
+    _assert_same_det(got, want, f"{n} rows")
+    assert want.tlbr.shape == (16, 4) and want.feature.shape == (16, 5)
+    assert int(want.valid.sum()) == min(n, 16)

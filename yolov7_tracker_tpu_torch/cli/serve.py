@@ -275,7 +275,7 @@ def main(argv=None):
             print(f"stream {i}: resumed state from {state_path(i)}")
         else:
             per_stream.append(pipe.init_tracker())
-    slabs = S.TrackSlab(*(torch.stack(xs) for xs in zip(*per_stream)))
+    slabs = S.stacked(per_stream)
     bases = [int(s.frame) for s in per_stream]
 
     def snapshot(i, slabs):
@@ -384,14 +384,8 @@ def main(argv=None):
         for i in range(n):
             if not stepped[i]:
                 continue
-            valid = out.valid[i]
             emitted[i] += 1
-            row = (
-                bases[i] + emitted[i],
-                out.track_id[i][valid].tolist(),
-                list(out.tlwh[i][valid]),
-                out.cls[i][valid].astype(int).tolist(),
-            )
+            row = writer.frame_row(bases[i] + emitted[i], out, i)
             pending[i].append(row)
             if len(results[i]) < MAX_RETURN_ROWS:
                 results[i].append(row)

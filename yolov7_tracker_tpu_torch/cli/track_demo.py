@@ -114,10 +114,8 @@ def _run_stream(pipe, opts, writer):
     try:
         for frame in src:
             slab, out = pipe.step_frame(slab, frame)
-            outs = pipe.unpack_output(pipe.pack_output(out))
-            v = outs.valid
-            row = (base + n + 1, outs.track_id[v].tolist(),
-                   list(outs.tlwh[v]), outs.cls[v].astype(int).tolist())
+            row = writer.frame_row(
+                base + n + 1, pipe.unpack_output(pipe.pack_output(out)))
             results.append(row)
             pending.append(row)
             n += 1

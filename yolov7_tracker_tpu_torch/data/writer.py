@@ -13,6 +13,15 @@ import numpy as np
 FrameResult = Tuple[int, List[int], List[np.ndarray], List[int]]
 
 
+def frame_row(frame_id: int, out, *index) -> FrameResult:
+    """One frame's results row from an unpacked FrameOutput (numpy
+    leaves): the valid slots' ids, tlwhs and classes. ``index``: the
+    frame's position in an output with leading axes; none for one frame."""
+    v = out.valid[index]
+    return (frame_id, out.track_id[index][v].tolist(),
+            list(out.tlwh[index][v]), out.cls[index][v].astype(int).tolist())
+
+
 def last_written_frame(folder: str, seq_name: str) -> int:
     """Largest frame id already present in a results txt (0 if absent) —
     lets an interrupted run resume with ``save_results(..., append=True)``

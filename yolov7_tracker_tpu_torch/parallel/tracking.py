@@ -3,20 +3,19 @@ yolov7_tracker_tpu/parallel/tracking.py).
 
 The reference's per-sequence loop (track.py:123) is embarrassingly
 parallel: tracker state never crosses sequences. Each rank steps its
-contiguous block of the S streams through the frames with the port's
-``track_scan_multi`` loop (stage 1 by the square auction, kernel K3 on a
-card; stages 2 + 3 as one launch of kernel K2), with no collective inside
-the frame loop; the slabs and outputs are gathered back in stream order.
+contiguous block of the S streams through the frames with the loop of
+``track_scan_multi`` (trackers/registry.scan_streams: stage 1 by the
+square auction, kernel K3 on a card; stages 2 + 3 as one launch of kernel
+K4), with no collective inside the frame loop; the slabs and outputs are
+gathered back in stream order.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
-import torch
-
-from ..ops.assignment import masked_assignment
 from ..trackers import slab as S
+from ..trackers.registry import scan_streams
 from .mesh import DataMesh, gather, shard_batch
 
 
@@ -30,20 +29,11 @@ def make_sharded_tracker(pipe_or_step, mesh: DataMesh) -> Callable:
     step = getattr(pipe_or_step, "step", pipe_or_step)
 
     def run(slabs: S.TrackSlab, det_streams: S.DetSlab):
-        mine = shard_batch(mesh, slabs)
         warp = det_streams.warp
         if warp.dim() > 2:
             warp = shard_batch(mesh, warp, axis=1)
-        dets = S.DetSlab(*shard_batch(mesh, tuple(det_streams[:-1]), axis=1),
-                         warp)
-        outs = []
-        for t in range(dets.valid.shape[0]):
-            mine, out = step(
-                mine, S.DetSlab(*(x[t] for x in dets[:-1]),
-                                warp[t] if warp.dim() > 2 else warp),
-                solve_stage1=masked_assignment)
-            outs.append(out)
-        outs = S.FrameOutput(*(torch.stack(f) for f in zip(*outs)))
+        mine, outs = scan_streams(step, shard_batch(mesh, slabs), S.DetSlab(
+            *shard_batch(mesh, tuple(det_streams[:-1]), axis=1), warp))
         return gather(mesh, mine), gather(mesh, outs, axis=1)
 
     return run
@@ -54,6 +44,4 @@ def stack_slabs(cfg: S.TrackerConfig, n: int, device=None) -> S.TrackSlab:
     (None: the card)."""
     from .. import resolve_device
 
-    slab = S.init_slab(cfg, resolve_device(device))
-    return S.TrackSlab(*(x[None].repeat((n,) + (1,) * x.dim())
-                         for x in slab))
+    return S.stacked([S.init_slab(cfg, resolve_device(device))] * n)

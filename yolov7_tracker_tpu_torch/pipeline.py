@@ -8,20 +8,16 @@ yolov7_tracker_tpu/pipeline.py).
       the host)
       --> tracker slab step --> FrameOutput
 
-The detector runs on batches of ``detector_batch`` frames; the tracker
-then steps through the batch frame by frame (the JAX ``lax.scan`` as a
-Python loop). Everything stays on the device except the NMS loop
-conditions and the packed per-batch outputs.
-
-Two solvers serve stage 1 of the tracker step. The sequence modes
-(``run_sequence*``, ``process_batch``, ``track_frames``) keep the
-private-dummy auction (kernel K2), the JAX package's TPU choice. The
-streaming modes (``step_frame``, ``process_multistream``,
-``track_scan_multi``) take the exact square auction (kernels K1 and K3),
-which is what the JAX package's streaming entry points run on every
-backend but a TPU: a wrong pairing in a crowded many-camera scene costs
-an id switch, and the same algorithm as the reference lets the two
-packages be held against each other through ties.
+Every entry takes one frame path: the detector body ``_detect`` (on
+batches of ``detector_batch`` frames in the sequence modes), the DetSlab
+of ``_det_slab`` (trackers/slab.make_det_slab's layout, the warp, the
+ReID features), and the tracker's steps (trackers/registry.scan, the JAX
+``lax.scan`` as a Python loop). Everything stays on the device except the
+NMS loop conditions and the packed per-batch outputs. The sequence modes
+(``run_sequence*``, ``process_batch``, ``track_frames``) solve stage 1
+with the trackers' solver (kernel K4), the streaming modes
+(``step_frame``, ``process_multistream``, ``track_scan_multi``) with
+trackers/registry.stream_step's exact square auction (K1 and K3).
 
 With ``detect_per_frame`` = k > 1 the sequence modes detect on every
 k-th frame of the slab's global frame counter and step the others with
@@ -63,20 +59,20 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .data import letterbox
+from .data import letterbox, writer
 from .models import zoo
 from .models.fuse import fuse_state_dict
 from .models.yolo import YoloV7, decode_levels, random_state_dict
 from .ops import deepsort_cnn as k5
 from .ops import nms as nms_mod
-from .ops.assignment import masked_assignment
 from .reid import (build_reid, float32_exact, load_reid_state_dict,
                    random_reid_state_dict)
 from .reid import extractor
 from .reid.deepsort_cnn import DeepSortCNN
 from .trackers import slab as S
 from .trackers.gmc import GMC
-from .trackers.registry import build_predict_only, build_tracker
+from .trackers.registry import (build_predict_only, build_tracker, scan,
+                                scan_streams, stream_step)
 from .utils import trace
 
 
@@ -112,18 +108,6 @@ class PipelineConfig:
     quant: str = "none"            # "none" | "int8": W8A8 static-PTQ
                                    # detector (models/quant.py); needs
                                    # fuse=True
-
-
-def pack_frame_output(outs: S.FrameOutput) -> torch.Tensor:
-    """FrameOutput -> one (..., T, 8) float32 tensor. Track ids ride
-    BIT-cast (int32 viewed as float32): float32 is exact only to 2^24."""
-    return torch.cat([
-        outs.track_id.to(torch.int32).view(torch.float32)[..., None],
-        outs.tlwh.float(),
-        outs.score.float()[..., None],
-        outs.cls.float()[..., None],
-        outs.valid.float()[..., None],
-    ], dim=-1)
 
 
 class TrackingPipeline:
@@ -225,20 +209,25 @@ class TrackingPipeline:
             frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
         return frames_u8.to(self.device, non_blocking=True)
 
-    @torch.no_grad()
-    @trace.traced("detector", _on_device)
-    def detect_batch(self, frames_u8):
-        """(B, H, W, 3) uint8 -> (boxes (B, max_det, 4) tlbr in frame
-        pixels, score (B, max_det), cls (B, max_det), counts (B,))."""
+    def _detect(self, frames_u8, forward):
+        """The detector's body: ``forward`` maps the letterboxed batch to
+        the head's output; then NMS and the rescale to frame pixels."""
         frames = self._frames(frames_u8)
         src_hw = tuple(frames.shape[1:3])
         out_hw, unpad_hw = self._geometry(src_hw)
         with trace.span("detector.letterbox", frames):
             imgs, _ = letterbox.device_preprocess(
                 frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=self.dtype)
-        dets, counts = self.nms(self.model(imgs))
+        dets, counts = self.nms(forward(imgs))
         boxes = letterbox.scale_coords_device(dets[..., :4], out_hw, src_hw)
         return boxes, dets[..., 4], dets[..., 5], counts
+
+    @torch.no_grad()
+    @trace.traced("detector", _on_device)
+    def detect_batch(self, frames_u8):
+        """(B, H, W, 3) uint8 -> (boxes (B, max_det, 4) tlbr in frame
+        pixels, score (B, max_det), cls (B, max_det), counts (B,))."""
+        return self._detect(frames_u8, self.model)
 
     @torch.no_grad()
     @trace.traced("detector", _on_device)
@@ -257,15 +246,7 @@ class TrackingPipeline:
         key = (id(mesh.group), mesh.size, mesh.rank)
         if key not in self._spatial:
             self._spatial = {key: make_spatial_detector(self.model, mesh)}
-        frames = self._frames(frames_u8)
-        src_hw = tuple(frames.shape[1:3])
-        out_hw, unpad_hw = self._geometry(src_hw)
-        with trace.span("detector.letterbox", frames):
-            imgs, _ = letterbox.device_preprocess(
-                frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=self.dtype)
-        dets, counts = self.nms(self._spatial[key](imgs))
-        boxes = letterbox.scale_coords_device(dets[..., :4], out_hw, src_hw)
-        return boxes, dets[..., 4], dets[..., 5], counts
+        return self._detect(frames_u8, self._spatial[key])
 
     @trace.traced("nms", _on_device)
     def nms(self, out):
@@ -361,27 +342,30 @@ class TrackingPipeline:
 
     def dets_to_slab(self, boxes, score, cls, count) -> S.DetSlab:
         """Detector outputs of one frame, or of S frames with a leading
-        stream axis, cut to det_capacity."""
-        d = self.tcfg.det_capacity
-        boxes = boxes[..., :d, :].float()
-        return S.DetSlab(
-            tlbr=boxes, score=score[..., :d].float(),
-            cls=cls[..., :d].float(),
-            valid=(torch.arange(d, device=boxes.device)
-                   < torch.as_tensor(count, device=boxes.device)[..., None]),
-            feature=torch.zeros(boxes.shape[:-1] + (self.tcfg.feature_dim,),
-                                device=boxes.device),
-            warp=S.identity_warp(boxes.device))
+        stream axis, as the step's DetSlab on their device
+        (trackers/slab.make_det_slab)."""
+        return S.make_det_slab(self.tcfg, boxes, score, cls, count,
+                               boxes.device)
+
+    def _det_slab(self, frames, boxes, score, cls, count,
+                  warp=None) -> S.DetSlab:
+        """The step's DetSlab of one frame ((H, W, 3) on the device and its
+        detector outputs) or of S stacked frames: ``dets_to_slab``, the
+        camera warp ((2, 3) or (S, 2, 3); identity when None) sent to the
+        device, and the ReID features of the kept boxes."""
+        det = self.dets_to_slab(boxes, score, cls, count)
+        if warp is not None:
+            det = det._replace(warp=torch.as_tensor(
+                warp, dtype=torch.float32).to(self.device, non_blocking=True))
+        if self.reid_model is not None:
+            det = det._replace(feature=self.embed_dets(frames, det.tlbr))
+        return det
 
     @trace.traced("pipeline", _on_device)
     def track_frames(self, slab: S.TrackSlab, det_slabs):
         """Step the tracker through a list of DetSlabs; returns (slab,
         FrameOutput stacked over the frames)."""
-        outs = []
-        for det in det_slabs:
-            slab, out = self.step(slab, det)
-            outs.append(out)
-        return slab, S.FrameOutput(*(torch.stack(f) for f in zip(*outs)))
+        return scan(self.step, slab, det_slabs)
 
     @trace.traced("pipeline", _on_device)
     def process_batch(self, slab: S.TrackSlab, frames_u8):
@@ -391,19 +375,13 @@ class TrackingPipeline:
         device once: the detector, the ReID crops and ECC all read that
         copy (ORB reads the host's frames and its warp is sent after)."""
         frames = self._frames(frames_u8)
-        boxes, score, cls, counts = self.detect_batch(frames)
-        d = self.tcfg.det_capacity
+        out = self.detect_batch(frames)
         dets = []
-        for b in range(boxes.shape[0]):
-            det = self.dets_to_slab(boxes[b], score[b], cls[b], counts[b])
-            if self.gmc is not None:
-                det = det._replace(warp=self.gmc.apply(
-                    frames[b] if self.gmc.method == "ecc" else frames_u8[b]
-                ).to(self.device, non_blocking=True))
-            if self.reid_model is not None:
-                det = det._replace(
-                    feature=self.embed_dets(frames[b], boxes[b, :d]))
-            dets.append(det)
+        for b in range(frames.shape[0]):
+            warp = None if self.gmc is None else self.gmc.apply(
+                frames[b] if self.gmc.method == "ecc" else frames_u8[b])
+            dets.append(self._det_slab(frames[b], *(x[b] for x in out),
+                                       warp))
         return self.track_frames(slab, dets)
 
     # ------------------------------------------------------------------
@@ -414,9 +392,9 @@ class TrackingPipeline:
 
     def init_multistream(self, n_streams: int) -> S.TrackSlab:
         """A fresh slab per stream, stacked on a leading stream axis."""
-        slab = self.init_tracker()
-        return S.TrackSlab(*(
-            x[None].repeat((n_streams,) + (1,) * x.dim()) for x in slab))
+        from .parallel.tracking import stack_slabs
+
+        return stack_slabs(self.tcfg, n_streams, self.device)
 
     def _streaming(self):
         if self.gmc is not None:
@@ -424,29 +402,13 @@ class TrackingPipeline:
                 "the pipeline's own GMC does not run in the streaming modes; "
                 "pass the frames' warps (warps= / warp=) or use run_sequence*")
 
-    def _warps(self, warps, dets: S.DetSlab) -> S.DetSlab:
-        """The caller's camera warps ((2, 3) or (S, 2, 3)) on the dets,
-        identity when None."""
-        if warps is None:
-            return dets
-        return dets._replace(warp=torch.as_tensor(
-            warps, dtype=torch.float32).to(self.device, non_blocking=True))
-
     @trace.traced("pipeline", _on_device)
     def track_scan_multi(self, slabs: S.TrackSlab, det_streams: S.DetSlab):
         """slabs: stacked over S streams; det_streams: every field
         (T, S, D, ...), the warp (T, S, 2, 3) or one (2, 3) for all. Steps
         all streams together through the T frames; returns (slabs,
         FrameOutput (T, S, ...))."""
-        outs = []
-        warp = det_streams.warp
-        for t in range(det_streams.valid.shape[0]):
-            slabs, out = self.step(
-                slabs, S.DetSlab(*(x[t] for x in det_streams[:-1]),
-                                 warp[t] if warp.dim() > 2 else warp),
-                solve_stage1=masked_assignment)
-            outs.append(out)
-        return slabs, S.FrameOutput(*(torch.stack(f) for f in zip(*outs)))
+        return scan_streams(self.step, slabs, det_streams)
 
     @trace.traced("pipeline", _on_device)
     def process_multistream(self, slabs: S.TrackSlab, frames_u8,
@@ -461,14 +423,8 @@ class TrackingPipeline:
         in this mode; the port refuses a pipeline with one)."""
         self._streaming()
         frames = self._frames(frames_u8)
-        boxes, score, cls, counts = self.detect_batch(frames)
-        dets = self._warps(warps, self.dets_to_slab(boxes, score, cls,
-                                                    counts))
-        if self.reid_model is not None:
-            d = self.tcfg.det_capacity
-            dets = dets._replace(feature=self.embed_dets(
-                frames, boxes[:, :d]))
-        return self.step(slabs, dets, solve_stage1=masked_assignment)
+        return stream_step(self.step, slabs, self._det_slab(
+            frames, *self.detect_batch(frames), warps))
 
     @trace.traced("pipeline", _on_device)
     def step_frame(self, slab: S.TrackSlab, frame, warp=None):
@@ -478,14 +434,9 @@ class TrackingPipeline:
         run here, as in process_multistream)."""
         self._streaming()
         frames = self._frames(frame[None])
-        boxes, score, cls, counts = self.detect_batch(frames)
-        det = self._warps(warp, self.dets_to_slab(boxes[0], score[0], cls[0],
-                                                  counts[0]))
-        if self.reid_model is not None:
-            d = self.tcfg.det_capacity
-            det = det._replace(feature=self.embed_dets(frames[0],
-                                                       boxes[0, :d]))
-        return self.step(slab, det, solve_stage1=masked_assignment)
+        out = self.detect_batch(frames)
+        return stream_step(self.step, slab, self._det_slab(
+            frames[0], *(x[0] for x in out), warp))
 
     # ------------------------------------------------------------------
     # output packing: one D2H transfer per batch
@@ -494,7 +445,16 @@ class TrackingPipeline:
     @staticmethod
     @trace.traced("pipeline.rows_out", lambda outs: outs.valid)
     def pack_output(outs: S.FrameOutput) -> torch.Tensor:
-        return pack_frame_output(outs)
+        """FrameOutput -> one (..., T, 8) float32 tensor. Track ids ride
+        BIT-cast (int32 viewed as float32): float32 is exact only to
+        2^24."""
+        return torch.cat([
+            outs.track_id.to(torch.int32).view(torch.float32)[..., None],
+            outs.tlwh.float(),
+            outs.score.float()[..., None],
+            outs.cls.float()[..., None],
+            outs.valid.float()[..., None],
+        ], dim=-1)
 
     @staticmethod
     @trace.traced("pipeline.rows_out", trace.first_tensor)
@@ -513,11 +473,8 @@ class TrackingPipeline:
     @staticmethod
     @trace.traced("pipeline.rows_out")
     def _emit(results, outs: S.FrameOutput, first_frame: int) -> None:
-        for b in range(outs.valid.shape[0]):
-            v = outs.valid[b]
-            results.append((first_frame + b, outs.track_id[b][v].tolist(),
-                            list(outs.tlwh[b][v]),
-                            outs.cls[b][v].astype(int).tolist()))
+        results.extend(writer.frame_row(first_frame + b, outs, b)
+                       for b in range(outs.valid.shape[0]))
 
     # ------------------------------------------------------------------
     # sequences

@@ -24,7 +24,7 @@ from .registry import register
 
 
 def solve_pair(cost, rows, cols, thresh):
-    """Two independent problems in ONE K2 launch (the JAX package's
+    """Two independent problems in ONE K4 launch (the JAX package's
     vmapped pair): ``cost`` is one (..., T, D) matrix for both or a
     tuple of two; ``rows`` / ``cols`` pairs of masks; ``thresh`` a pair.
     Stacked streams make 2S problems. Returns ((r2c_a, r2c_b),
@@ -49,9 +49,8 @@ def bytetrack_step(slab: S.TrackSlab, dets: S.DetSlab, cfg: S.TrackerConfig,
                    solve_stage1=None):
     """One frame of one stream, or of S stacked streams. ``solve_stage1``
     solves the pool-vs-high-dets problem: the private-dummy auction
-    (``solve_assignment``) by default; the streaming entry points of
-    pipeline.py pass the exact square auction
-    (ops.assignment.masked_assignment)."""
+    (``solve_assignment``) by default; the streaming modes pass the exact
+    square auction (trackers/registry.stream_step)."""
     if solve_stage1 is None:
         solve_stage1 = solve_assignment
     fmt = cfg.kalman_format

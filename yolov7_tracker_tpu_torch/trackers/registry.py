@@ -17,6 +17,7 @@ import functools
 import importlib
 from typing import Callable, Dict, Tuple
 
+from ..ops.assignment import masked_assignment
 from ..utils import trace
 from . import slab as S
 from .graphed import graphed
@@ -103,3 +104,31 @@ def build_predict_only(cfg: S.TrackerConfig) -> Callable:
         return slab, S.frame_output(slab, fmt, cfg)
 
     return _spanned(step)
+
+
+def stream_step(step: Callable, slab: S.TrackSlab, dets: S.DetSlab):
+    """``step`` as the streaming modes run it: stage 1 by the exact square
+    auction (K1 for one stream, K3 for S), as the JAX package's streaming
+    entry points on every backend but a TPU: the same algorithm lets the
+    two packages be held against each other through ties."""
+    return step(slab, dets, solve_stage1=masked_assignment)
+
+
+def scan(step: Callable, slab: S.TrackSlab, dets):
+    """Step ``slab`` through the DetSlabs ``dets`` in order; returns (slab,
+    FrameOutput stacked over the frames)."""
+    outs = []
+    for det in dets:
+        slab, out = step(slab, det)
+        outs.append(out)
+    return slab, S.stacked(outs)
+
+
+def scan_streams(step: Callable, slabs: S.TrackSlab, det_streams: S.DetSlab):
+    """:func:`scan` of S stacked streams by :func:`stream_step`: every
+    field of det_streams (T, S, D, ...), the warp (T, S, 2, 3) or (2, 3)."""
+    warp = det_streams.warp
+    frames = (S.DetSlab(*(x[t] for x in det_streams[:-1]),
+                        warp[t] if warp.dim() > 2 else warp)
+              for t in range(det_streams.valid.shape[0]))
+    return scan(functools.partial(stream_step, step), slabs, frames)

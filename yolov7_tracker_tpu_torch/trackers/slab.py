@@ -146,29 +146,51 @@ def init_slab(cfg: TrackerConfig, device) -> TrackSlab:
 
 def make_det_slab(cfg: TrackerConfig, tlbr, score, cls, valid,
                   device, feature=None, warp=None) -> DetSlab:
-    """Pad (or cut) per-frame detections (and features) to the slab's
-    det_capacity."""
+    """Detections (host arrays or tensors, any leading stream axes) as the
+    step's DetSlab, rows cut or padded to det_capacity: the one builder.
+    ``valid``: a (..., N) mask or NMS's (...) count of leading valid rows;
+    ``feature`` None: zeros; ``warp`` None: the identity. A tensor of its
+    field's dtype on ``device`` is cut as a view."""
     d = cfg.det_capacity
 
-    def pad(x, dtype, fill=0):
-        x = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)[:d]
-        out = torch.full((d,) + tuple(x.shape[1:]), fill, dtype=dtype,
-                         device=device)
-        out[:x.shape[0]] = x
+    def fit(x, dtype, width=0, fill=0):
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x, np.float32 if width else None)
+            if width and x.ndim < 2:
+                x = x.reshape(-1, width)
+        x = torch.as_tensor(x, dtype=dtype, device=device)
+        axis = -2 if width else -1
+        if x.shape[axis] >= d:
+            return x.narrow(axis, 0, d)
+        out = torch.full(x.shape[:axis] + (d,) + x.shape[axis:][1:], fill,
+                         dtype=dtype, device=device)
+        out.narrow(axis, 0, x.shape[axis]).copy_(x)
         return out
 
+    score = fit(score, torch.float32)
+    if np.ndim(valid) < score.dim():
+        valid = (torch.arange(d, device=device)
+                 < torch.as_tensor(valid, device=device)[..., None])
+    else:
+        valid = fit(valid, torch.bool, fill=False)
     return DetSlab(
-        tlbr=pad(np.asarray(tlbr, np.float32).reshape(-1, 4), torch.float32),
-        score=pad(score, torch.float32),
-        cls=pad(cls, torch.float32),
-        valid=pad(valid, torch.bool, False),
-        feature=(torch.zeros((d, cfg.feature_dim), dtype=torch.float32,
-                             device=device) if feature is None
-                 else pad(np.asarray(feature, np.float32).reshape(
-                     -1, cfg.feature_dim), torch.float32)),
+        tlbr=fit(tlbr, torch.float32, 4),
+        score=score,
+        cls=fit(cls, torch.float32),
+        valid=valid,
+        feature=(torch.zeros(score.shape + (cfg.feature_dim,),
+                             dtype=torch.float32, device=device)
+                 if feature is None
+                 else fit(feature, torch.float32, cfg.feature_dim)),
         warp=(identity_warp(device) if warp is None else torch.as_tensor(
-            np.asarray(warp, np.float32), device=device)),
+            warp, dtype=torch.float32, device=device)),
     )
+
+
+def stacked(items):
+    """Slabs, DetSlabs or FrameOutputs stacked field by field on a new
+    leading axis (the streams of a stacked slab, the frames of a scan)."""
+    return type(items[0])(*(torch.stack(f) for f in zip(*items)))
 
 
 # ---------------------------------------------------------------------------

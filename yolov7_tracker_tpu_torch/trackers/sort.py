@@ -7,7 +7,7 @@ Per frame: 1. gate detections at conf_thresh; 2. KF-predict the pool
 3. unmatched Tracked pool members go Lost; 4. unconfirmed tracks against
 the leftover detections at iou_thresh + 0.1, unmatched ones removed;
 5. births above conf_thresh + 0.1; 6. prune old Lost tracks, dedup.
-Two solves (K2 launches on the card) a frame.
+Two solves (K4 launches on the card) a frame.
 """
 
 from __future__ import annotations
