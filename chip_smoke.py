@@ -15,7 +15,8 @@ Phases, each of which must pass:
                 lapjv-extended auction) and the profiling build of each
                 (-DAUCTION_PROFILE; K4's and K2's, K1/K3's) and
                 csrc/deepsort_cnn.cu (K5, the DeepSORT CNN with its BN
-                folded) for sm_90a from the checkout, side by side.
+                folded) and csrc/nms.cu (K6, NMS's greedy keep set) for
+                sm_90a from the checkout, side by side.
   2. kernels -- each kernel against its plain PyTorch version on the card
                 at the tracker's shape (128, 300), exact equality of
                 r2c/c2r and of every problem's sweep count. K4 and K2,
@@ -52,7 +53,14 @@ Phases, each of which must pass:
                 (capacity 128, det_capacity 300) over 16 synthetic
                 1080x1920 frames through TrackingPipeline.run_sequence,
                 with the K4 and K2 launch counts reset just before and
-                read just after (2 K4 per frame, no K2). The same run is
+                read just after (2 K4 per frame, no K2; one K6 launch a
+                detector batch and no host_syncs.nms, as every phase
+                below that counts launches over detector batches checks,
+                nms_through_k6; torch.profiler's kernels held against the
+                solvers' and K6's counts, launch_witness). K6 itself
+                (k6_phase, before this phase): bit for bit its plain
+                version on seeded batches and on w6's raw levels, and
+                timed at the cells' shapes. The same run is
                 timed with K2 (before K4) and K4 as the solver in turns
                 K2, K4, K4, K2 (its first 8 frames). The main path's
                 own auction problems are then re-solved by K4 and K2 and
@@ -333,6 +341,12 @@ on deepsort's cascade, given the file).
 builds csrc/deepsort_cnn.cu and runs k5_phase alone (K5's record on one
 JSON line, no result line).
 
+    python3 chip_smoke.py --k6-only
+
+builds csrc/nms.cu and runs k6_phase alone (K6, NMS's greedy keep set:
+checked bit for bit against the plain version and timed at the cells'
+shapes; its record on one JSON line, no result line).
+
     python3 chip_smoke.py --train-only
 
 runs phase 10 alone and prints its JSON line, no result line.
@@ -390,6 +404,16 @@ K5_NS = (1, 7, 300, 613, 2400)   # crops: one, a few, a frame's 300 slots, a
 K5_TIMED_N = 300
 K5_REL_TOL = 1e-5             # K5 against the plain version and the module
 K5_LAUNCHES = 18              # the stem, 16 convolutions, the head
+# K6, NMS's greedy keep set (ops/nms.py), replaces no TPU kernel: the JAX
+# package's greedy_suppress is a lax.while_loop
+SOURCE_K6 = "yolov7_tracker_tpu_torch/csrc/nms.cu"
+REPLACES_K6 = "none: yolov7_tracker_tpu/ops/nms.py:34 is a lax.while_loop"
+# the cells' NMS (perfbench/configs/yolov7-w6.bytetrack.json): a batch of 8,
+# the top 2048 candidates, max_det 300, IoU 0.45, 10 classes, 1280 px
+K6_CELL = dict(b=8, k=2048, max_det=300, iou_thres=0.45, nc=10, img=1280)
+# the candidates' bytes K6 reads (score, order, off box, box, class) and a
+# row's it writes
+K6_BYTES_IN, K6_BYTES_OUT = 4 + 8 + 16 + 16 + 4, 6 * 4
 # std gain of the random conv kernels below the heads. At 1.0 (and still at
 # 1.4) w6's signal dies out on its way through ~100 SiLU layers and every
 # frame gets the same boxes, so every camera would hand the tracker one and
@@ -1293,6 +1317,7 @@ def main_phase(pipe, dev):
         raise AssertionError(f"{launches} K4 and {k2_launches} K2 launches "
                              f"and {len(steps)} graphed steps for {n} "
                              "frames")
+    nms_through_k6(counts, "main path", -(-n // pipe.pcfg.detector_batch))
     launch_witness("main path", lambda: pipe.run_sequence_stateful(
         iter(frames[:TURN_FRAMES])))
     tracks = [len(ids) for _, ids, _, _ in results]
@@ -1498,6 +1523,7 @@ def serving_phase(sd, pipe, dev):
                     torch.cuda.synchronize()
                 counts.append((got["launches.k3"], got["launches.k4"],
                                got["launches.k1"]))
+                nms_through_k6(got, f"serve, {ticks} ticks")
                 if preempted or [len(r) for r in results] != \
                         [ticks] * N_STREAMS:
                     raise AssertionError(
@@ -1660,6 +1686,7 @@ def step_frame_phase(pipe, dev):
     if (k1, k3) != (len(frames), 0):
         raise AssertionError(f"step_frame: {k1} K1 and {k3} K3 launches for "
                              f"{len(frames)} frames")
+    nms_through_k6(got, "step_frame", len(frames))
     slabs = pipe.init_multistream(1)
     for f in frames:
         slabs, outs = pipe.process_multistream(slabs, f[None])
@@ -1921,6 +1948,7 @@ def tracker_run(sd, dev, frames, name, tracker_kw, pipe_kw, per_frame):
                              f"frames, expected {per_frame} K4, "
                              f"{per_cascade} cascade and {per_k5} K5 a "
                              "frame")
+    nms_through_k6(got, name, -(-n // pipe.pcfg.detector_batch))
     tracks = [len(ids) for _, ids, _, _ in results]
     if len(results) != n or max(tracks) < 1 or int(slab.frame) != n:
         raise AssertionError(f"{name}: tracks per frame {tracks}")
@@ -2630,6 +2658,7 @@ def serving_reid_phase(sd, dev, reid_path):
                     torch.cuda.synchronize()
                 counts.append((got["launches.k3"], got["launches.k4"],
                                got["launches.k1"]))
+                nms_through_k6(got, f"serve with ReID, {ticks} ticks")
                 if preempted or [len(r) for r in results] != \
                         [ticks] * N_STREAMS:
                     raise AssertionError(
@@ -2714,6 +2743,7 @@ def step_frame_reid_phase(sd, dev, reid_path):
     if (k1, k4, k3) != (n, 2 * n, 0):
         raise AssertionError(f"step_frame with ReID: {k1} K1, {k4} K4, {k3} "
                              f"K3 launches in {n} frames")
+    nms_through_k6(got, "step_frame with ReID", n)
     if not int(out.valid.sum()) or not bool(slab.feature.abs().max() > 0):
         raise AssertionError("step_frame with ReID: no tracks or features")
     worst = path_solves_check(kept, "step_frame with ReID", dev)
@@ -2769,6 +2799,7 @@ def deepmot_streams_phase(sd, dev):
     if (k3, k4, k1) != (ticks, ticks, 0):
         raise AssertionError(f"deepmot at S = {N_STREAMS}: {k3} K3, {k4} K4, "
                              f"{k1} K1 launches in {ticks} ticks")
+    nms_through_k6(got, f"deepmot at S = {N_STREAMS}", ticks)
     if min(map(sum, zip(*tracks))) < 1:        # every stream tracked
         raise AssertionError(f"deepmot at S = {N_STREAMS}: tracks {tracks}")
     worst = path_solves_check(kept, f"deepmot at S = {N_STREAMS}", dev)
@@ -3085,21 +3116,23 @@ def drop_graphs(step):
     step.func.__wrapped__.graphs.clear()
 
 
-# the solver kernels by name in the device trace, under their counters
-SOLVER_KERNELS = {"launches.k1": "auction_square_kernel",
+# the solver kernels and K6 (NMS) by name in the device trace, under
+# their counters
+TRACED_KERNELS = {"launches.k1": "auction_square_kernel",
                   "launches.k3": "auction_square_batched_kernel",
                   "launches.k2": "auction_kernel",
                   "launches.k4": "twin_kernel",
-                  "launches.k4_cascade": "twin_cascade_kernel"}
+                  "launches.k4_cascade": "twin_cascade_kernel",
+                  "launches.k6": "k6_kernel"}
 
 
 def launch_witness(name, block):
     """``block()`` under torch.profiler, its tracker steps replayed from
-    graphs captured before it: the solver kernels the card ran, counted by
-    name in the device trace, against the launches the tracer counted (a
-    graph credits the counts of its capture on each replay). Raises unless
-    they are equal, some solver ran and no step ran but by a replay;
-    returns the counts."""
+    graphs captured before it: the solver kernels and K6 the card ran,
+    counted by name in the device trace, against the launches the tracer
+    counted (a graph credits the counts of its capture on each replay).
+    Raises unless they are equal, some solver ran and no step ran but by a
+    replay; returns the counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3108,22 +3141,23 @@ def launch_witness(name, block):
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         block()
         torch.cuda.synchronize()
-    ran = {k: 0 for k in SOLVER_KERNELS}
+    ran = {k: 0 for k in TRACED_KERNELS}
     for e in prof.key_averages():
-        for k, kernel in SOLVER_KERNELS.items():
+        for k, kernel in TRACED_KERNELS.items():
             if kernel in e.key:
                 ran[k] += e.count
-    credited = {k: got[k] for k in SOLVER_KERNELS}
+    credited = {k: got[k] for k in TRACED_KERNELS}
     replays = got["tracker.graph_replays"]
-    if (ran != credited or not sum(ran.values()) or not replays
+    solved = sum(v for k, v in ran.items() if k != "launches.k6")
+    if (ran != credited or not solved or not replays
             or got["tracker.graph_captures"] or got["tracker.graph_eager"]):
         raise AssertionError(
-            f"{name}: solver kernels in the device trace {ran}, counted "
+            f"{name}: kernels in the device trace {ran}, counted "
             f"{credited}; {replays} replays, "
             f"{got['tracker.graph_captures']} captures, "
             f"{got['tracker.graph_eager']} eager steps")
-    log(f"{name}: {replays} graphed steps, solver kernels in the device "
-        f"trace {ran} == counted")
+    log(f"{name}: {replays} graphed steps, solver kernels and K6 in the "
+        f"device trace {ran} == counted")
     return ran
 
 
@@ -3131,8 +3165,9 @@ def launch_witness(name, block):
 def counting():
     """The tracer's counters of the block (utils/trace.py records inside
     it): a Counter, filled as the block closes, of the kernels' launches
-    (``launches.k1`` ... ``launches.k4_cascade``) and the host syncs; what
-    the tracer kept is dropped before and after."""
+    (``launches.k1`` ... ``launches.k6``), the host syncs and, as
+    ``spans.<name>``, how often each span closed; what the tracer kept is
+    dropped before and after."""
     from yolov7_tracker_tpu_torch.utils import trace
 
     got = collections.Counter()
@@ -3141,8 +3176,24 @@ def counting():
         with trace.recording():
             yield got
         got.update(trace.counters())
+        got.update({f"spans.{k}": v["count"]
+                    for k, v in trace.totals().items()})
     finally:
         trace.reset()
+
+
+def nms_through_k6(got, name, batches=None):
+    """Raises unless every NMS call of a counting() block (a ``nms`` span,
+    one a detector batch) launched K6 once, some call ran, no
+    host_syncs.nms was counted and, where ``batches`` is given, the block
+    ran that many detector batches."""
+    calls = got["spans.nms"]
+    if (not calls or got["launches.k6"] != calls or got["host_syncs.nms"]
+            or batches not in (None, calls)):
+        raise AssertionError(
+            f"{name}: {got['launches.k6']} K6 launches and "
+            f"{got['host_syncs.nms']} host_syncs.nms in {calls} NMS calls"
+            + ("" if batches is None else f", {batches} detector batches"))
 
 
 @contextlib.contextmanager
@@ -3391,6 +3442,7 @@ def detect_every_phase(sd, dev):
             wall = time.time() - t0
         launched = got["launches.k4"]
         pipe.step = step
+        nms_through_k6(got, f"detect_per_frame={k}")
         detected = list(range(0, n, k))
         if len(kept) != len(detected) or launched != 2 * len(detected):
             raise AssertionError(
@@ -3545,6 +3597,7 @@ def zoo_run(name, spread, boost, frames, dev, spec=None, keep=None,
     n = len(frames)
     if launches != 2 * n:
         raise AssertionError(f"{name}: {launches} K4 launches in {n} frames")
+    nms_through_k6(got, name, len(batches))
     counts = torch.cat([b[3] for b in batches]).float().cpu()
     boxes = torch.cat([b[0] for b in batches])
     tracks = [len(r[1]) for r in results]
@@ -5194,6 +5247,8 @@ def dhn_deepmot_run(sd, dev, frames, path, arch, hidden):
     launches = got["launches.k4"]
     n = len(frames)
     tracks = [len(ids) for _, ids, _, _ in results]
+    nms_through_k6(got, f"deepmot with the trained {arch} DHN",
+                   -(-n // pipe.pcfg.detector_batch))
     if launches != 2 * n or max(tracks) < 1:
         raise AssertionError(f"deepmot with the trained {arch} DHN: "
                              f"{launches} K4 launches in {n} frames, tracks "
@@ -5484,6 +5539,7 @@ def int8_serving(dev, sd, pipe):
     finally:
         bytetrack.solve_assignment = solve
     n = len(frames)
+    nms_through_k6(got, "12a", len(batches))
     counts = torch.cat([b[3] for b in batches]).float().cpu()
     tracks = [len(r[1]) for r in results]
     if launches != 2 * n or max(tracks) < 1 or not bool(torch.isfinite(
@@ -6567,6 +6623,229 @@ def k5_only(dev):
     return 0
 
 
+def k6_problem(rng, b, k, nc, iou_thres, dev, box_px=(24, 48)):
+    """A seeded batch for ops/nms.suppress on the cells' canvas (768 x
+    1280): boxes box_px wide and tall (the cells' detection load), every
+    score over the threshold, every fifth tied to the one before it."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    xy = rng.uniform(0, [1280 - box_px[0], 768 - box_px[1]], (b, k, 2))
+    sel = np.concatenate([xy, xy + box_px], -1).astype(np.float32)
+    score = rng.uniform(0.01, 1, (b, k)).astype(np.float32)
+    score[:, 1::5] = score[:, 0::5][:, :score[:, 1::5].shape[1]]
+    cls = rng.integers(0, nc, (b, k)).astype(np.float32)
+    sel, cls = torch.from_numpy(sel).to(dev), torch.from_numpy(cls).to(dev)
+    return (sel, sel + cls[..., None] * nms_mod.MAX_WH,
+            torch.from_numpy(score).to(dev), cls)
+
+
+def k6_check(args, kw, name):
+    """K6 against the plain version on one batch, bit for bit; one launch
+    and no host sync (sync debug mode 'error'). Returns the counts."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    want = nms_mod.suppress_plain(*args, **kw)
+    torch.cuda.synchronize()
+    with counting() as got:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dets, counts = nms_mod.suppress_cuda(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    if (got["launches.k6"] != 1 or not torch.equal(counts, want[1])
+            or not torch.equal(dets, want[0])):
+        raise AssertionError(
+            f"K6 on {name}: {got['launches.k6']} launches (expected 1), "
+            f"counts {counts.tolist()} against the plain version's "
+            f"{want[1].tolist()}, rows equal: {torch.equal(dets, want[0])}")
+    log(f"K6 on {name}: bit for bit the plain version, kept "
+        f"{counts.tolist()}, one launch, no host sync")
+    return counts
+
+
+def k6_kernel_ms(args, kw):
+    """ms of K6's launch alone on pre-sorted candidates (graph_ms: no host
+    work between launches)."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    sel, off, score, cls = (t.contiguous() for t in args)
+    b, k = score.shape
+    vals, order = nms_mod.sorted_top_k(score, k)
+    dets = torch.empty((b, kw["max_det"], 6), device=score.device)
+    counts = torch.empty((b,), dtype=torch.int64, device=score.device)
+    return graph_ms(lambda: nms_mod._launch_k6(
+        sel, off, cls, vals, order, kw["iou_thres"], dets, counts))
+
+
+def library_nms_ms(args, kw):
+    """torchvision.ops.batched_nms over the batch's live candidates (one
+    index a class of an image), the yardstick only: the port never calls
+    it; None where torchvision is not installed."""
+    try:
+        from torchvision.ops import batched_nms
+    except ImportError:
+        return None
+    import torch
+
+    sel, _, score, cls = args
+    live = score > 0
+    groups = cls.long() + 4096 * torch.arange(score.shape[0],
+                                              device=score.device)[:, None]
+    boxes, scores, idxs = sel[live], score[live], groups[live]
+    return cuda_ms(lambda: batched_nms(boxes, scores, idxs,
+                                       kw["iou_thres"]), 20)
+
+
+def k6_phase(dev):
+    """K6 (csrc/nms.cu) at the cells' shapes (K6_CELL): on seeded batches
+    (class-aware, agnostic, cli/test.py's 8192 candidates at IoU 0.65)
+    and on yolov7-w6's raw levels of 8 frames at the cells' configuration
+    (seeded, head-sharpened weights) through pipe.nms, bit for bit the
+    plain version, one launch a batch and no host sync; detect_batch
+    launches K6 once and counts no host_syncs.nms. Then, on the w6
+    candidates: the kernel's time (graph_ms) beside its bound (its bytes
+    over 3.35 TB/s), with the stable sort (graph_ms), through the wrapper
+    (cuda_ms: host work included), the whole pipe.nms with K6 and with the
+    plain version, the plain version alone, and torchvision's batched_nms
+    (library_ms, the yardstick only). Returns the kernel record."""
+    import torch
+
+    from yolov7_tracker_tpu_torch.data import letterbox
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.yolo import (random_state_dict,
+                                                      sharpen_heads)
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+    from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                   TrackingPipeline)
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    c = K6_CELL
+    kw = dict(max_det=c["max_det"], iou_thres=c["iou_thres"])
+    rng = np.random.default_rng(12)
+    seeded = {}
+    for name, b, k, iou, agnostic in (
+            ("seeded, the cells' shapes", c["b"], c["k"], c["iou_thres"],
+             False),
+            ("seeded, agnostic", c["b"], c["k"], c["iou_thres"], True),
+            ("seeded, cli/test.py's 8192 at IoU 0.65", 2, 8192, 0.65,
+             False)):
+        args = list(k6_problem(rng, b, k, c["nc"], iou, dev))
+        if agnostic:
+            args[1] = args[0]
+        seeded[name] = k6_check(args, dict(max_det=c["max_det"],
+                                           iou_thres=iou), name).tolist()
+
+    spec = zoo.get_spec("yolov7-w6", nc=c["nc"])
+    sd = random_state_dict(spec, seed=0, gain=DETECTOR_GAIN)
+    sharpen_heads(sd, spec)
+    pipe = TrackingPipeline(
+        PipelineConfig(model="yolov7-w6", nc=c["nc"], img_size=c["img"],
+                       detector_batch=c["b"], dtype="bfloat16",
+                       conf_thres=0.01, iou_thres=c["iou_thres"],
+                       max_det=c["max_det"], nms_top_k=c["k"]),
+        S.TrackerConfig(tracker="bytetrack", capacity=256, det_capacity=300),
+        state_dict=sd, spec=spec, device=dev)
+    frames_u8 = np.stack(offline_frames()[:c["b"]])
+    frames = torch.from_numpy(frames_u8).to(dev)
+    src_hw = tuple(frames.shape[1:3])
+    out_hw, unpad_hw = pipe._geometry(src_hw)
+    with torch.no_grad():
+        imgs, _ = letterbox.device_preprocess(
+            frames, src_hw, out_hw, unpad_hw=unpad_hw, dtype=pipe.dtype)
+        raw = pipe.model(imgs)
+    kept = []
+    plain_suppress = nms_mod.suppress
+
+    def recorded(*a, **k):
+        kept.append(a)
+        return plain_suppress(*a, **k)
+
+    nms_mod.suppress = recorded
+    try:
+        with counting() as got:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                dets, counts = pipe.nms(raw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+    finally:
+        nms_mod.suppress = plain_suppress
+    args = kept[-1]
+    want = nms_mod.suppress_plain(*args, **kw)
+    if (got["launches.k6"] != 1 or got["host_syncs.nms"]
+            or not torch.equal(counts, want[1])
+            or not torch.equal(dets, want[0])):
+        raise AssertionError(
+            f"K6 through pipe.nms on w6: {got['launches.k6']} launches, "
+            f"{got['host_syncs.nms']} host syncs, counts {counts.tolist()} "
+            f"against {want[1].tolist()}")
+    with counting() as got:
+        pipe.detect_batch(frames_u8)
+        torch.cuda.synchronize()
+    if got["launches.k6"] != 1 or got["host_syncs.nms"]:
+        raise AssertionError(
+            f"detect_batch: {got['launches.k6']} K6 launches (expected 1), "
+            f"{got['host_syncs.nms']} host_syncs.nms (expected 0)")
+    log(f"K6 through pipe.nms on w6's raw levels: bit for bit the plain "
+        f"version, kept {counts.tolist()}, one launch, no host sync; "
+        f"detect_batch: one K6 launch, no host_syncs.nms")
+
+    b, k = args[2].shape
+    bound = (b * k * K6_BYTES_IN + b * c["max_det"] * K6_BYTES_OUT
+             + 8 * b) / HBM_BYTES_PER_S * 1e3
+    t_kernel = k6_kernel_ms(args, kw)
+    t_sorted = graph_ms(lambda: nms_mod.suppress_cuda(*args, **kw))
+    t_sort = graph_ms(lambda: nms_mod.sorted_top_k(args[2], k))
+    t_wrapper = cuda_ms(lambda: nms_mod.suppress_cuda(*args, **kw), 50)
+    t_plain = cuda_ms(lambda: nms_mod.suppress_plain(*args, **kw), 3)
+    with torch.no_grad():
+        t_nms = cuda_ms(lambda: pipe.nms(raw), 20)
+        nms_mod.suppress = nms_mod.suppress_plain
+        try:
+            t_nms_plain = cuda_ms(lambda: pipe.nms(raw), 3)
+        finally:
+            nms_mod.suppress = plain_suppress
+    t_lib = library_nms_ms(args, kw)
+    rec = {"name": "nms_k6", "route": "cuda", "source": SOURCE_K6,
+           "replaces": REPLACES_K6, "launches_a_batch": 1,
+           "b": b, "k": k, "max_det": c["max_det"],
+           "kept_w6": counts.tolist(), "kept_seeded": seeded,
+           "ms": t_kernel, "bound_ms": bound, "bound_by": "bytes",
+           "share_of_bound": bound / t_kernel,
+           "with_sort_ms": t_sorted, "sort_ms": t_sort,
+           "wrapper_ms": t_wrapper, "plain_ms": t_plain,
+           "nms_ms_a_batch": t_nms, "nms_plain_ms_a_batch": t_nms_plain,
+           "library_ms": t_lib, "card": card_line()}
+    log(f"K6 at B = {b}, K = {k}, max_det {c['max_det']} on {rec['card']}: "
+        f"{t_kernel * 1e3:.1f} us (bound {bound * 1e3:.3f} us, bytes), "
+        f"with the sort {t_sorted * 1e3:.1f} us (sort {t_sort * 1e3:.1f}), "
+        f"through the wrapper {t_wrapper * 1e3:.1f} us; plain version "
+        f"{t_plain:.2f} ms; pipe.nms {t_nms:.3f} ms a batch (plain "
+        f"{t_nms_plain:.2f} ms); torchvision batched_nms (library_ms) "
+        f"{t_lib}")
+    return rec
+
+
+def k6_only(dev):
+    """The short run behind --k6-only: build csrc/nms.cu and run
+    k6_phase."""
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    build_kernels([(nms_mod, SOURCE_K6, ())])
+    print(json.dumps({"kernels": [k6_phase(dev)]}))
+    log("k6-only run done (not the smoke run: no result line)")
+    return 0
+
+
 def main(argv=None):
     import argparse
 
@@ -6580,6 +6859,8 @@ def main(argv=None):
                          "and check K4's cascade entry")
     ap.add_argument("--k5-only", action="store_true",
                     help="only build, check and time K5, the DeepSORT CNN")
+    ap.add_argument("--k6-only", action="store_true",
+                    help="only build, check and time K6, NMS's keep set")
     ap.add_argument("--train-only", action="store_true",
                     help="only phase 10 (training and the detector test)")
     ap.add_argument("--train2-only", action="store_true",
@@ -6616,6 +6897,8 @@ def main(argv=None):
         return k2_only(dev, args.problems, args.cascade_problems)
     if args.k5_only:
         return k5_only(dev)
+    if args.k6_only:
+        return k6_only(dev)
     if args.train_only:
         print(json.dumps({"train": train_phase(dev)}))
         log("train-only run done (not the smoke run: no result line)")
@@ -6644,14 +6927,17 @@ def main(argv=None):
     if os.path.isfile(os.path.join(OUT_DIR, "chip_smoke.log")):
         os.remove(os.path.join(OUT_DIR, "chip_smoke.log"))
     from yolov7_tracker_tpu_torch.ops import deepsort_cnn as k5
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
 
     build_kernels([(auction, SOURCE, ()), (square, SOURCE_SQUARE, ()),
                    (auction, SOURCE, (True,)),
-                   (square, SOURCE_SQUARE, (True,)), (k5, SOURCE_K5, ())])
+                   (square, SOURCE_SQUARE, (True,)), (k5, SOURCE_K5, ()),
+                   (nms_mod, SOURCE_K6, ())])
 
     worst = kernel_phase(dev)
     k4_seeded = k4_batch_timings(dev)
     worst_sq, t_k1, t_k3 = square_phase(dev)
+    rec_k6 = k6_phase(dev)
     sd, pipe = build_w6(dev)
     launches, k2_launches, solves, main_ms = main_phase(pipe, dev)
     k3_launches, k4_serving, serve_last = serving_phase(sd, pipe, dev)
@@ -6775,7 +7061,7 @@ def main(argv=None):
     for line in ({"trackers": trackers}, {"train": train}, {"train2": train2},
                  {"models": models}, {"parallel": parallel},
                  {"kernels": [rec_k1, record, rec_k3, rec_k4,
-                              rec_cascade, rec_k5]}):
+                              rec_cascade, rec_k5, rec_k6]}):
         keep(json.dumps(line))
     keep(card_line())
     print(json.dumps({"ok": True, "device": {

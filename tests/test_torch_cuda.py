@@ -28,7 +28,7 @@ def card():
 
 
 def launches(kernel: str) -> int:
-    """The launches of ``kernel`` (k1, k2, k3, k4, k4_cascade, k5) the
+    """The launches of ``kernel`` (k1, k2, k3, k4, k4_cascade, k5, k6) the
     tracer has counted."""
     return trace.counters().get("launches." + kernel, 0)
 
@@ -1107,6 +1107,137 @@ def test_multi_label_nms_on_the_card_equals_the_cpu(card):
         np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
                                    rtol=0, atol=1e-4)
         assert int(want[1].min()) > 0
+
+
+def _nms_problem(rng, b, k, max_det, nc=10, agnostic=False, live=0.8):
+    """A seeded batch for ops/nms.suppress: boxes 24-120 px on a 1280 x
+    768 canvas, tied scores (every fifth the one before it) and repeated
+    boxes (every seventh), ``1 - live`` of the scores -1."""
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    xy = rng.uniform(0, [1280, 768], (b, k, 2))
+    sel = np.concatenate([xy, xy + rng.uniform(24, 120, (b, k, 2))], -1)
+    sel[:, 3::7] = sel[:, 2::7][:, :sel[:, 3::7].shape[1]]
+    score = rng.uniform(0, 1, (b, k))
+    score[:, 1::5] = score[:, 0::5][:, :score[:, 1::5].shape[1]]
+    score[rng.random((b, k)) >= live] = -1.0
+    cls = rng.integers(0, nc, (b, k)).astype(np.float32)
+    sel = torch.from_numpy(sel.astype(np.float32))
+    cls = torch.from_numpy(cls)
+    off = sel if agnostic else sel + cls[..., None] * nms_mod.MAX_WH
+    return sel, off, torch.from_numpy(score.astype(np.float32)), cls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,max_det,iou,agnostic,live", [
+    (8, 2048, 300, 0.45, False, 0.8),       # the cells' shapes
+    (8, 2048, 300, 0.65, True, 1.0),
+    (8, 2048, 20, 0.45, False, 1.0),        # more survivors than max_det
+    (3, 8192, 300, 0.65, False, 1.0),       # cli/test.py's top_k
+    (2, 8192, 4000, 0.3, False, 1.0),       # kept list past 48 KB
+    (1, 37, 300, 0.45, False, 0.9),         # less than a chunk
+    (4, 512, 300, 0.45, False, 0.0)])       # nothing over the threshold
+def test_k6_equals_plain_version(card, b, k, max_det, iou, agnostic, live):
+    """K6 (ops/nms.suppress_cuda) bit for bit the plain version on the
+    card, rows and counts; one launch a call, and no host sync (sync
+    debug mode 'error'); NaN and infinite coordinates of the boxes it
+    tests give the plain version's IoUs (PyTorch's NaN rules in the min,
+    max and clamp); a NaN score ends the walk as it ends the plain
+    version's loop."""
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+
+    rng = np.random.default_rng(b * k + max_det)
+    args = [t.to(card) for t in _nms_problem(rng, b, k, max_det,
+                                             agnostic=agnostic, live=live)]
+    kw = dict(max_det=max_det, iou_thres=iou)
+    for case in ("finite", "non-finite boxes", "nan score"):
+        if case == "non-finite boxes":
+            off = args[1].clone()           # the rows keep finite boxes
+            off[:, 0::11, 0] = float("nan")
+            off[:, 5::13, 2] = float("inf")
+            off[:, 6::13, 2] = float("inf")
+            off[:, 7::17, 0] = -float("inf")
+            off[:, 3::19, 3] = float("inf")
+            args[1] = off
+        nan = case == "nan score"
+        if nan:
+            args[2][0, k // 2] = float("nan")
+        want = nms_mod.suppress_plain(*args, **kw)
+        before = launches("k6")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = nms_mod.suppress_cuda(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert launches("k6") == before + 1
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+        if live > 0 and not nan:
+            assert int(got[1].min()) > 0
+    assert int(got[1][0]) == 0 and not got[0][0].any()
+
+
+@pytest.mark.cuda
+def test_k6_through_pipe_nms_and_detect_batch_on_w6(card):
+    """yolov7-w6 at the cells' configuration (10 classes, 1280 px, bf16,
+    batches of 8, conf 0.01, top-K 2048, max_det 300) with seeded,
+    head-sharpened weights: ``pipe.nms`` on the raw levels of 8 frames
+    gives K6's rows bit for bit the plain version's on the same decoded
+    candidates, without a host sync; ``detect_batch`` launches K6 once a
+    batch and counts no ``host_syncs.nms``."""
+    from yolov7_tracker_tpu_torch.data import letterbox
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.yolo import (random_state_dict,
+                                                      sharpen_heads)
+    from yolov7_tracker_tpu_torch.ops import nms as nms_mod
+    from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                   TrackingPipeline)
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    spec = zoo.get_spec("yolov7-w6", nc=10)
+    sd = random_state_dict(spec, seed=0, gain=1.6)
+    sharpen_heads(sd, spec)
+    pipe = TrackingPipeline(
+        PipelineConfig(model="yolov7-w6", nc=10, img_size=1280,
+                       detector_batch=8, dtype="bfloat16", conf_thres=0.01,
+                       max_det=300, nms_top_k=2048),
+        S.TrackerConfig(tracker="bytetrack", capacity=256, det_capacity=300),
+        state_dict=sd, spec=spec, device=card)
+    rng = np.random.default_rng(5)
+    frames = torch.from_numpy(
+        rng.integers(0, 255, (8, 1080, 1920, 3), np.uint8)).to(card)
+    out_hw, unpad_hw = pipe._geometry((1080, 1920))
+    with torch.no_grad():
+        imgs, _ = letterbox.device_preprocess(
+            frames, (1080, 1920), out_hw, unpad_hw=unpad_hw, dtype=pipe.dtype)
+        raw = pipe.model(imgs)
+    seen = []
+    plain = nms_mod.suppress
+
+    def recorded(*args, **kw):
+        seen.append((args, kw))
+        return plain(*args, **kw)
+
+    nms_mod.suppress = recorded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pipe.nms(raw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        nms_mod.suppress = plain
+    (args, kw), = seen
+    assert args[2].shape == (8, 2048)
+    want = nms_mod.suppress_plain(*args, **kw)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert int(got[1].min()) > 0
+
+    # (the plain version above counted its own reads)
+    k6, syncs = launches("k6"), trace.counters().get("host_syncs.nms", 0)
+    pipe.detect_batch(frames)
+    torch.cuda.synchronize()
+    assert launches("k6") == k6 + 1
+    assert trace.counters().get("host_syncs.nms", 0) == syncs
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ batches of ``detector_batch`` frames in the sequence modes), the DetSlab
 of ``_det_slab`` (trackers/slab.make_det_slab's layout, the warp, the
 ReID features), and the tracker's steps (trackers/registry.scan, the JAX
 ``lax.scan`` as a Python loop). Everything stays on the device except the
-NMS loop conditions and the packed per-batch outputs. The sequence modes
+packed per-batch outputs: on the card NMS's keep set is kernel K6, one
+launch a batch (on the CPU its plain version reads its loop conditions).
+The sequence modes
 (``run_sequence*``, ``process_batch``, ``track_frames``) solve stage 1
 with the trackers' solver (kernel K4), the streaming modes
 (``step_frame``, ``process_multistream``, ``track_scan_multi``) with
