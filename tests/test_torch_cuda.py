@@ -5,7 +5,9 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import copy
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -705,6 +707,9 @@ _SYNC_CASES = {
                         dhn_weights="weights/dhn_h32.msgpack", dhn_hidden=32),
     "deepmot_sinkhorn": dict(tracker="deepmot", dhn_arch="sinkhorn",
                              dhn_weights="weights/dhn_sinkhorn.msgpack"),
+    "deepmot_gru_h256": dict(tracker="deepmot",
+                             dhn_weights="perfbench/weights/dhn_gru_h256.pth",
+                             dhn_hidden=256),
 }
 
 
@@ -1866,3 +1871,168 @@ def test_one_capture_a_signature(card):
     assert len(step.func.__wrapped__.graphs) == 2
     want, _ = _stepped(eager, S.init_slab(cfg, card), dets)
     _assert_bitwise(got, want)
+
+
+# ---------------------------------------------------------------------------
+# DeepMOT's GRU DHN at its published widths (the cell
+# deepmot-gru-h256.video)
+# ---------------------------------------------------------------------------
+
+DHN_H256 = _SYNC_CASES["deepmot_gru_h256"]["dhn_weights"]
+# The DHN's scores on the card (float32, TF32 off, cuDNN's GRU) against
+# the benchmark's float64 reference: float32 rounding through the 24,576
+# dependent GRU steps of a 128 x 48 cost reads at most 3.6e-7 (each new
+# state is a convex blend of the old one and a tanh, so the error does
+# not grow along the sequence); TF32 reads 1.6e-5-2.1e-5 and bfloat16
+# 1.7e-3-6.0e-3 (the benchmark's weights on the tracker's own costs,
+# NVIDIA H100, torch 2.11).
+DHN_TOL = 1e-5
+
+
+def _tracker_costs(n: int, seed: int, rows: int = 128, cols: int = 48):
+    """``n`` costs as deepmot hands them to its DHN: a pool of tracks
+    against detections near most of them on the centre + IoU blend, at
+    the top-left, padded with 1.0; float32 values in float64."""
+    from perfbench.reference.trackers.deepmot import ecu_iou_distance
+
+    rng = np.random.default_rng(seed)
+    out = np.full((n, rows, cols), 1.0)
+    for c in out:
+        p, k = int(rng.integers(30, 100)), int(rng.integers(20, cols + 1))
+        xy = rng.uniform([0, 0], [1800, 1000], (p, 2))
+        tlbr = np.c_[xy, xy + rng.uniform([20, 40], [80, 160], (p, 2))]
+        dets = tlbr[rng.permutation(p)[:k]] + rng.normal(0, 4, (k, 4))
+        c[:p, :k] = ecu_iou_distance(tlbr, dets)
+    return out.astype(np.float32).astype(np.float64)
+
+
+@pytest.mark.cuda
+def test_dhn_h256_on_the_card_equals_the_reference(card):
+    """The cell's DHN (hidden 256, the benchmark's weights file) on two
+    stacked 128 x 48 costs, as deepmot runs it (float32, TF32 off),
+    against perfbench/reference/dhn.py in float64 within DHN_TOL; in
+    bfloat16 it falls outside."""
+    from perfbench.reference import dhn as ref_dhn
+    from yolov7_tracker_tpu_torch.reid import dhn as dhn_mod
+    from yolov7_tracker_tpu_torch.reid import float32_exact
+
+    model = dhn_mod.load_dhn(DHN_H256, "gru", 256, card)
+    costs = _tracker_costs(2, 0)
+    want = ref_dhn.forward(ref_dhn.load(DHN_H256), costs).numpy()
+    x = torch.from_numpy(costs).float().to(card)
+    with torch.no_grad(), float32_exact():
+        got = model(x).double().cpu().numpy()
+        low = copy.deepcopy(model).bfloat16()(x.bfloat16()).double()
+    assert float(np.abs(got - want).max()) <= DHN_TOL
+    assert float(np.abs(low.cpu().numpy() - want).max()) > DHN_TOL
+    # the trained scores separate: few cells pass deepmot's gate
+    assert float((1.0 - want < 0.9).mean()) < 0.1
+
+
+@pytest.mark.cuda
+def test_deepmot_h256_step_replays_as_one_graph(card):
+    """deepmot at its registered sizes (128 tracks, 48 detection slots)
+    with the h256 DHN: captured once, every step a replay
+    (tracker_graph_share 100) with no host sync, no ``tracker.dhn`` span
+    inside a replay; bit for bit the eager step."""
+    from tests.step_scenes import det_slabs, scene
+    from yolov7_tracker_tpu_torch.trackers import registry
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    step, cfg = registry.build_tracker(S.TrackerConfig(
+        capacity=128, det_capacity=48, **_SYNC_CASES["deepmot_gru_h256"]),
+        card)
+    eager = functools.partial(registry._STEPS[cfg.tracker][0],
+                              **step.keywords)
+    dets = det_slabs(cfg, scene(11, 6), card)
+    trace.reset()
+    slab = S.init_slab(cfg, card)
+    got = []
+    for i, det in enumerate(dets):
+        if i:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            slab, out = step(slab, det)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got.append((slab, out))
+    totals, counts = trace.totals(), trace.counters()
+    assert _graph_counts() == {"captures": 1, "replays": 6, "eager": 0}
+    assert counts["tracker.graph_replays"] == totals["tracker"]["count"]
+    assert "tracker.dhn" not in totals
+    want, _ = _stepped(eager, S.init_slab(cfg, card), dets)
+    _assert_bitwise(got, want)
+    assert int(got[-1][1].valid.sum()) > 0
+
+
+# PyTorch's generic kernels, which the DHN shares with the rest of the
+# step, and the 32 x 32 float32 GEMM tile of the Kalman filter's products
+_SHARED_KERNELS = re.compile(r"at::native::|tilesize32x32x8|^Memcpy|^Memset")
+
+
+@pytest.mark.cuda
+def test_dhn_kernel_pattern_picks_the_dhn_alone(card):
+    """dhn_ms_per_frame's name pattern on the device ops as perfbench's
+    traced run reads them: it takes every kernel of the DHN alone (hidden
+    256 on 128 x 48) but the shared ones, which carry under 0.1% of its
+    time, and no kernel of a deepmot step without a DHN at the same sizes
+    or of yolov7-w6's detector batch at the cells' configuration."""
+    from perfbench.harness import trace as bench_trace
+    from perfbench.named import by_name
+    from tests.step_scenes import det_slabs, scene
+    from yolov7_tracker_tpu_torch.models import zoo
+    from yolov7_tracker_tpu_torch.models.yolo import (random_state_dict,
+                                                      sharpen_heads)
+    from yolov7_tracker_tpu_torch.pipeline import (PipelineConfig,
+                                                   TrackingPipeline)
+    from yolov7_tracker_tpu_torch.reid import dhn as dhn_mod
+    from yolov7_tracker_tpu_torch.reid import float32_exact
+    from yolov7_tracker_tpu_torch.trackers import registry
+    from yolov7_tracker_tpu_torch.trackers import slab as S
+
+    pattern = by_name("metrics", "dhn_ms_per_frame").DHN
+
+    def device_ops(fn):
+        fn()
+        bench_trace.start()
+        fn()
+        return bench_trace.stop(set())["device_ops"]
+
+    model = dhn_mod.load_dhn(DHN_H256, "gru", 256, card)
+    cost = torch.from_numpy(_tracker_costs(1, 1)).float().to(card)
+
+    def dhn_alone():
+        with torch.no_grad(), float32_exact():
+            model(cost)
+
+    dhn = device_ops(dhn_alone)
+    missed = {n: s for n, s in dhn.items() if not pattern.search(n)}
+    assert all(_SHARED_KERNELS.search(n) for n in missed), missed
+    assert sum(missed.values()) < 1e-3 * sum(dhn.values())
+    assert {n for n in dhn if "elemWiseRNNcell" in n}
+
+    cfg = registry.resolve_config(S.TrackerConfig(
+        tracker="deepmot", capacity=128, det_capacity=48))
+    dets = det_slabs(cfg, scene(2, 4), card)
+    slab = S.init_slab(cfg, card)
+    for det in dets[:3]:
+        slab, _ = registry._STEPS["deepmot"][0](slab, det, cfg)
+    step_ops = device_ops(
+        lambda: registry._STEPS["deepmot"][0](slab, dets[3], cfg))
+
+    spec = zoo.get_spec("yolov7-w6", nc=10)
+    sd = random_state_dict(spec, seed=0, gain=1.6)
+    sharpen_heads(sd, spec)
+    pipe = TrackingPipeline(
+        PipelineConfig(model="yolov7-w6", nc=10, img_size=1280,
+                       detector_batch=8, dtype="bfloat16", conf_thres=0.01,
+                       max_det=300, nms_top_k=2048),
+        S.TrackerConfig(tracker="deepmot", capacity=128, det_capacity=48),
+        state_dict=sd, spec=spec, device=card)
+    frames = np.random.default_rng(5).integers(0, 255, (8, 1080, 1920, 3),
+                                               np.uint8)
+    det_ops = device_ops(lambda: pipe.detect_batch(frames))
+    for ops in (step_ops, det_ops):
+        assert len(ops) > 20
+        assert not [n for n in ops if pattern.search(n)]

@@ -88,7 +88,9 @@ def parse_args(argv=None):
                    help="embed only the top-K score-ordered dets per frame "
                         "(0 = all det_capacity)")
     p.add_argument("--dhn_path", type=str, default="",
-                   help="DeepMOT: trained DHN weights (Flax msgpack, e.g. "
+                   help="DeepMOT: trained DHN weights, a torch checkpoint "
+                        "(.pth / .pt: the reference's DHN.pth, Munkrs's "
+                        "state dict) or a Flax msgpack (e.g. "
                         "weights/dhn_h32.msgpack); without them deepmot "
                         "matches on the raw centre + IoU cost")
     p.add_argument("--conf_thresh", type=float, default=0.2)

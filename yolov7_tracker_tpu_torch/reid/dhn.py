@@ -147,20 +147,43 @@ def uncompact(mat: torch.Tensor, rperm, cperm) -> torch.Tensor:
     return _permute(mat, rinv, cinv)
 
 
+TORCH_SUFFIXES = (".pth", ".pt")
+
+
+def _torch_state_dict(path: str) -> dict:
+    """The DHN's state dict from a torch checkpoint (the reference's
+    ``DHN.pth``: ``Munkrs``'s state dict, whose names the port's ``DHN``
+    keeps): a bare state dict or one under ``state_dict``, with the
+    ``module.`` of a DataParallel wrapper stripped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(sd, dict):
+        raise ValueError(f"{path}: not a state dict")
+    if isinstance(sd.get("state_dict"), dict):
+        sd = sd["state_dict"]
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in sd.items()}
+
+
 def load_dhn(path: str, arch: str, hidden: int = HIDDEN,
              device=None) -> nn.Module:
-    """A trained DHN from a Flax msgpack file (the JAX package's
-    ``save_variables`` / train/dhn_train.py output, or the port's) on
-    ``device`` (None: the card; raises without one), in eval mode. Raises
-    if the file is missing or its variables do not fit ``build_dhn(arch,
-    hidden)``."""
+    """A trained DHN on ``device`` (None: the card; raises without one), in
+    eval mode, from a torch checkpoint (``.pth`` / ``.pt``, see
+    ``_torch_state_dict``; every GRU bias loads as it stands) or a Flax
+    msgpack file (the JAX package's ``save_variables`` /
+    train/dhn_train.py output). Raises if the file is missing or its
+    weights do not fit ``build_dhn(arch, hidden)``."""
     from .. import resolve_device
-    from ..models.from_jax import dhn_state_dict
-    from ..utils.flax_msgpack import load_variables
 
     device = resolve_device(device)
     model = build_dhn(arch, hidden)
-    model.load_state_dict(dhn_state_dict(load_variables(path), arch))
+    if path.endswith(TORCH_SUFFIXES):
+        sd = _torch_state_dict(path)
+    else:
+        from ..models.from_jax import dhn_state_dict
+        from ..utils.flax_msgpack import load_variables
+
+        sd = dhn_state_dict(load_variables(path), arch)
+    model.load_state_dict(sd)
     model = model.to(device).eval()
     for m in model.modules():
         if isinstance(m, nn.GRU):

@@ -13,6 +13,11 @@ conf_thresh + 0.1, prune lost, dedup.
 
 Reference quirk kept: step 4 marks lost the pool members at the
 u_tracks0-relative positions (slab.misindexed_lost_mask).
+
+Tracing (utils/trace.py): the span ``tracker.dhn`` around the DHN's
+compaction, network and uncompaction, on the row of spans that
+``cli/track.py --profile`` writes beside the kernels; it opens in eager
+steps only (inside a replayed graph the DHN's kernels run in the graph).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from ..ops import boxes as boxops
 from ..ops.assignment import solve_assignment
 from ..reid import float32_exact
 from ..reid import dhn as dhn_mod
+from ..utils import trace
 from . import slab as S
 from .bytetrack import solve_pair
 from .registry import register
@@ -72,11 +78,12 @@ def deepmot_step(slab: S.TrackSlab, dets: S.DetSlab, cfg: S.TrackerConfig,
     # stage 1: ecu + iou -> DHN -> match 1 - DHN @0.9
     cost = ecu_iou_distance(slab, dets, fmt)
     if dhn is not None:
-        comp, rperm, cperm = dhn_mod.compact_cost(cost, pmask, high,
-                                                  row_key=pool_rank)
-        with torch.no_grad(), float32_exact():
-            scores = dhn(comp)
-        cost = 1.0 - dhn_mod.uncompact(scores, rperm, cperm)
+        with trace.span("tracker.dhn", cost):
+            comp, rperm, cperm = dhn_mod.compact_cost(cost, pmask, high,
+                                                      row_key=pool_rank)
+            with torch.no_grad(), float32_exact():
+                scores = dhn(comp)
+            cost = 1.0 - dhn_mod.uncompact(scores, rperm, cperm)
     r2c, c2r = solve_stage1(cost, pmask, high, 0.9)
     was_tracked = slab.state == S.TRACKED
     slab = S.apply_matches(slab, dets, r2c, fmt, cfg, pool_rank=pool_rank)

@@ -32,8 +32,9 @@ The tracer (utils/trace.py): the warm-up and the capture record nothing
 (``trace.aside``); the counts the capture made (``launches.k4``,
 ``launches.k4_cascade``, ``launches.k1`` / ``k3``) are credited again on
 each replay, so a replayed step counts the launches the eager one does.
-The spans inside the step (``tracker.kalman``, ``tracker.solve``) do not
-open in a replay: their kernels run inside the graph. Counters:
+The spans inside the step (``tracker.kalman``, ``tracker.solve``,
+deepmot's ``tracker.dhn``) do not open in a replay: their kernels run
+inside the graph. Counters:
 ``tracker.graph_captures``, ``tracker.graph_replays`` and
 ``tracker.graph_eager`` (calls run eagerly).
 """

@@ -8,7 +8,9 @@ random distance matrices labelled by the exact Hungarian solution, a
 weighted focal BCE per cell. This module trains the port's
 ``reid/dhn.build_dhn`` by that recipe with Adam and writes the weights as
 a Flax msgpack file, which ``reid/dhn.load_dhn`` (``--dhn_path``) and the
-JAX package's ``checkpoint.load_variables`` both read:
+JAX package's ``checkpoint.load_variables`` both read, or, for an
+``--out`` ending in ``.pth`` / ``.pt``, as a torch state dict, which
+``load_dhn`` reads:
 
     python -m yolov7_tracker_tpu_torch.train.dhn_train --device cuda \\
         --steps 2000 --out dhn.msgpack
@@ -217,8 +219,15 @@ def eval_dhn(model: nn.Module, n: int = 64, h: int = 32, w: int = 32,
 
 
 def save_dhn(path: str, model: nn.Module, arch: str) -> str:
-    """The model's weights as a Flax msgpack file (the JAX DHN's variable
-    tree)."""
+    """The model's weights as a torch state dict where ``path`` ends in
+    ``.pth`` or ``.pt`` (the reference's ``DHN.pth`` format), else as a
+    Flax msgpack file (the JAX DHN's variable tree)."""
+    from ..reid.dhn import TORCH_SUFFIXES
+
+    if path.endswith(TORCH_SUFFIXES):
+        torch.save({k: v.detach().cpu() for k, v in
+                    model.state_dict().items()}, path)
+        return path
     from ..models.from_jax import dhn_variables
     from ..utils.flax_msgpack import save_variables
 
